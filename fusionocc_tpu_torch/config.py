@@ -1,0 +1,276 @@
+"""Typed configuration for the PyTorch port of FusionOcc.
+
+A field-for-field mirror of ``fusionocc_tpu/config.py`` that imports no JAX:
+the same frozen dataclasses, defaults and presets, so a configuration built
+here equals the reference package's field by field.  Derived sizes are
+properties; ``GridConfig.lower_bound`` / ``interval`` return plain tuples and
+``ModelConfig.dtype`` a ``torch.dtype``.
+
+Fields that only the JAX package acts on (LiDAR capacities and backends,
+remat and fusion switches) are kept so that configurations compare equal.
+``check_supported`` rejects the values that would select a path the port
+does not have yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Tuple
+
+import torch
+
+
+@dataclass(frozen=True)
+class GridConfig:
+    """BEV/voxel grid bounds (x, y, z: lo, hi, step; depth bins likewise)."""
+    x: Tuple[float, float, float] = (-40.0, 40.0, 0.4)
+    y: Tuple[float, float, float] = (-40.0, 40.0, 0.4)
+    z: Tuple[float, float, float] = (-1.0, 5.4, 0.4)
+    depth: Tuple[float, float, float] = (1.0, 45.0, 0.5)
+
+    @property
+    def size_x(self) -> int:
+        return int(round((self.x[1] - self.x[0]) / self.x[2]))
+
+    @property
+    def size_y(self) -> int:
+        return int(round((self.y[1] - self.y[0]) / self.y[2]))
+
+    @property
+    def size_z(self) -> int:
+        return int(round((self.z[1] - self.z[0]) / self.z[2]))
+
+    @property
+    def num_depth_bins(self) -> int:
+        lo, hi, step = self.depth
+        return int(round((hi - lo) / step))
+
+    @property
+    def lower_bound(self) -> Tuple[float, float, float]:
+        return (self.x[0], self.y[0], self.z[0])
+
+    @property
+    def interval(self) -> Tuple[float, float, float]:
+        return (self.x[2], self.y[2], self.z[2])
+
+    @property
+    def grid_size(self):
+        return (self.size_x, self.size_y, self.size_z)
+
+    @property
+    def point_cloud_range(self) -> Tuple[float, ...]:
+        return (self.x[0], self.y[0], self.z[0], self.x[1], self.y[1], self.z[1])
+
+
+@dataclass(frozen=True)
+class SwinConfig:
+    """Swin backbone (Swin-Base by default).
+
+    The port runs every stage through the window-attention op
+    (``ops/window_attn.py``) whatever ``fused_attn`` says: the JAX package's
+    unfused path differs from it only in storing scores in the compute dtype.
+    ``with_cp`` and ``drop_path_rate`` act in training only.
+    """
+    embed_dims: int = 128
+    depths: Tuple[int, ...] = (2, 2, 18, 2)
+    num_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    window_size: int = 12
+    patch_size: int = 4
+    mlp_ratio: int = 4
+    out_indices: Tuple[int, ...] = (2, 3)
+    qkv_bias: bool = True
+    drop_path_rate: float = 0.1
+    return_stereo_feat: bool = True
+    with_cp: bool = True
+    fused_attn: bool = True
+    fused_attn_max_heads: int = 32
+    int8_dense: bool = False
+
+    @property
+    def num_features(self) -> Tuple[int, ...]:
+        return tuple(self.embed_dims * 2 ** i for i in range(len(self.depths)))
+
+
+@dataclass(frozen=True)
+class SparseEncoderConfig:
+    """LiDAR sparse encoder.  Not ported yet (ROADMAP Queue A item 5); the
+    fields mirror the JAX package so configurations compare equal."""
+    in_channels: int = 5
+    base_channels: int = 16
+    encoder_channels: Tuple[Tuple[int, ...], ...] = (
+        (16, 16, 32), (32, 32, 48), (48, 48, 64), (64, 64))
+    output_channels: int = 32
+    voxel_size: Tuple[float, float, float] = (0.05, 0.05, 0.05)
+    point_capacity: int = 2 ** 17
+    voxel_capacity: Tuple[int, ...] = (2 ** 17, 196608, 98304, 49152)
+    backend: str = 'zfold'
+    gather: str = 'row'
+    index: str = 'table'
+    tile_size: int = 8
+    tile_capacity: Tuple[int, ...] = (2 ** 14, 2 ** 13, 2 ** 12, 1250)
+    zfold: int = 8
+    zfold_capacity: Tuple[int, ...] = (81920, 86016, 73728, 32768)
+    tap_chunk: int = 9
+    zconv: str = 'zwin'
+    zwin_block: int = 128
+    zwin_nwin: int = 6
+    zwin_bad_frac: float = 0.03125
+    zwin_merged: bool = False
+    zwin_fuse: bool = False
+    col_chunk: int = 3
+    dense_from: int = 3
+    dense_mode: str = 'zbatch'
+    stop_after: str = ''
+    profile_no_bn: bool = False
+    remat_conv: bool = True
+
+    def sparse_shape(self, grid: GridConfig) -> Tuple[int, int, int]:
+        pcr = grid.point_cloud_range
+        return (
+            int(round((pcr[3] - pcr[0]) / self.voxel_size[0])),
+            int(round((pcr[4] - pcr[1]) / self.voxel_size[1])),
+            int(round((pcr[5] - pcr[2]) / self.voxel_size[2])),
+        )
+
+
+@dataclass(frozen=True)
+class ViewTransformerConfig:
+    """CrossModalLSS."""
+    in_channels: int = 256
+    mid_channels: int = 128
+    feature_channels: int = 32
+    seg_num_classes: int = 18
+    downsample: int = 16
+    aspp_mid_channels: int = 96
+    depth_drop_rate: float = 0.5
+    sid: bool = False
+    collapse_z: bool = False
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Full FusionOcc model."""
+    num_cams: int = 6
+    num_adj: int = 1
+    input_size: Tuple[int, int] = (512, 1408)
+    num_classes: int = 18
+    grid: GridConfig = field(default_factory=GridConfig)
+    swin: SwinConfig = field(default_factory=SwinConfig)
+    lidar: SparseEncoderConfig = field(default_factory=SparseEncoderConfig)
+    vt: ViewTransformerConfig = field(default_factory=ViewTransformerConfig)
+    img_neck_out_channels: int = 256
+    img_channels: int = 32
+    lidar_out_channels: int = 32
+    bev_num_layer: Tuple[int, ...] = (1, 2, 3)
+    bev_strides: Tuple[int, ...] = (1, 2, 2)
+    use_mask: bool = True
+    use_lidar: bool = True
+    mask_mode: str = 'baseline_with_mask'
+    mask_dist_threshold_c: float = 35.0
+    temperature: float = 1.0
+    use_predicter: bool = True
+    fuse_loss_weight: float = 0.1
+    depth_loss_weight: float = 1.0
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat_bev: bool = False
+
+    @property
+    def num_frame(self) -> int:
+        return self.num_adj + 1
+
+    @property
+    def feat_size(self) -> Tuple[int, int]:
+        return (self.input_size[0] // self.vt.downsample,
+                self.input_size[1] // self.vt.downsample)
+
+    @property
+    def fusion_channels(self) -> int:
+        """Channels entering the BEV encoder: image frames + lidar."""
+        return self.img_channels * self.num_frame + self.lidar_out_channels
+
+    @property
+    def occ_channels(self) -> int:
+        return self.img_channels + self.lidar_out_channels
+
+    @property
+    def bev_channels(self) -> Tuple[int, ...]:
+        c = self.occ_channels
+        return (c, c * 2, c * 4)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a configuration that selects a path the
+    port does not have yet, naming the ROADMAP item that brings it."""
+    if cfg.use_lidar:
+        raise NotImplementedError(
+            'use_lidar=True needs the LiDAR sparse encoder and the zwin '
+            'kernel, not ported yet (ROADMAP Queue A item 5); use '
+            'use_lidar=False (image_only_model_config)')
+    if cfg.swin.int8_dense:
+        raise NotImplementedError(
+            'swin.int8_dense=True (int8 serving) is not ported yet '
+            '(ROADMAP Queue A item 12)')
+    if cfg.param_dtype != 'float32':
+        raise NotImplementedError(
+            f'param_dtype={cfg.param_dtype!r}: the port keeps parameters in '
+            'float32, as the JAX package does')
+
+
+def tiny_model_config(**overrides) -> ModelConfig:
+    """A scaled-down config used by unit tests (CPU-friendly)."""
+    grid = GridConfig(
+        x=(-8.0, 8.0, 0.8), y=(-8.0, 8.0, 0.8), z=(-1.0, 2.2, 0.8),
+        depth=(1.0, 9.0, 1.0))
+    swin = SwinConfig(
+        embed_dims=16, depths=(1, 1, 2, 1), num_heads=(1, 2, 4, 8),
+        window_size=4, drop_path_rate=0.0, with_cp=False, fused_attn=False)
+    lidar = SparseEncoderConfig(
+        in_channels=5, base_channels=4,
+        encoder_channels=((4, 4, 8), (8, 8, 12), (12, 12, 16), (16, 16)),
+        output_channels=8,
+        voxel_size=(0.1, 0.1, 0.1),
+        point_capacity=2048,
+        voxel_capacity=(1024, 512, 256, 128),
+        tile_capacity=(512, 256, 64, 16),
+        zfold_capacity=(1024, 512, 256, 128),
+        backend='coo', index='merge', remat_conv=False, tap_chunk=0)
+    vt = ViewTransformerConfig(
+        in_channels=32, mid_channels=16, feature_channels=8,
+        seg_num_classes=18, downsample=16, aspp_mid_channels=8)
+    cfg = ModelConfig(
+        num_cams=2, num_adj=1, input_size=(64, 128),
+        grid=grid, swin=swin, lidar=lidar, vt=vt,
+        img_neck_out_channels=32, img_channels=8, lidar_out_channels=8,
+        compute_dtype="float32")
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def midsize_model_config(**overrides) -> ModelConfig:
+    """Window-12 Swin on grids not divisible by 12, D=88 depth bins at
+    downsample 16: the full-size structural edges at a CPU-testable size."""
+    base = tiny_model_config()
+    swin = dataclasses.replace(
+        base.swin, embed_dims=32, depths=(1, 1, 2, 1),
+        num_heads=(1, 2, 4, 8), window_size=12)
+    lidar = dataclasses.replace(base.lidar, backend='zfold', zconv='zband')
+    grid = dataclasses.replace(base.grid, depth=(1.0, 45.0, 0.5))
+    cfg = dataclasses.replace(
+        base, input_size=(176, 352), swin=swin, lidar=lidar, grid=grid)
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def full_model_config(**overrides) -> ModelConfig:
+    cfg = ModelConfig()
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def image_only_model_config(**overrides) -> ModelConfig:
+    """The ``fusion_occ_image_only`` preset: the full model with zero LiDAR
+    features (the reference's image-only fallback)."""
+    cfg = full_model_config(use_lidar=False)
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg

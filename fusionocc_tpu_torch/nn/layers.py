@@ -1,0 +1,191 @@
+"""Core building blocks, named as the reference's mmdet3d modules.
+
+Port of ``fusionocc_tpu/nn/layers.py`` for inference.  Attribute names follow
+the reference checkpoint (mmcv ConvModule ``conv``/``bn``, mmdet BasicBlock
+``conv1``/``bn1``/``conv2``/``bn2``, Sequential indices), so a reference
+``state_dict`` loads directly.
+
+Precision follows the JAX package: parameters stay float32; ``Linear`` and
+``Conv*`` cast them to the input's dtype and compute in it (bfloat16 at full
+size); ``LayerNorm`` and ``BatchNorm`` compute in float32 and return the
+input's dtype.  Tensors are NCHW / NCDHW inside these modules.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def _cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in the input's dtype."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in the input's dtype."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype))
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d computing in the input's dtype."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  _cast(self.bias, x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm in float32 over the last axis, eps 1e-6 (flax's default,
+    which the JAX package keeps; torch and mmcv use 1e-5)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(x.dtype)
+
+
+class BatchNorm(nn.modules.batchnorm._BatchNorm):
+    """Inference BatchNorm over axis 1 (any rank), eps 1e-5, in float32.
+
+    Normalises with the running statistics; training statistics are not
+    ported.  Keeps ``num_batches_tracked`` so reference checkpoints load.
+    """
+
+    def _check_input_dim(self, x):
+        if x.dim() < 2:
+            raise ValueError(f'BatchNorm expects (N, C, ...), got {x.shape}')
+
+    def forward(self, x):
+        self._check_input_dim(x)
+        return F.batch_norm(x.float(), self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0,
+                            self.eps).to(x.dtype)
+
+
+def conv_bn_relu(cin: int, cout: int) -> nn.Sequential:
+    """Sequential(3x3 conv, bn, relu): keys ``0.weight``, ``1.*``."""
+    return nn.Sequential(Conv2d(cin, cout, 3, 1, 1, bias=False),
+                         BatchNorm(cout), nn.ReLU())
+
+
+class ConvBN(nn.Module):
+    """mmcv ConvModule with Conv3d: ``conv`` (no bias) + ``bn`` + optional
+    ReLU, symmetric padding ``k // 2``.  (The slice's 2D ConvModules are
+    Sequential-named in the reference: ``conv_bn_relu``.)"""
+
+    def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
+                 act: bool = True):
+        super().__init__()
+        self.conv = Conv3d(cin, cout, k, stride, k // 2, bias=False)
+        self.bn = BatchNorm(cout)
+        self.act = act
+
+    def forward(self, x):
+        y = self.bn(self.conv(x))
+        return F.relu(y) if self.act else y
+
+
+class BasicBlock2D(nn.Module):
+    """mmdet BasicBlock with equal in/out channels: two 3x3 conv+BN, identity
+    residual, ReLU."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv1 = Conv2d(c, c, 3, 1, 1, bias=False)
+        self.bn1 = BatchNorm(c)
+        self.conv2 = Conv2d(c, c, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm(c)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return F.relu(y + x)
+
+
+class BasicBlock3D(nn.Module):
+    """3D residual block: ``conv1`` (3x3x3, stride, ReLU), ``conv2`` (3x3x3),
+    optional ``downsample`` ConvModule on the identity, then add + ReLU."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1,
+                 downsample: bool = False):
+        super().__init__()
+        self.conv1 = ConvBN(cin, cout, 3, stride, act=True)
+        self.conv2 = ConvBN(cout, cout, 3, 1, act=False)
+        self.downsample = (ConvBN(cin, cout, 3, stride, act=False)
+                           if downsample else None)
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        return F.relu(self.conv2(self.conv1(x)) + identity)
+
+
+class SELayer(nn.Module):
+    """Camera-aware squeeze-excite: x * sigmoid(expand(relu(reduce(x_se))))."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.conv_reduce = Conv2d(c, c, 1, bias=True)
+        self.conv_expand = Conv2d(c, c, 1, bias=True)
+
+    def forward(self, x, x_se):
+        g = self.conv_expand(F.relu(self.conv_reduce(x_se)))
+        return x * torch.sigmoid(g)
+
+
+class Mlp(nn.Module):
+    """Linear-ReLU-Linear."""
+
+    def __init__(self, cin: int, hidden: int, out: int):
+        super().__init__()
+        self.fc1 = Linear(cin, hidden)
+        self.fc2 = Linear(hidden, out)
+
+    def forward(self, x):
+        return self.fc2(F.relu(self.fc1(x)))
+
+
+class _AsppModule(nn.Module):
+    def __init__(self, cin: int, cout: int, k: int, dilation: int):
+        super().__init__()
+        self.atrous_conv = Conv2d(cin, cout, k, 1, 0 if k == 1 else dilation,
+                                  dilation=dilation, bias=False)
+        self.bn = BatchNorm(cout)
+
+    def forward(self, x):
+        return F.relu(self.bn(self.atrous_conv(x)))
+
+
+class ASPP(nn.Module):
+    """Atrous spatial pyramid pooling: dilations 1/6/12/18 and a global
+    average branch, concatenated, then 1x1 conv + BN + ReLU (the training
+    dropout is not ported)."""
+
+    def __init__(self, cin: int, mid: int):
+        super().__init__()
+        self.aspp1 = _AsppModule(cin, mid, 1, 1)
+        self.aspp2 = _AsppModule(cin, mid, 3, 6)
+        self.aspp3 = _AsppModule(cin, mid, 3, 12)
+        self.aspp4 = _AsppModule(cin, mid, 3, 18)
+        self.global_avg_pool = nn.Sequential(
+            nn.AdaptiveAvgPool2d((1, 1)), Conv2d(cin, mid, 1, bias=False),
+            BatchNorm(mid), nn.ReLU())
+        self.conv1 = Conv2d(mid * 5, cin, 1, bias=False)
+        self.bn1 = BatchNorm(cin)
+
+    def forward(self, x):
+        x4 = self.aspp4(x)
+        g = self.global_avg_pool(x).expand(-1, -1, *x4.shape[2:])
+        y = torch.cat([self.aspp1(x), self.aspp2(x), self.aspp3(x), x4, g], 1)
+        return F.relu(self.bn1(self.conv1(y)))

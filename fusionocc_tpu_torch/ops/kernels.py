@@ -1,0 +1,132 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface.  The first kernel call
+in a process compiles all of them with ``nvcc`` into one shared library under
+``fusionocc_tpu_torch/_build/`` (named by a hash of the sources and flags, so
+an edit rebuilds) and loads it with ``ctypes``.  Every pointer and the CUDA
+stream go over as ``c_void_p``; each C entry returns ``cudaGetLastError()``
+after its launch, and ``launch`` raises when that is not ``cudaSuccess``.
+
+``KERNELS.launches`` counts, per kernel, the launches that went through
+``launch``: a run resets the counts and reads them afterwards to show which
+kernels its path really used.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List, Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / 'csrc'
+BUILD_DIR = _PKG / '_build'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+# C entry point -> argument types (each returns an int cudaError_t)
+SIGNATURES: Dict[str, List] = {
+    # depth, feat, ranks_depth, ranks_feat, bounds, out, num_voxels, C, stream
+    'bev_pool_fwd': [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # q, k, v, bias, out, Bn, N, C, heads, head_dim, stride_win, stride_tok,
+    # nWh, nWw, w, shift, scale, dtype (0 f32, 1 bf16), stream
+    'window_attn_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
+                        _I, _I, _I, _I, _F, _I, _P],
+}
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: $PATH, then $CUDA_HOME/bin, then /usr/local/cuda/bin."""
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if root and os.path.isfile(os.path.join(root, 'bin', 'nvcc')):
+            return os.path.join(root, 'bin', 'nvcc')
+    raise RuntimeError(
+        'nvcc not found (looked in $PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)'
+        '; building the kernels needs: nvcc ' + ' '.join(NVCC_FLAGS)
+        + f' -o <lib>.so {CSRC}/*.cu')
+
+
+class KernelLibrary:
+    """The compiled ``csrc/*.cu`` library and its per-kernel launch counts."""
+
+    def __init__(self, build_dir: Path = BUILD_DIR):
+        self.build_dir = Path(build_dir)
+        self.launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
+        self.build_log = ''
+        self.build_seconds: Optional[float] = None
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def _sources(self) -> List[Path]:
+        return sorted(CSRC.glob('*.cu'))
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+        for src in self._sources():
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+        return self.build_dir / f'libfusionocc_kernels_{h.hexdigest()[:16]}.so'
+
+    def build(self) -> Path:
+        """Compile the sources unless a library of the same hash exists."""
+        path = self.library_path()
+        if path.exists():
+            return path
+        nvcc = find_nvcc()
+        self.build_dir.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f'.{os.getpid()}.tmp')
+        cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp),
+               *[str(s) for s in self._sources()]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f'kernel build failed ({proc.returncode}): '
+                               f'{" ".join(cmd)}\n{self.build_log[-4000:]}')
+        os.replace(tmp, path)
+        return path
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            lib = ctypes.CDLL(str(self.build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.fo_error_string.argtypes = [ctypes.c_int]
+            lib.fo_error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, name: str, *args) -> None:
+        """Call C entry ``name``; raise on a CUDA error, else count it."""
+        lib = self.load()
+        err = getattr(lib, name)(*args)
+        if err != 0:
+            msg = lib.fo_error_string(err).decode()
+            raise RuntimeError(f'{name}: CUDA error {err} ({msg})')
+        self.launches[name] += 1
+
+    def reset_counts(self) -> None:
+        for name in self.launches:
+            self.launches[name] = 0
+
+
+# One library per process, as there is one CUDA context per process.
+KERNELS = KernelLibrary()
+
+
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle (launch
+    with ``device`` current: a stream belongs to its device)."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,109 @@
+"""Shifted-window attention: the plain version and the CUDA kernel wrapper.
+
+Port of ``fusionocc_tpu/ops/pallas/window_attn.py`` (forward only).  Both
+versions compute, per window and head,
+
+    softmax_fp32(q * scale @ k^T + bias[h] + shift_mask) @ v
+
+with q, k, v of shape (Bn, N, C), heads packed in C, Bn = B * nWh * nWw and
+N = w * w; bias is (heads, N, N).  Scores and probabilities stay fp32 (the
+kernel's contract); the output has q's dtype.  The shift mask is mmcv's:
+-100 between tokens of different regions, which only the last window row and
+column have.
+
+``window_attention`` takes the plain version for CPU tensors and launches
+``csrc/window_attn.cu`` for CUDA tensors; it never falls back.
+"""
+from __future__ import annotations
+
+import torch
+
+from .kernels import KERNELS, stream_ptr
+
+MASK_VALUE = -100.0  # mmcv's masked_fill value
+KERNEL_HEAD_DIM = 32
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def shift_masks(nWh: int, nWw: int, w: int, shift: int,
+                device=None) -> torch.Tensor:
+    """(nWh * nWw, N, N) additive masks of the cyclic shift (zeros if 0)."""
+    n = w * w
+    if shift == 0:
+        return torch.zeros(nWh * nWw, n, n, device=device)
+    tok = torch.arange(n, device=device)
+    win = torch.arange(nWh * nWw, device=device)[:, None]
+    # region id per (window, token): only the last window row / column is
+    # split, at w - shift
+    ry = torch.where(tok // w < w - shift, 1, 2) * (win // nWw == nWh - 1)
+    rx = torch.where(tok % w < w - shift, 1, 2) * (win % nWw == nWw - 1)
+    rid = ry * 3 + rx                                    # (nW, N)
+    same = rid[:, :, None] == rid[:, None, :]
+    return torch.where(same, 0.0, MASK_VALUE).float()
+
+
+def window_attention_plain(q, k, v, bias, nWh: int, nWw: int, w: int,
+                           shift: int, heads: int) -> torch.Tensor:
+    """einsum + fp32 softmax version of the kernel."""
+    bn, n, c = q.shape
+    d = c // heads
+    scale = d ** -0.5
+    qh = q.float().reshape(bn, n, heads, d)
+    kh = k.float().reshape(bn, n, heads, d)
+    vh = v.float().reshape(bn, n, heads, d)
+    s = torch.einsum('bnhd,bmhd->bhnm', qh * scale, kh)
+    s = s + bias.float()[None]
+    if shift > 0:
+        nw = nWh * nWw
+        m = shift_masks(nWh, nWw, w, shift, q.device)
+        s = (s.view(bn // nw, nw, heads, n, n) + m[None, :, None]
+             ).view(bn, heads, n, n)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum('bhnm,bmhd->bnhd', p, vh)
+    return out.reshape(bn, n, c).to(q.dtype)
+
+
+def window_attention_cuda(q, k, v, bias, nWh: int, nWw: int, w: int,
+                          shift: int, heads: int) -> torch.Tensor:
+    """Launch ``window_attn_fwd``; q, k, v may be strided column slices."""
+    bn, n, c = q.shape
+    d = c // heads
+    if q.device.type != 'cuda':
+        raise ValueError(f'window_attention_cuda needs CUDA tensors, got '
+                         f'{q.device}')
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f'q, k, v must share dtype float32 or bfloat16, got '
+                        f'{q.dtype}, {k.dtype}, {v.dtype}')
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f'shape mismatch {q.shape} {k.shape} {v.shape}')
+    if (k.stride() != q.stride() or v.stride() != q.stride()
+            or q.stride(2) != 1):
+        raise ValueError('q, k, v need equal strides and a unit last stride, '
+                         f'got {q.stride()} {k.stride()} {v.stride()}')
+    if n != w * w or c != heads * d or d != KERNEL_HEAD_DIM:
+        raise ValueError(f'kernel takes N = w*w and head_dim '
+                         f'{KERNEL_HEAD_DIM}; got N={n}, w={w}, C={c}, '
+                         f'heads={heads}')
+    if n > 1024 or bn % (nWh * nWw) != 0:
+        raise ValueError(f'bad window grid: N={n}, Bn={bn}, nWh={nWh}, '
+                         f'nWw={nWw}')
+    bias = bias.float().contiguous()
+    if bias.shape != (heads, n, n) or bias.device != q.device:
+        raise ValueError(f'bias must be ({heads}, {n}, {n}) on {q.device}')
+    out = torch.empty((bn, n, c), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        KERNELS.launch(
+            'window_attn_fwd', q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            bias.data_ptr(), out.data_ptr(), bn, n, c, heads, d, q.stride(0),
+            q.stride(1), nWh, nWw, w, shift, d ** -0.5, _DTYPE_CODE[q.dtype],
+            stream_ptr(q.device))
+    return out
+
+
+def window_attention(q, k, v, bias, nWh: int, nWw: int, w: int, shift: int,
+                     heads: int) -> torch.Tensor:
+    """Plain version for CPU tensors, the CUDA kernel otherwise."""
+    if q.device.type == 'cpu':
+        return window_attention_plain(q, k, v, bias, nWh, nWw, w, shift,
+                                      heads)
+    return window_attention_cuda(q, k, v, bias, nWh, nWw, w, shift, heads)

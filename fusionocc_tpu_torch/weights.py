@@ -1,0 +1,206 @@
+"""Flax parameter trees -> the port's ``state_dict`` (reference key names).
+
+The inverse of ``fusionocc_tpu/train/torch_import.py`` (``build_rules``) for
+the modules this port has: Swin, FPN_LSS, CrossModalLSS, pre_process, the
+BEV encoder and the head.  The trees come in as nested dicts of numpy arrays,
+so nothing here imports JAX.  Each rule maps a flax leaf path to its torch
+key and the layout change (flax kernels are (..., in, out), torch's
+(out, in, ...)).  ``num_batches_tracked`` and ``relative_position_index``
+buffers, which flax does not keep, are filled in.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Tuple
+
+import numpy as np
+import torch
+
+from .config import ModelConfig
+from .nn.swin import relative_position_index
+
+
+def conv2d(w):  # (kh, kw, I, O) -> (O, I, kh, kw)
+    return np.transpose(w, (3, 2, 0, 1))
+
+
+def conv3d(w):  # (kd, kh, kw, I, O) -> (O, I, kd, kh, kw)
+    return np.transpose(w, (4, 3, 0, 1, 2))
+
+
+def linear(w):  # (I, O) -> (O, I)
+    return np.transpose(w, (1, 0))
+
+
+def ident(w):
+    return np.asarray(w)
+
+
+Rule = Tuple[str, Callable]     # (torch key, converter flax -> torch)
+Rules = Dict[str, Dict[str, Rule]]
+
+
+def _convbn(rules: Rules, fpath, tconv, tbn, nd):
+    rules['params'][f'{fpath}/Conv_0/kernel'] = (
+        f'{tconv}.weight', conv3d if nd == 3 else conv2d)
+    _bn(rules, f'{fpath}/BatchNorm_0/BatchNorm_0', tbn)
+
+
+def _bn(rules: Rules, fpath, tbn):
+    rules['params'][f'{fpath}/scale'] = (f'{tbn}.weight', ident)
+    rules['params'][f'{fpath}/bias'] = (f'{tbn}.bias', ident)
+    rules['batch_stats'][f'{fpath}/mean'] = (f'{tbn}.running_mean', ident)
+    rules['batch_stats'][f'{fpath}/var'] = (f'{tbn}.running_var', ident)
+
+
+def _conv(rules: Rules, fpath, tkey, nd, bias=True):
+    rules['params'][f'{fpath}/kernel'] = (f'{tkey}.weight',
+                                          conv3d if nd == 3 else conv2d)
+    if bias:
+        rules['params'][f'{fpath}/bias'] = (f'{tkey}.bias', ident)
+
+
+def _dense(rules: Rules, fpath, tkey, bias=True):
+    rules['params'][f'{fpath}/kernel'] = (f'{tkey}.weight', linear)
+    if bias:
+        rules['params'][f'{fpath}/bias'] = (f'{tkey}.bias', ident)
+
+
+def _ln(rules: Rules, fpath, tkey):
+    rules['params'][f'{fpath}/scale'] = (f'{tkey}.weight', ident)
+    rules['params'][f'{fpath}/bias'] = (f'{tkey}.bias', ident)
+
+
+def _basicblock2d(rules: Rules, fpath, tpath):
+    _convbn(rules, f'{fpath}/ConvBN_0', f'{tpath}.conv1', f'{tpath}.bn1', 2)
+    _convbn(rules, f'{fpath}/ConvBN_1', f'{tpath}.conv2', f'{tpath}.bn2', 2)
+
+
+def _resnet3d(rules: Rules, fpath, tpath, num_layer):
+    k = 0
+    for layer, n in enumerate(num_layer):
+        for j in range(n):
+            f, t = f'{fpath}/BasicBlock3D_{k}', f'{tpath}.layers.{layer}.{j}'
+            names = (['downsample'] if j == 0 else []) + ['conv1', 'conv2']
+            for i, name in enumerate(names):
+                _convbn(rules, f'{f}/ConvBN_{i}', f'{t}.{name}.conv',
+                        f'{t}.{name}.bn', 3)
+            k += 1
+
+
+def slice_rules(cfg: ModelConfig) -> Rules:
+    """flax leaf path -> (torch key, converter), per collection."""
+    rules: Rules = {'params': {}, 'batch_stats': {}}
+    P = rules['params']
+
+    bb = 'img_backbone'
+    _conv(rules, f'{bb}/patch_embed', f'{bb}.patch_embed.projection', 2)
+    _ln(rules, f'{bb}/patch_norm', f'{bb}.patch_embed.norm')
+    for i, depth in enumerate(cfg.swin.depths):
+        for j in range(depth):
+            f, t = f'{bb}/stage{i}_block{j}', f'{bb}.stages.{i}.blocks.{j}'
+            _ln(rules, f'{f}/norm1', f'{t}.norm1')
+            _ln(rules, f'{f}/norm2', f'{t}.norm2')
+            P[f'{f}/attn/relative_position_bias_table'] = (
+                f'{t}.attn.w_msa.relative_position_bias_table', ident)
+            _dense(rules, f'{f}/attn/qkv', f'{t}.attn.w_msa.qkv')
+            _dense(rules, f'{f}/attn/proj', f'{t}.attn.w_msa.proj')
+            _dense(rules, f'{f}/ffn_fc1', f'{t}.ffn.layers.0.0')
+            _dense(rules, f'{f}/ffn_fc2', f'{t}.ffn.layers.1')
+        if i < len(cfg.swin.depths) - 1:
+            _ln(rules, f'{bb}/downsample{i}/norm',
+                f'{bb}.stages.{i}.downsample.norm')
+            P[f'{bb}/downsample{i}/reduction/kernel'] = (
+                f'{bb}.stages.{i}.downsample.reduction.weight', linear)
+    for i in cfg.swin.out_indices:
+        _ln(rules, f'{bb}/out_norm{i}', f'{bb}.norm{i}')
+
+    _convbn(rules, 'img_neck/ConvBN_0', 'img_neck.conv.0', 'img_neck.conv.1', 2)
+    _convbn(rules, 'img_neck/ConvBN_1', 'img_neck.conv.3', 'img_neck.conv.4', 2)
+
+    vt = 'img_view_transformer'
+    _convbn(rules, f'{vt}/img_reduce_conv', f'{vt}.img_reduce_conv.0',
+            f'{vt}.img_reduce_conv.1', 2)
+    _convbn(rules, f'{vt}/depth_encoder0', f'{vt}.depth_encoder.0',
+            f'{vt}.depth_encoder.1', 2)
+    _convbn(rules, f'{vt}/depth_encoder1', f'{vt}.depth_encoder.3',
+            f'{vt}.depth_encoder.4', 2)
+    cmf, tcmf = f'{vt}/cross_modal_fusion', f'{vt}.cross_model_fusion'
+    _dense(rules, f'{cmf}/channel_mlp_c', f'{tcmf}.channel_mlp_c.0')
+    _dense(rules, f'{cmf}/channel_mlp_d', f'{tcmf}.channel_mlp_d.0')
+    for s in ('spatial_c', 'spatial_d'):
+        _conv(rules, f'{cmf}/{s}_0', f'{tcmf}.{s}.0', 2)
+        _conv(rules, f'{cmf}/{s}_1', f'{tcmf}.{s}.2', 2)
+    _convbn(rules, f'{cmf}/fuse_conv', f'{tcmf}.fuse_conv.0',
+            f'{tcmf}.fuse_conv.1', 2)
+    _basicblock2d(rules, f'{vt}/further_fuse', f'{vt}.further_fuse')
+
+    dsn, tdsn = f'{vt}/depth_seg_net', f'{vt}.depth_seg_net'
+    for r in ('reduce_conv_depth', 'reduce_conv_seg', 'reduce_conv_context'):
+        _convbn(rules, f'{dsn}/{r}', f'{tdsn}.{r}.0', f'{tdsn}.{r}.1', 2)
+    _bn(rules, f'{dsn}/mlp_bn/BatchNorm_0', f'{tdsn}.bn')
+    for m in ('depth_mlp', 'context_mlp', 'seg_mlp'):
+        _dense(rules, f'{dsn}/{m}/Dense_0', f'{tdsn}.{m}.fc1')
+        _dense(rules, f'{dsn}/{m}/Dense_1', f'{tdsn}.{m}.fc2')
+    for s in ('depth_se', 'context_se', 'seg_se'):
+        _conv(rules, f'{dsn}/{s}/Conv_0', f'{tdsn}.{s}.conv_reduce', 2)
+        _conv(rules, f'{dsn}/{s}/Conv_1', f'{tdsn}.{s}.conv_expand', 2)
+    _basicblock2d(rules, f'{dsn}/depth_block0', f'{tdsn}.depth_conv.0')
+    _basicblock2d(rules, f'{dsn}/depth_block1', f'{tdsn}.depth_conv.1')
+    aspp, taspp = f'{dsn}/aspp', f'{tdsn}.depth_conv.2'
+    for i in range(4):
+        _convbn(rules, f'{aspp}/ConvBN_{i}', f'{taspp}.aspp{i + 1}.atrous_conv',
+                f'{taspp}.aspp{i + 1}.bn', 2)
+    _convbn(rules, f'{aspp}/ConvBN_4', f'{taspp}.global_avg_pool.1',
+            f'{taspp}.global_avg_pool.2', 2)
+    _convbn(rules, f'{aspp}/ConvBN_5', f'{taspp}.conv1', f'{taspp}.bn1', 2)
+    _conv(rules, f'{dsn}/depth_out', f'{tdsn}.depth_conv.3', 2)
+    _conv(rules, f'{dsn}/context_conv', f'{tdsn}.context_conv', 2)
+    _conv(rules, f'{dsn}/seg_conv0/Conv_0', f'{tdsn}.seg_conv.0', 2)
+    _basicblock2d(rules, f'{dsn}/seg_conv1', f'{tdsn}.seg_conv.1')
+    _conv(rules, f'{dsn}/seg_out', f'{tdsn}.seg_out', 2)
+
+    _resnet3d(rules, 'pre_process_net', 'pre_process_net', (1,))
+    _resnet3d(rules, 'bev_backbone', 'img_bev_encoder_backbone',
+              cfg.bev_num_layer)
+    _convbn(rules, 'bev_neck/ConvBN_0', 'img_bev_encoder_neck.conv.conv',
+            'img_bev_encoder_neck.conv.bn', 3)
+
+    _conv(rules, 'final_conv', 'final_conv.conv', 3)
+    _dense(rules, 'predicter_fc1', 'predicter.0')
+    _dense(rules, 'predicter_fc2', 'predicter.2')
+    return rules
+
+
+def flatten_tree(tree: Any, prefix: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """Nested mapping -> {'a/b/c': leaf}."""
+    if hasattr(tree, 'items'):
+        out: Dict[str, Any] = {}
+        for k, v in tree.items():
+            out.update(flatten_tree(v, prefix + (k,)))
+        return out
+    return {'/'.join(prefix): tree}
+
+
+def state_dict_from_flax(params: Any, batch_stats: Any, cfg: ModelConfig
+                         ) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for flax ``params`` / ``batch_stats``.
+
+    Raises KeyError for a flax leaf no rule covers (e.g. a LiDAR encoder).
+    """
+    rules = slice_rules(cfg)
+    sd: Dict[str, torch.Tensor] = {}
+    for kind, tree in (('params', params), ('batch_stats', batch_stats)):
+        for path, leaf in flatten_tree(tree).items():
+            if path not in rules[kind]:
+                raise KeyError(f'no rule for flax {kind} leaf {path!r}')
+            tkey, conv = rules[kind][path]
+            sd[tkey] = torch.tensor(conv(np.asarray(leaf, np.float32)))
+    rpi = relative_position_index(cfg.swin.window_size)
+    for key in list(sd):
+        if key.endswith('.running_mean'):
+            sd[key[:-len('running_mean')] + 'num_batches_tracked'] = (
+                torch.tensor(0, dtype=torch.long))
+        elif key.endswith('.relative_position_bias_table'):
+            sd[key[:-len('relative_position_bias_table')]
+               + 'relative_position_index'] = rpi.clone()
+    return sd

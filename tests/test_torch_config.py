@@ -1,0 +1,99 @@
+"""The PyTorch port's configuration mirror, import hygiene and GPU entry.
+
+- Every preset of ``fusionocc_tpu_torch.config`` equals the JAX package's,
+  field by field, with the same derived sizes.
+- Configurations that select an unported path are refused.
+- Importing the port pulls in no JAX (the GPU machine has none).
+- ``chip_smoke.py`` refuses to run without a CUDA device, without a
+  traceback and without printing a result.
+"""
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from fusionocc_tpu import config as jcfg
+from fusionocc_tpu.configs import get_config
+from fusionocc_tpu_torch import config as tcfg
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize('preset', ['full', 'tiny', 'midsize'])
+def test_config_fields_match_jax(preset):
+    j = getattr(jcfg, f'{preset}_model_config')()
+    t = getattr(tcfg, f'{preset}_model_config')()
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    for sub in ('grid', 'swin', 'lidar', 'vt'):
+        assert ([f.name for f in dataclasses.fields(getattr(t, sub))]
+                == [f.name for f in dataclasses.fields(getattr(j, sub))])
+    for prop in ('num_frame', 'feat_size', 'fusion_channels', 'occ_channels',
+                 'bev_channels'):
+        assert getattr(t, prop) == getattr(j, prop), prop
+    assert t.grid.grid_size == j.grid.grid_size
+    assert t.grid.num_depth_bins == j.grid.num_depth_bins
+    assert t.swin.num_features == j.swin.num_features
+    assert t.lidar.sparse_shape(t.grid) == j.lidar.sparse_shape(j.grid)
+    np.testing.assert_array_equal(np.float32(t.grid.lower_bound),
+                                  np.asarray(j.grid.lower_bound))
+    np.testing.assert_array_equal(np.float32(t.grid.interval),
+                                  np.asarray(j.grid.interval))
+    assert str(t.dtype).split('.')[-1] == str(j.dtype)
+
+
+def test_image_only_preset_matches_named_config():
+    assert (dataclasses.asdict(tcfg.image_only_model_config())
+            == dataclasses.asdict(get_config('fusion_occ_image_only').model))
+
+
+@pytest.mark.parametrize('overrides,item', [
+    (dict(use_lidar=True), 'item 5'),
+    (dict(use_lidar=False,
+          swin=dataclasses.replace(tcfg.SwinConfig(), int8_dense=True)),
+     'item 12'),
+])
+def test_unported_paths_are_refused(overrides, item):
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc
+    with pytest.raises(NotImplementedError, match=item):
+        FusionOcc(tcfg.full_model_config(**overrides))
+
+
+def _run(code_or_args, cwd, env_extra=None):
+    env = dict(os.environ)
+    env['PYTHONPATH'] = REPO
+    env.update(env_extra or {})
+    return subprocess.run(code_or_args, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    code = (
+        'import sys\n'
+        'import fusionocc_tpu_torch.models.fusion_occ, '
+        'fusionocc_tpu_torch.weights, fusionocc_tpu_torch.data.synthetic\n'
+        'bad = [m for m in sys.modules if m in ("jax", "flax", "fusionocc_tpu")'
+        ' or m.startswith(("jax.", "flax.", "jaxlib", "fusionocc_tpu."))]\n'
+        'print("BAD", bad)\n'
+        'sys.exit(1 if bad else 0)\n')
+    proc = _run([sys.executable, '-c', code], REPO)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize('where', ['repo', 'alone'])
+def test_chip_smoke_refuses_without_gpu(where, tmp_path):
+    """No CUDA device here: exit non-zero, no traceback, no result line.
+    'alone' runs a copy of the script in a directory with nothing else."""
+    if where == 'alone':
+        shutil.copy(os.path.join(REPO, 'chip_smoke.py'), tmp_path)
+        cwd, env = str(tmp_path), {'PYTHONPATH': ''}
+    else:
+        cwd, env = REPO, {}
+    proc = _run([sys.executable, 'chip_smoke.py'], cwd,
+                dict(env, CUDA_VISIBLE_DEVICES=''))
+    assert proc.returncode != 0
+    assert 'Traceback' not in proc.stderr, proc.stderr
+    assert '"ok"' not in proc.stdout, proc.stdout
