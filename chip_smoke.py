@@ -6,17 +6,30 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: the card (nvidia-smi name and power limit), CUDA and nvcc
    versions, TF32 switched off for matmuls and cuDNN.
-2. build: compiles ``fusionocc_tpu_torch/csrc/*.cu`` with nvcc (timed).
+2. build: compiles ``fusionocc_tpu_torch/csrc/*.cu`` with nvcc, one process
+   per source, all started together (timed).
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   full-size main path gives it (window attention at the four Swin-B stage
-   shapes, shift 0 and 6, bf16; frustum pooling on the full-size pooling
-   index of the synthetic rig, fp32), with errors, tolerances and times.
-4. reference: the midsize config in fp32 on the card (kernels) against the
-   same weights on the CPU (plain versions).
-5. slice: the full-size image-only model in bf16 with seeded random weights;
-   per-frame pooling indices built once; ``predict`` on three synthetic
-   batches (seeds 0-2).  Checks the output, the launch counts per predict,
-   and prints ms per predict and peak memory.
+   full-size main path gives it, with errors, tolerances, times and bounds:
+   window attention (K2) at the four Swin-B stage shapes, shift 0 and 6,
+   bf16, beside ``scaled_dot_product_attention`` on the same inputs (each
+   backend that takes them, the fastest reported as the library time); frustum
+   pooling (K1) on the full-size pooling index of the synthetic rig, fp32;
+   the zwin sparse conv (K3) at the 9 launches of the full-size LiDAR
+   encoder, bf16, with the inputs that the port's encoder (seeded random
+   weights) gives it on the full-size synthetic cloud.
+4. reference: the midsize multi-modal config in fp32 on the card (kernels)
+   against the same weights on the CPU (plain versions).
+5. slice: two full-size bf16 paths with seeded random weights, per-frame
+   pooling indices built once, ``predict`` on three synthetic batches (seeds
+   0-2): the image-only preset, then the default multi-modal config (the
+   main path).  Each path checks its output and its launch counts per
+   predict, and prints ms per predict and peak memory; the main path also
+   prints the LiDAR encoder's own device time.
+
+A kernel's bound is the least time the card could take for the same work:
+the larger of its operations over the peak rate of their type and its bytes
+(each input read once, each output written once) over the memory rate,
+from NVIDIA's H100 SXM data sheet.
 
 The last two lines are the kernels' JSON summary and the result JSON.
 Needs a CUDA GPU; on a machine without one it exits 1 before doing anything.
@@ -28,14 +41,18 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
 DEV = 'cuda:0'
 WA_TOL = dict(atol=1e-3, rtol=1e-2)    # bf16 output: one bf16 ulp is 2^-7 relative
 POOL_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 sums taken in another order
+ZWIN_TOL = dict(atol=1e-3, rtol=1e-2)  # fp32 sums cast once to bf16: one ulp
 REF_TOL = dict(atol=2e-3, rtol=2e-3)   # fp32 model, GPU vs CPU
 SLICE_SEEDS = (0, 1, 2)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -70,6 +87,26 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class Bound:
+    """Summed least time of a kernel's launches: per launch the larger of
+    flops / peak and bytes / memory rate."""
+
+    def __init__(self):
+        self.ms = {'bytes': 0.0, 'operations': 0.0}
+
+    def add(self, flops: float, nbytes: float, dtype) -> float:
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        by = 'bytes' if t_bytes >= t_ops else 'operations'
+        self.ms[by] += max(t_ops, t_bytes)
+        print(f'    bound {max(t_ops, t_bytes):.4f} ms by {by} '
+              f'({flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)', flush=True)
+        return max(t_ops, t_bytes)
+
+    def total(self):
+        return sum(self.ms.values()), max(self.ms, key=self.ms.get)
 
 
 def phase_device() -> str:
@@ -125,17 +162,57 @@ def stage_shapes(cfg):
     return out
 
 
-def phase_kernels(cfg, batch0) -> dict:
-    from fusionocc_tpu_torch.models.fusion_occ import frame_pooling_index
-    from fusionocc_tpu_torch.ops import bev_pool as bp
+def sdpa_times(q, k, v, bias, nWh, nWw, w, shift, heads, want):
+    """``scaled_dot_product_attention`` on K2's inputs, timed only: per
+    backend that takes them, ms and max abs diff to the plain version.
+
+    The additive mask (bias, plus the shift mask) is in q's dtype, as SDPA
+    takes it, and broadcast, never copied per window: shift 0 gives every window
+    the (heads, N, N) bias; a shifted layer views each camera's windows as
+    nW*heads heads of one batch entry against one (nW*heads, N, N) mask."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from fusionocc_tpu_torch.ops import window_attn as wa
-    print('[3/5] kernels vs plain versions at main-path shapes')
-    g = torch.Generator(device=DEV).manual_seed(1234)
+    bn, n, c = q.shape
+    d = c // heads
+    nw = nWh * nWw
+    if shift:
+        mask = (bias[None] + wa.shift_masks(nWh, nWw, w, shift, DEV)[:, None]
+                ).reshape(1, nw * heads, n, n)
+        groups = bn // nw
+    else:
+        mask, groups = bias[None], bn
+    mask = mask.to(q.dtype)
+    qh, kh, vh = (t.reshape(bn, n, heads, d).transpose(1, 2)
+                  .reshape(groups, -1, n, d) for t in (q, k, v))
+    times = {}
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.FLASH_ATTENTION, SDPBackend.MATH):
+        def sdpa():
+            with sdpa_kernel(backend):
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask, scale=d ** -0.5)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter('ignore')
+                got = sdpa()
+        except RuntimeError:
+            continue                      # this backend refuses the inputs
+        got = got.reshape(bn, heads, n, d).transpose(1, 2).reshape(bn, n, c)
+        times[backend.name] = (cuda_ms(sdpa),
+                               (got.float() - want.float()).abs().max().item())
+    return times
+
+
+def check_window_attn(cfg, g) -> dict:
+    """K2 at the 8 stage/shift shapes, beside SDPA on the same inputs."""
+    from fusionocc_tpu_torch.ops import window_attn as wa
     w = cfg.swin.window_size
     n = w * w
-    wa_err, wa_ms, wa_plain_ms = 0.0, 0.0, 0.0
+    err, ms, plain_ms, lib_ms, bound = 0.0, 0.0, 0.0, 0.0, Bound()
     for nWh, nWw, c, heads in stage_shapes(cfg):
         bn = cfg.num_cams * nWh * nWw
+        d = c // heads
         qkv = torch.randn(bn, n, 3 * c, device=DEV, generator=g
                           ).to(torch.bfloat16)
         q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
@@ -147,13 +224,35 @@ def phase_kernels(cfg, batch0) -> dict:
             torch.cuda.synchronize()
             name = (f'window_attn Bn={bn} C={c} heads={heads} '
                     f'grid={nWh}x{nWw} shift={shift}')
-            wa_err = max(wa_err, check_close(name, got, want, **WA_TOL))
+            err = max(err, check_close(name, got, want, **WA_TOL))
             t_k = cuda_ms(lambda: wa.window_attention_cuda(*args))
             t_p = cuda_ms(lambda: wa.window_attention_plain(*args))
-            wa_ms += t_k
-            wa_plain_ms += t_p
-            print(f'    kernel {t_k:.4f} ms, plain {t_p:.4f} ms', flush=True)
+            sdpa = sdpa_times(*args, want)
+            if not sdpa:
+                fail(f'{name}: no SDPA backend takes these inputs')
+            best = min(sdpa, key=lambda b: sdpa[b][0])
+            ms, plain_ms = ms + t_k, plain_ms + t_p
+            lib_ms += sdpa[best][0]
+            print(f'    kernel {t_k:.4f} ms, plain {t_p:.4f} ms; sdpa by '
+                  'backend (ms, max abs diff to plain): '
+                  + ', '.join(f'{b} {t:.4f} {e:.2e}'
+                              for b, (t, e) in sdpa.items())
+                  + f'; fastest {best}', flush=True)
+            bound.add(4 * bn * heads * n * n * d,
+                      4 * bn * n * c * 2 + heads * n * n * 4, torch.bfloat16)
+    bound_ms, bound_by = bound.total()
+    print(f'  window_attn summed over the 8 shapes: kernel {ms:.4f} ms, '
+          f'plain {plain_ms:.4f} ms, sdpa (fastest backend per shape) '
+          f'{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}',
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=lib_ms)
 
+
+def check_bev_pool(cfg, batch0, g) -> dict:
+    """K1 on the full-size pooling index of the synthetic rig."""
+    from fusionocc_tpu_torch.models.fusion_occ import frame_pooling_index
+    from fusionocc_tpu_torch.ops import bev_pool as bp
     idx = frame_pooling_index(cfg, batch0.sensor2keyego[:, 0],
                               batch0.intrins[:, 0], batch0.post_rots[:, 0],
                               batch0.post_trans[:, 0], batch0.bda)
@@ -169,32 +268,135 @@ def phase_kernels(cfg, batch0) -> dict:
     want = bp.bev_pool_plain(depth, feat, idx, nvox)
     torch.cuda.synchronize()
     n_in = int(idx.bounds[-1])
-    pool_err = check_close(
+    err = check_close(
         f'bev_pool P={idx.ranks_depth.numel()} in-grid={n_in} C={C} '
         f'voxels={nvox}', got, want, **POOL_TOL)
     t_k = cuda_ms(lambda: bp.bev_pool_cuda(depth, feat, idx, nvox))
     t_p = cuda_ms(lambda: bp.bev_pool_plain(depth, feat, idx, nvox))
-    print(f'    kernel {t_k:.4f} ms, plain {t_p:.4f} ms', flush=True)
-    print(f'  window_attn summed over the 8 shapes: kernel {wa_ms:.4f} ms, '
-          f'plain {wa_plain_ms:.4f} ms', flush=True)
-    return {'window_attn_fwd': (wa_err, wa_ms, wa_plain_ms),
-            'bev_pool_fwd': (pool_err, t_k, t_p)}
+    print(f'    kernel {t_k:.4f} ms, plain {t_p:.4f} ms, no single PyTorch '
+          f'call', flush=True)
+    # the in-grid points' depth value and two ranks, every feature row,
+    # the bounds, and the pooled voxels written
+    bound = Bound()
+    bound.add(2 * n_in * C, n_in * 12 + feat.numel() * 4
+              + (nvox + 1) * 4 + nvox * C * 4, torch.float32)
+    bound_ms, bound_by = bound.total()
+    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def record_zwin_launches(cfg, batch0):
+    """The arguments of the 9 zwin conv calls that the port's full-size
+    LiDAR encoder (seeded random weights) makes on the synthetic cloud."""
+    from fusionocc_tpu_torch.models import lidar_encoder as le
+    from fusionocc_tpu_torch.models.fusion_occ import init_weights
+    from fusionocc_tpu_torch.ops.voxelize import voxelize_mean
+    lc = cfg.lidar
+    enc = init_weights(le.SparseEncoder(lc, cfg.grid, cfg.dtype, DEV),
+                       torch.Generator().manual_seed(5))
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+    real, le.zwin_conv = le.zwin_conv, record
+    try:
+        enc(batch0.points, batch0.points_mask)
+    finally:
+        le.zwin_conv = real
+    sp = voxelize_mean(batch0.points, batch0.points_mask,
+                       cfg.grid.point_cloud_range, lc.voxel_size,
+                       lc.sparse_shape(cfg.grid), lc.voxel_capacity[0])
+    print(f'  full-size cloud: {int(batch0.points_mask.sum())} points, '
+          f'{int(sp.mask.sum())} voxels (JAX capacity '
+          f'{lc.voxel_capacity[0]})', flush=True)
+    return calls
+
+
+def check_zwin(cfg, batch0) -> dict:
+    """K3 at the full-size encoder's 9 launches."""
+    from fusionocc_tpu_torch.ops import zwin_conv as zw
+    calls = record_zwin_launches(cfg, batch0)
+    caps = cfg.lidar.zfold_capacity
+    err, ms, plain_ms, bound = 0.0, 0.0, 0.0, Bound()
+    stage = 0
+    for feats, mask_out, nbr, weight, f_in, f_out, stride in calls:
+        args = (feats, mask_out, nbr, weight, f_in, f_out, stride)
+        B, s_in, l_in = feats.shape
+        s_out = nbr.shape[1]
+        cin, cout = weight.shape[1], weight.shape[2]
+        kind = 'subm' if stride == 1 else 'down'
+        cap = caps[stage] if stride == 1 else caps[stage + 1]
+        name = (f'zwin stage {stage} {kind} Cin {cin}->{cout} L {l_in}->'
+                f'{f_out * cout} rows {s_in}->{s_out} (active '
+                f'{int(mask_out.sum())}, JAX capacity {cap})')
+        got = zw.zwin_conv_cuda(*args)
+        want = zw.zwin_conv_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, check_close(name, got, want, **ZWIN_TOL))
+        t_k = cuda_ms(lambda: zw.zwin_conv_cuda(*args))
+        t_p = cuda_ms(lambda: zw.zwin_conv_plain(*args))
+        ms, plain_ms = ms + t_k, plain_ms + t_p
+        print(f'    kernel {t_k:.4f} ms, plain {t_p:.4f} ms, no single '
+              f'PyTorch call', flush=True)
+        # found taps of active rows, each over its band's nonzero
+        # (zi, zo) cell pairs; feats, nbr, mask and weight read, out written
+        found = ((nbr < s_in) & mask_out[..., None]).sum(dim=(0, 1)).tolist()
+        macs = sum(found[t] * len(zw.band_pairs(f_in, f_out, stride, t % 3))
+                   * cin * cout for t in range(27))
+        es = feats.element_size()
+        bound.add(2 * macs, feats.numel() * es + nbr.numel() * 4
+                  + mask_out.numel() + 27 * cin * cout * es
+                  + B * s_out * f_out * cout * es, feats.dtype)
+        if stride == 2:
+            stage += 1
+    if len(calls) != 9:
+        fail(f'the full-size encoder made {len(calls)} zwin calls, not 9')
+    bound_ms, bound_by = bound.total()
+    print(f'  zwin summed over the 9 launches: kernel {ms:.4f} ms, plain '
+          f'{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}',
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+@torch.inference_mode()
+def phase_kernels(cfg, batch0) -> dict:
+    print('[3/5] kernels vs plain versions at main-path shapes')
+    g = torch.Generator(device=DEV).manual_seed(1234)
+    return {'zwin_conv_fwd': check_zwin(cfg, batch0),
+            'window_attn_fwd': check_window_attn(cfg, g),
+            'bev_pool_fwd': check_bev_pool(cfg, batch0, g)}
 
 
 def phase_reference() -> None:
-    """Midsize fp32: the card (kernels) against the CPU (plain versions)."""
+    """Midsize multi-modal fp32: the card (kernels) against the CPU (plain
+    versions)."""
     from fusionocc_tpu_torch.config import midsize_model_config
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
-    print('[4/5] reference: midsize fp32, card vs CPU plain versions')
-    cfg = midsize_model_config(use_lidar=False)
-    model = init_weights(FusionOcc(cfg), torch.Generator().manual_seed(7))
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    print('[4/5] reference: midsize multi-modal fp32, card vs CPU plain '
+          'versions')
+    cfg = midsize_model_config(use_lidar=True)
+    model = init_weights(FusionOcc(cfg, device='cpu'),
+                         torch.Generator().manual_seed(7))
+    batch = synthetic_batch(cfg, 1, 0, device='cpu')
     with torch.inference_mode():
-        want = model(synthetic_batch(cfg, 1, 0, num_points=96))
+        want = model(batch)
+        want_lidar = model.lidar_encoder(batch.points, batch.points_mask)
     model.to(DEV)
+    batch = synthetic_batch(cfg, 1, 0, device=DEV)
+    KERNELS.reset_counts()
     with torch.inference_mode():
-        got = model(synthetic_batch(cfg, 1, 0, num_points=96, device=DEV))
+        got = model(batch)
+        got_lidar = model.lidar_encoder(batch.points, batch.points_mask)
     torch.cuda.synchronize()
+    print(f'  launches on the card: {dict(KERNELS.launches)}')
+    if min(KERNELS.launches.values()) == 0:
+        fail('a kernel was not launched by the midsize model on the card')
+    check_close('midsize lidar feature', got_lidar.cpu(), want_lidar,
+                **REF_TOL)
     for key in ('occ_logits', 'depth', 'seg_logits'):
         check_close(f'midsize {key}', got[key].cpu(), want[key], **REF_TOL)
     agree = (got['occ_logits'].argmax(-1).cpu()
@@ -204,18 +406,20 @@ def phase_reference() -> None:
         fail('midsize argmax agreement below 0.999')
 
 
-def phase_slice(cfg, batches) -> dict:
+def drive_path(label, cfg, batches, expect) -> dict:
+    """Full-size ``predict`` on ``batches`` with seeded random weights:
+    launch counts set to 0 just before, read just after."""
     from fusionocc_tpu_torch.models.fusion_occ import (
         FusionOcc, batch_pooling_indices, init_weights)
     from fusionocc_tpu_torch.ops.kernels import KERNELS
-    print('[5/5] slice: full-size image-only predict, bf16')
     t0 = time.perf_counter()
-    model = init_weights(FusionOcc(cfg), torch.Generator().manual_seed(0))
-    model.to(DEV)
+    model = init_weights(FusionOcc(cfg, device=DEV),
+                         torch.Generator().manual_seed(0))
     pool_idxs = batch_pooling_indices(cfg, batches[0])
     torch.cuda.synchronize()
-    print(f'  model + pooling indices ready in {time.perf_counter() - t0:.1f} s'
-          f' ({sum(p.numel() for p in model.parameters())} parameters)')
+    print(f'  {label}: model + pooling indices ready in '
+          f'{time.perf_counter() - t0:.1f} s '
+          f'({sum(p.numel() for p in model.parameters())} parameters)')
     with torch.inference_mode():
         out = model(batches[0], pool_idxs)          # warm-up, checks logits
     torch.cuda.synchronize()
@@ -226,11 +430,22 @@ def phase_slice(cfg, batches) -> dict:
     if not bool(torch.isfinite(logits).all()):
         fail('occ_logits not finite')
     print(f'  warm-up forward: occ_logits {tuple(logits.shape)} finite, '
-          f'depth {tuple(out["depth"].shape)}, seg {tuple(out["seg_logits"].shape)}')
+          f'depth {tuple(out["depth"].shape)}, seg '
+          f'{tuple(out["seg_logits"].shape)}')
+    del out, logits
 
-    # one window-attention launch per Swin block, one pooling per frame
-    expect = {'window_attn_fwd': sum(cfg.swin.depths) * cfg.num_frame,
-              'bev_pool_fwd': cfg.num_frame}
+    enc_events = []
+    if cfg.use_lidar:
+        def pre(mod, args):
+            enc_events.append([torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)])
+            enc_events[-1][0].record()
+
+        def post(mod, args, result):
+            enc_events[-1][1].record()
+        hooks = [model.lidar_encoder.register_forward_pre_hook(pre),
+                 model.lidar_encoder.register_forward_hook(post)]
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNELS.reset_counts()
     times = []
@@ -245,46 +460,77 @@ def phase_slice(cfg, batches) -> dict:
         if pred.shape != (1, gx, gy, gz) or pred.dtype != torch.uint8:
             fail(f'predict gave {tuple(pred.shape)} {pred.dtype}')
         if delta != expect:
-            fail(f'launches per predict {delta}, expected {expect}')
+            fail(f'{label}: launches per predict {delta}, expected {expect}')
     totals = dict(KERNELS.launches)
     peak = torch.cuda.max_memory_allocated()
-    print(f'  predict x{len(batches)}: output (1, {gx}, {gy}, {gz}) uint8; '
-          f'launches per predict {expect}, total {totals}')
-    print(f'  ms per frame (one predict: {cfg.num_frame} camera passes + '
-          f'head): median {statistics.median(times):.1f}, all '
+    print(f'  {label} predict x{len(batches)}: output (1, {gx}, {gy}, {gz}) '
+          f'uint8; launches per predict {expect}, total {totals}')
+    print(f'  {label}: ms per predict (median of {len(times)}) '
+          f'{statistics.median(times):.1f}, all '
           f'{[round(t, 1) for t in times]}; peak memory '
           f'{peak / 2**30:.2f} GiB', flush=True)
+    if cfg.use_lidar:
+        for h in hooks:
+            h.remove()
+        enc_ms = [a.elapsed_time(b) for a, b in enc_events]
+        print(f'  {label}: LiDAR encoder device ms per predict (CUDA events) '
+              f'median {statistics.median(enc_ms):.2f}, all '
+              f'{[round(t, 2) for t in enc_ms]}', flush=True)
+    del model
+    torch.cuda.empty_cache()
     return totals
+
+
+def phase_slice(batches) -> dict:
+    """The image-only path, then the default multi-modal main path."""
+    from fusionocc_tpu_torch.config import (full_model_config,
+                                            image_only_model_config)
+    print('[5/5] slice: full-size predict, bf16')
+    paths = []
+    for label, cfg in (('image-only', image_only_model_config()),
+                       ('default multi-modal', full_model_config())):
+        # one window-attention launch per Swin block and frame, one pooling
+        # per frame, one zwin launch per sparse-stage conv (the last stage
+        # runs dense)
+        lc = cfg.lidar
+        sparse = lc.encoder_channels[:min(lc.dense_from,
+                                          len(lc.encoder_channels) - 1)]
+        expect = {'window_attn_fwd': sum(cfg.swin.depths) * cfg.num_frame,
+                  'bev_pool_fwd': cfg.num_frame,
+                  'zwin_conv_fwd': sum(map(len, sparse)) * cfg.use_lidar}
+        paths.append(drive_path(label, cfg, batches, expect))
+    return paths[-1]
 
 
 def main() -> None:
     card = phase_device()
     phase_build()
-    from fusionocc_tpu_torch.config import image_only_model_config
+    from fusionocc_tpu_torch.config import full_model_config
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
-    cfg = image_only_model_config()
+    cfg = full_model_config()
     t0 = time.perf_counter()
     batches = [synthetic_batch(cfg, 1, s, device=DEV) for s in SLICE_SEEDS]
     print(f'  synthetic batches (seeds {SLICE_SEEDS}) in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
     measured = phase_kernels(cfg, batches[0])
     phase_reference()
-    launches = phase_slice(cfg, batches)
+    launches = phase_slice(batches)
     sources = {
         'window_attn_fwd': ('fusionocc_tpu_torch/csrc/window_attn.cu',
                             'fusionocc_tpu/ops/pallas/window_attn.py:79'),
         'bev_pool_fwd': ('fusionocc_tpu_torch/csrc/bev_pool.cu',
                          'fusionocc_tpu/ops/pallas/segsum.py:31'),
+        'zwin_conv_fwd': ('fusionocc_tpu_torch/csrc/zwin_conv.cu',
+                          'fusionocc_tpu/ops/pallas/zwin_conv.py:145'),
     }
     kernels = []
-    for name, (err, ms, plain_ms) in measured.items():
+    for name, m in measured.items():
         if launches[name] == 0:
             fail(f'{name} was not launched by the main path')
         kernels.append({'name': name, 'route': 'cuda',
                         'source': sources[name][0],
                         'replaces': sources[name][1],
-                        'launches': launches[name], 'max_abs_err': err,
-                        'ms': ms, 'plain_ms': plain_ms})
+                        'launches': launches[name], **m})
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

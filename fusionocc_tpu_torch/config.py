@@ -6,10 +6,10 @@ here equals the reference package's field by field.  Derived sizes are
 properties; ``GridConfig.lower_bound`` / ``interval`` return plain tuples and
 ``ModelConfig.dtype`` a ``torch.dtype``.
 
-Fields that only the JAX package acts on (LiDAR capacities and backends,
-remat and fusion switches) are kept so that configurations compare equal.
+Fields that only the JAX package acts on (the TPU tiling knobs, remat and
+fusion switches) are kept so that configurations compare equal.
 ``check_supported`` rejects the values that would select a path the port
-does not have yet.
+does not have.
 """
 from __future__ import annotations
 
@@ -93,8 +93,22 @@ class SwinConfig:
 
 @dataclass(frozen=True)
 class SparseEncoderConfig:
-    """LiDAR sparse encoder.  Not ported yet (ROADMAP Queue A item 5); the
-    fields mirror the JAX package so configurations compare equal."""
+    """LiDAR sparse encoder.
+
+    The port runs ``backend='zfold'``: voxelization with
+    ``voxel_capacity[0]``, super rows of ``zfold`` cells cut at
+    ``zfold_capacity``, sparse stages before ``dense_from`` and the masked
+    dense tail after.  ``zconv`` 'zwin' and 'zband' compute the same
+    contract and both run the zwin kernel.  Like them, the values of these
+    switches give one result and take one path: ``dense_mode`` 'zbatch' and
+    'xla3d' (two TPU formulations of one dense conv) and ``dense_from`` 3
+    and 4 (the last stage has no stride-2 conv, so it runs in the dense tail
+    either way).  The TPU tiling knobs ``zwin_block``, ``zwin_nwin``,
+    ``zwin_bad_frac``, ``zwin_merged``, ``zwin_fuse``, ``tap_chunk`` and
+    ``col_chunk`` change nothing in the result and are ignored, as are the
+    other backends' fields (``gather``, ``index``, ``tile_*``,
+    ``voxel_capacity[1:]``) and the training switch ``remat_conv``.
+    """
     in_channels: int = 5
     base_channels: int = 16
     encoder_channels: Tuple[Tuple[int, ...], ...] = (
@@ -207,10 +221,23 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a configuration that selects a path the
     port does not have yet, naming the ROADMAP item that brings it."""
     if cfg.use_lidar:
-        raise NotImplementedError(
-            'use_lidar=True needs the LiDAR sparse encoder and the zwin '
-            'kernel, not ported yet (ROADMAP Queue A item 5); use '
-            'use_lidar=False (image_only_model_config)')
+        lc = cfg.lidar
+        unported = [(lc.backend != 'zfold', f'backend={lc.backend!r}'),
+                    (lc.zconv not in ('zwin', 'zband'),
+                     f'zconv={lc.zconv!r}'),
+                    (lc.dense_from not in (3, 4),
+                     f'dense_from={lc.dense_from}'),
+                    (lc.dense_mode not in ('zbatch', 'xla3d'),
+                     f'dense_mode={lc.dense_mode!r}'),
+                    (bool(lc.stop_after) or lc.profile_no_bn,
+                     'the profiling switches stop_after / profile_no_bn')]
+        for bad, what in unported:
+            if bad:
+                raise NotImplementedError(
+                    f'lidar {what} is not ported: ROADMAP Queue A item 5 '
+                    "ports the default path only (backend 'zfold', zconv "
+                    "'zwin' or 'zband'); the COO, tile, lifted and zslice "
+                    "paths are on ROADMAP's not-ported list")
     if cfg.swin.int8_dense:
         raise NotImplementedError(
             'swin.int8_dense=True (int8 serving) is not ported yet '

@@ -2,9 +2,10 @@
 
 The same numpy draws, in the same order and from the same seed, as
 ``fusionocc_tpu/data/synthetic.py``, so both packages see identical inputs;
-the arrays are handed over as tensors on the requested device.  The LiDAR
-cloud is drawn even when the model is image-only, because the sparse depth
-is drawn after it from the same ``RandomState``.
+the arrays are handed over as tensors on the requested device, the card
+unless the caller asks for the CPU.  The LiDAR cloud is drawn even when the
+model is image-only, because the sparse depth is drawn after it from the
+same ``RandomState``.
 """
 from __future__ import annotations
 
@@ -117,7 +118,7 @@ def beam_lidar_cloud(rng: np.random.RandomState, capacity: int,
 
 def synthetic_batch(cfg: ModelConfig, batch_size: int = 1, seed: int = 0,
                     num_points: int | None = None,
-                    device: torch.device | str = 'cpu') -> Batch:
+                    device: torch.device | str = 'cuda') -> Batch:
     """A synthetic ``Batch`` of tensors on ``device``."""
     rng = np.random.RandomState(seed)
     B, F, N = batch_size, cfg.num_frame, cfg.num_cams

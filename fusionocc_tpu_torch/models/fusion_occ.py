@@ -1,16 +1,17 @@
-"""FusionOcc two-pass inference (image-only), reference module names.
+"""FusionOcc two-pass inference, reference module names.
 
 Port of ``FusionOcc.__call__`` / ``predict`` of
 ``fusionocc_tpu/models/fusion_occ.py``.  Each temporal frame, oldest first,
 goes through the camera branch (Swin -> FPN_LSS -> CrossModalLSS ->
 bev_pool -> pre_process ResNet3D) with its own pose, so every frame lands
-in the key-ego voxel grid.  The frames' voxel features and the LiDAR
-feature (zeros: the reference's image-only fallback) are concatenated and
-run through CustomResNet3D -> LSSFPN3D -> final conv -> MLP predicter.
+in the key-ego voxel grid.  The LiDAR sweep goes through the sparse encoder
+(``models/lidar_encoder.py``), or is zeros when ``use_lidar`` is False (the
+reference's image-only fallback).  The features are concatenated in the
+order [adjacent frames..., key frame, lidar] and run through
+CustomResNet3D -> LSSFPN3D -> final conv -> MLP predicter.
 
-The LiDAR branch, streaming inference and ``batch_frames`` are not ported
-yet (ROADMAP Queue A); ``check_supported`` refuses configurations that need
-them.
+Streaming inference and ``batch_frames`` are not ported yet (ROADMAP Queue
+A); ``check_supported`` refuses configurations the port does not run.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from ..nn.layers import BatchNorm, Conv3d, LayerNorm, Linear
 from ..nn.swin import SwinTransformer
 from ..ops.bev_pool import PoolingIndex, prepare_pooling_index
 from .fpn import FPN_LSS, LSSFPN3D, CustomResNet3D
+from .lidar_encoder import SparseEncoder, SpConv
 from .lss import CrossModalLSS
 
 
@@ -79,32 +81,38 @@ class FinalConv(nn.Module):
 
 
 class FusionOcc(nn.Module):
-    """Image-only FusionOcc.  Parameters are float32; ``cfg.dtype`` is the
-    compute dtype.  Construct, load or initialise weights, then ``.to(device)``.
+    """FusionOcc.  Parameters are float32 on ``device`` (the card unless
+    the caller asks for another); ``cfg.dtype`` is the compute dtype.
     """
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, device='cuda'):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
         sw = cfg.swin
         dims = sw.num_features
         occ = cfg.occ_channels
-        self.img_backbone = SwinTransformer(sw)
-        self.img_neck = FPN_LSS(
-            dims[sw.out_indices[0]] + dims[sw.out_indices[1]],
-            cfg.img_neck_out_channels)
-        self.img_view_transformer = CrossModalLSS(
-            cfg.vt, cfg.grid, cfg.img_neck_out_channels)
-        self.pre_process_net = CustomResNet3D(
-            cfg.vt.feature_channels, (cfg.img_channels,), (1,), (1,))
-        self.img_bev_encoder_backbone = CustomResNet3D(
-            cfg.fusion_channels, cfg.bev_channels, cfg.bev_num_layer,
-            cfg.bev_strides)
-        self.img_bev_encoder_neck = LSSFPN3D(sum(cfg.bev_channels), occ)
-        self.final_conv = FinalConv(occ)
-        self.predicter = nn.Sequential(Linear(occ, occ * 2), nn.Softplus(),
-                                       Linear(occ * 2, cfg.num_classes))
+        with torch.device(device):
+            self.img_backbone = SwinTransformer(sw)
+            self.img_neck = FPN_LSS(
+                dims[sw.out_indices[0]] + dims[sw.out_indices[1]],
+                cfg.img_neck_out_channels)
+            self.img_view_transformer = CrossModalLSS(
+                cfg.vt, cfg.grid, cfg.img_neck_out_channels)
+            self.pre_process_net = CustomResNet3D(
+                cfg.vt.feature_channels, (cfg.img_channels,), (1,), (1,))
+            if cfg.use_lidar:
+                self.lidar_encoder = SparseEncoder(cfg.lidar, cfg.grid,
+                                                   cfg.dtype, device)
+            self.img_bev_encoder_backbone = CustomResNet3D(
+                cfg.fusion_channels, cfg.bev_channels, cfg.bev_num_layer,
+                cfg.bev_strides)
+            self.img_bev_encoder_neck = LSSFPN3D(sum(cfg.bev_channels), occ)
+            self.final_conv = FinalConv(occ)
+            self.predicter = nn.Sequential(
+                Linear(occ, occ * 2), nn.Softplus(),
+                Linear(occ * 2, cfg.num_classes))
+        self.to(device)     # buffers built from numpy start on the CPU
 
     def image_encoder(self, imgs: torch.Tensor) -> torch.Tensor:
         """(B, N, H, W, 3) -> (B, N, h, w, C_neck)."""
@@ -131,6 +139,17 @@ class FusionOcc(nn.Module):
             x, batch.sparse_depth, mlp_input, pool_idx)
         return self.pre_process_net(voxel)[0], depth, seg
 
+    def _lidar_feat(self, batch: Batch) -> torch.Tensor:
+        """(B, Z, Y, X, C_lidar) in the compute dtype; zeros if image-only."""
+        cfg = self.cfg
+        if not cfg.use_lidar:
+            gx, gy, gz = cfg.grid.grid_size
+            return torch.zeros(batch.imgs.shape[0], gz, gy, gx,
+                               cfg.lidar_out_channels, dtype=cfg.dtype,
+                               device=batch.imgs.device)
+        return self.lidar_encoder(batch.points,
+                                  batch.points_mask).to(cfg.dtype)
+
     def forward(self, batch: Batch,
                 pool_idxs: Optional[Sequence[PoolingIndex]] = None
                 ) -> Dict[str, torch.Tensor]:
@@ -147,11 +166,7 @@ class FusionOcc(nn.Module):
                 batch, fid, None if pool_idxs is None else pool_idxs[fid])
             voxel_feats.append(voxel)
         depth_key, seg_key = depth, seg      # the loop ends on the key frame
-        gx, gy, gz = cfg.grid.grid_size
-        lidar = torch.zeros(batch.imgs.shape[0], gz, gy, gx,
-                            cfg.lidar_out_channels, dtype=voxel.dtype,
-                            device=voxel.device)
-        fusion = torch.cat(voxel_feats + [lidar], dim=-1)
+        fusion = torch.cat(voxel_feats + [self._lidar_feat(batch)], dim=-1)
         x = self.img_bev_encoder_neck(self.img_bev_encoder_backbone(fusion))
         x = self.final_conv(x.permute(0, 4, 1, 2, 3))     # (B, C, Z, Y, X)
         x = x.permute(0, 4, 3, 2, 1)                      # (B, X, Y, Z, C)
@@ -174,11 +189,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     conv and linear weights, zero biases, truncated normal(0.02) bias
     tables, unit norm scales, and identity BatchNorm statistics."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, SpConv)):
             w = mod.weight
             fan_in = w[0].numel()
             w.copy_(torch.randn(w.shape, generator=generator) * fan_in ** -0.5)
-            if mod.bias is not None:
+            if getattr(mod, 'bias', None) is not None:
                 mod.bias.zero_()
         elif isinstance(mod, (LayerNorm, BatchNorm)):
             mod.weight.fill_(1.0)

@@ -74,6 +74,32 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
                             self.eps).to(x.dtype)
 
 
+class MaskedBatchNorm(BatchNorm):
+    """Inference BatchNorm of sparse voxel features, eps 1e-3 (spconv's BN1d
+    in the reference's LiDAR encoder; not torch's 1e-5).
+
+    y = ((x - mean) * inv + bias) * mask in float32, then cast to x's dtype,
+    with inv = weight / sqrt(var + eps).  Two layouts share the (C,)
+    parameters: z-folded lanes, x (..., F*C) with the cell lane mask
+    (..., F); and cells, x (..., C) with the cell mask (...).
+    """
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=1e-3)
+
+    def forward(self, x, mask):
+        C = self.num_features
+        if mask.dim() == x.dim():       # lane mask (..., F) of (..., F*C)
+            fold = x.shape[-1] // C
+            m = mask.float().repeat_interleave(C, dim=-1)
+        else:
+            fold, m = 1, mask.float()[..., None]
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = ((x.float() - self.running_mean.repeat(fold)) * inv.repeat(fold)
+             + self.bias.repeat(fold)) * m
+        return y.to(x.dtype)
+
+
 def conv_bn_relu(cin: int, cout: int) -> nn.Sequential:
     """Sequential(3x3 conv, bn, relu): keys ``0.weight``, ``1.*``."""
     return nn.Sequential(Conv2d(cin, cout, 3, 1, 1, bias=False),

@@ -1,9 +1,10 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The sources under ``csrc/`` have a plain C interface.  The first kernel call
-in a process compiles all of them with ``nvcc`` into one shared library under
+in a process compiles them with ``nvcc``, one process per source, all
+started together, and links the objects into one shared library under
 ``fusionocc_tpu_torch/_build/`` (named by a hash of the sources and flags, so
-an edit rebuilds) and loads it with ``ctypes``.  Every pointer and the CUDA
+an edit rebuilds), which it loads with ``ctypes``.  Every pointer and the CUDA
 stream go over as ``c_void_p``; each C entry returns ``cudaGetLastError()``
 after its launch, and ``launch`` raises when that is not ``cudaSuccess``.
 
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+              '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -38,6 +39,11 @@ SIGNATURES: Dict[str, List] = {
     # nWh, nWw, w, shift, scale, dtype (0 f32, 1 bf16), stream
     'window_attn_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
                         _I, _I, _I, _I, _F, _I, _P],
+    # feats, nbr, mask_out, weight (27, cin, cout), out, B, S_in, S_out, cin, cout, stride,
+    # L_in, L_out, (zi_lo, nzi) for ds = 0, 1, 2, dtype (0 f32, 1 bf16),
+    # stream
+    'zwin_conv_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -52,7 +58,7 @@ def find_nvcc() -> str:
     raise RuntimeError(
         'nvcc not found (looked in $PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)'
         '; building the kernels needs: nvcc ' + ' '.join(NVCC_FLAGS)
-        + f' -o <lib>.so {CSRC}/*.cu')
+        + f' -c {CSRC}/<name>.cu, then nvcc -shared -o <lib>.so *.o')
 
 
 class KernelLibrary:
@@ -76,22 +82,42 @@ class KernelLibrary:
         return self.build_dir / f'libfusionocc_kernels_{h.hexdigest()[:16]}.so'
 
     def build(self) -> Path:
-        """Compile the sources unless a library of the same hash exists."""
+        """Compile the sources unless a library of the same hash exists:
+        one ``nvcc -c`` per source, run in parallel, then one link."""
         path = self.library_path()
         if path.exists():
             return path
         nvcc = find_nvcc()
         self.build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f'.{os.getpid()}.tmp')
-        cmd = [nvcc, *NVCC_FLAGS, '-o', str(tmp),
-               *[str(s) for s in self._sources()]]
+        tag = f'{path.stem}.{os.getpid()}'
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        jobs = []
+        for src in self._sources():
+            obj = self.build_dir / f'{tag}.{src.stem}.o'
+            cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(f'{" ".join(cmd)} ({proc.returncode})')
+        objs = [str(obj) for _, obj, _ in jobs]
+        tmp = path.with_suffix(f'.{os.getpid()}.tmp')
+        if not failed:
+            cmd = [nvcc, '-shared', '-o', str(tmp), *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f'{" ".join(cmd)} ({proc.returncode})')
+        for obj in objs:
+            Path(obj).unlink(missing_ok=True)
         self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f'kernel build failed ({proc.returncode}): '
-                               f'{" ".join(cmd)}\n{self.build_log[-4000:]}')
+        self.build_log = '\n'.join(logs)
+        if failed:
+            raise RuntimeError('kernel build failed: ' + '; '.join(failed)
+                               + '\n' + self.build_log[-4000:])
         os.replace(tmp, path)
         return path
 

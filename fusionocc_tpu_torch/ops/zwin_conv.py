@@ -1,0 +1,140 @@
+"""The z-folded 3x3x3 sparse conv: the plain version and the CUDA kernel.
+
+Port of ``fusionocc_tpu/ops/pallas/zwin_conv.py`` (forward).  Both versions
+compute the JAX contract ``ops/zfold.py::zband_conv_apply``:
+
+    out[b, s, zo*Cout + co] = mask_out[b, s] *
+        sum over taps t with nbr[b, s, t] < S_in, over the in cells
+        r = stride*zo + dz - 1 (dz = 0..2) of super shift ds = t % 3:
+            sum over ci of feats[b, nbr[b, s, t], zi(r)*Cin + ci]
+                           * weight[t - ds + dz, ci, co]
+
+summed in fp32 over all taps and cast to feats' dtype once.  feats (B, S_in,
+f_in*Cin), zi-major lanes; nbr (B, S_out, 27) int32 super-grid neighbour map
+in ``KERNEL_OFFSETS`` order, miss = S_in; weight (27, Cin, Cout).  SubM
+convs have stride 1 and f_out = f_in; stride-2 convs take f_out = min(F,
+out cells in z).
+
+The lifted weight (``expand_weight``) is z-banded: for super z-shift ds only
+the input lanes of ``z_bands(...)[ds]`` are nonzero, and out cell zo reads
+at most 3 of them.  The plain version multiplies each band by its lifted
+weight; the kernel reads the cell weight at tap t - ds + dz directly.
+
+The TPU kernel's window plan, one-hot row selection, overflow patch and
+``lax.cond`` fallback exist only because Mosaic had no dynamic gather; the
+CUDA kernel gathers rows by index, so it is exact and has none of them.
+``zwin_conv`` takes the plain version for CPU tensors and launches
+``csrc/zwin_conv.cu`` for CUDA tensors; it never falls back.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from .kernels import KERNELS, stream_ptr
+from .sparse_conv import gather_rows
+from .zfold import expand_weight
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_L_OUT = 1024    # one thread per output lane
+
+
+def band_pairs(f_in: int, f_out: int, stride: int, ds: int):
+    """The (zo, dz) pairs whose input cell lies in super shift ds."""
+    return [(zo, dz) for zo in range(f_out) for dz in range(3)
+            if (stride * zo + dz - 1) // f_in + 1 == ds]
+
+
+def z_bands(f_in: int, f_out: int, stride: int) -> List[Tuple[int, int]]:
+    """Nonzero (zi_lo, nzi) input-lane band per super z-shift ds in 0..2;
+    nzi == 0 for an empty ds."""
+    bands = []
+    for ds in range(3):
+        zis = [stride * zo + dz - 1 - (ds - 1) * f_in
+               for zo, dz in band_pairs(f_in, f_out, stride, ds)]
+        bands.append((min(zis), max(zis) - min(zis) + 1) if zis else (0, 0))
+    return bands
+
+
+def zwin_conv_plain(feats: torch.Tensor, mask_out: torch.Tensor,
+                    nbr_idx: torch.Tensor, weight: torch.Tensor,
+                    f_in: int, f_out: int, stride: int) -> torch.Tensor:
+    """``zband_conv_apply``: per super shift ds, gather the band lanes of
+    the 9 (dx, dy) taps and run one fp32 GEMM against the band of the lifted
+    weight."""
+    B, _, L = feats.shape
+    cin, cout = weight.shape[1], weight.shape[2]
+    assert L == f_in * cin, (L, f_in, cin)
+    assert stride * (f_out - 1) + 1 <= 2 * f_in, (f_in, f_out, stride)
+    s_out = nbr_idx.shape[1]
+    w_e = expand_weight(weight.to(feats.dtype).float(), f_in, f_out, stride)
+    w_e = w_e.reshape(9, 3, f_in, cin, f_out, cout)
+    nbr9 = nbr_idx.reshape(B, s_out, 9, 3)
+    out = feats.new_zeros(B, s_out, f_out * cout, dtype=torch.float32)
+    for ds, (zi_lo, nzi) in enumerate(z_bands(f_in, f_out, stride)):
+        if not nzi:
+            continue
+        zos = [zo for zo, _ in band_pairs(f_in, f_out, stride, ds)]
+        zo_lo, zo_hi = min(zos), max(zos)
+        src = feats[:, :, zi_lo * cin:(zi_lo + nzi) * cin]
+        gat = gather_rows(src, nbr9[..., ds]).reshape(B, s_out, 9 * nzi * cin)
+        wk = w_e[:, ds, zi_lo:zi_lo + nzi, :, zo_lo:zo_hi + 1].reshape(
+            9 * nzi * cin, (zo_hi - zo_lo + 1) * cout)
+        out[:, :, zo_lo * cout:(zo_hi + 1) * cout] += gat.float() @ wk
+    return torch.where(mask_out[..., None], out.to(feats.dtype), 0)
+
+
+def zwin_conv_cuda(feats: torch.Tensor, mask_out: torch.Tensor,
+                   nbr_idx: torch.Tensor, weight: torch.Tensor,
+                   f_in: int, f_out: int, stride: int) -> torch.Tensor:
+    """Launch ``zwin_conv_fwd``: one CTA per 32 output rows, one thread per
+    output lane."""
+    dev = feats.device
+    if dev.type != 'cuda':
+        raise ValueError(f'zwin_conv_cuda needs CUDA tensors, got {dev}')
+    if feats.dtype not in _DTYPE_CODE:
+        raise TypeError(f'feats must be float32 or bfloat16, got '
+                        f'{feats.dtype}')
+    B, s_in, l_in = feats.shape
+    _, s_out, taps = nbr_idx.shape
+    cin, cout = weight.shape[1], weight.shape[2]
+    l_out = f_out * cout
+    if (weight.shape[0] != 27 or l_in != f_in * cin or taps != 27
+            or nbr_idx.shape[0] != B or mask_out.shape != (B, s_out)):
+        raise ValueError(f'shapes: feats {tuple(feats.shape)}, nbr '
+                         f'{tuple(nbr_idx.shape)}, mask_out '
+                         f'{tuple(mask_out.shape)}, weight '
+                         f'{tuple(weight.shape)}, f_in {f_in}')
+    if stride * (f_out - 1) + 1 > 2 * f_in or l_out > MAX_L_OUT:
+        raise ValueError(f'unsupported fold f_in={f_in} f_out={f_out} '
+                         f'stride={stride} L_out={l_out}')
+    if (nbr_idx.dtype != torch.int32 or mask_out.dtype != torch.bool
+            or nbr_idx.device != dev or mask_out.device != dev):
+        raise ValueError(f'nbr_idx must be int32 and mask_out bool on {dev}')
+    if B * max(s_in, s_out) >= 2 ** 31:
+        raise ValueError('row count exceeds int32')
+    feats = feats.contiguous()
+    nbr_idx = nbr_idx.contiguous()
+    mask_out = mask_out.contiguous()
+    weight = weight.to(dev, feats.dtype).contiguous()
+    bands = [v for band in z_bands(f_in, f_out, stride) for v in band]
+    out = torch.empty(B, s_out, l_out, dtype=feats.dtype, device=dev)
+    if B * s_out == 0:
+        return out
+    with torch.cuda.device(dev):
+        KERNELS.launch(
+            'zwin_conv_fwd', feats.data_ptr(), nbr_idx.data_ptr(),
+            mask_out.data_ptr(), weight.data_ptr(), out.data_ptr(), B, s_in,
+            s_out, cin, cout, stride, l_in, l_out, *bands,
+            _DTYPE_CODE[feats.dtype],
+            stream_ptr(dev))
+    return out
+
+
+def zwin_conv(feats: torch.Tensor, mask_out: torch.Tensor,
+              nbr_idx: torch.Tensor, weight: torch.Tensor,
+              f_in: int, f_out: int, stride: int) -> torch.Tensor:
+    """Plain version for CPU tensors, the CUDA kernel otherwise."""
+    fn = zwin_conv_plain if feats.device.type == 'cpu' else zwin_conv_cuda
+    return fn(feats, mask_out, nbr_idx, weight, f_in, f_out, stride)

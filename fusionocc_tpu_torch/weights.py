@@ -1,12 +1,13 @@
 """Flax parameter trees -> the port's ``state_dict`` (reference key names).
 
-The inverse of ``fusionocc_tpu/train/torch_import.py`` (``build_rules``) for
-the modules this port has: Swin, FPN_LSS, CrossModalLSS, pre_process, the
-BEV encoder and the head.  The trees come in as nested dicts of numpy arrays,
-so nothing here imports JAX.  Each rule maps a flax leaf path to its torch
-key and the layout change (flax kernels are (..., in, out), torch's
-(out, in, ...)).  ``num_batches_tracked`` and ``relative_position_index``
-buffers, which flax does not keep, are filled in.
+The inverse of ``fusionocc_tpu/train/torch_import.py`` (``build_rules``):
+Swin, FPN_LSS, CrossModalLSS, pre_process, the LiDAR encoder (when the
+config uses it), the BEV encoder and the head.  The trees come in as nested
+dicts of numpy arrays, so nothing here imports JAX.  Each rule maps a flax
+leaf path to its torch key and the layout change (flax kernels are
+(..., in, out), torch's (out, in, ...), spconv2's (out, k, k, k, in)).
+``num_batches_tracked`` and ``relative_position_index`` buffers, which flax
+does not keep, are filled in.
 """
 from __future__ import annotations
 
@@ -29,6 +30,14 @@ def conv3d(w):  # (kd, kh, kw, I, O) -> (O, I, kd, kh, kw)
 
 def linear(w):  # (I, O) -> (O, I)
     return np.transpose(w, (1, 0))
+
+
+def spconv3(w):  # (27, I, O) -> spconv2 (O, 3, 3, 3, I)
+    return np.transpose(w, (2, 0, 1)).reshape(w.shape[2], 3, 3, 3, w.shape[1])
+
+
+def spconv1(w):  # (I, O) -> spconv2 (O, 1, 1, 1, I)
+    return np.transpose(w, (1, 0)).reshape(w.shape[1], 1, 1, 1, w.shape[0])
 
 
 def ident(w):
@@ -85,6 +94,22 @@ def _resnet3d(rules: Rules, fpath, tpath, num_layer):
                 _convbn(rules, f'{f}/ConvBN_{i}', f'{t}.{name}.conv',
                         f'{t}.{name}.bn', 3)
             k += 1
+
+
+def _lidar_encoder(rules: Rules, lc):
+    """conv_input, the SubM and stride-2 convs with their BN1d, conv_out."""
+    le = 'lidar_encoder'
+    P = rules['params']
+    P[f'{le}/conv_input_kernel'] = (f'{le}.conv_input.0.weight', spconv1)
+    P[f'{le}/conv_out_kernel'] = (f'{le}.conv_out.0.weight', spconv1)
+    last = len(lc.encoder_channels) - 1
+    for i, blocks in enumerate(lc.encoder_channels):
+        for j in range(len(blocks)):
+            down = i < last and j == len(blocks) - 1
+            f = f'{le}/stage{i}_down' if down else f'{le}/stage{i}_subm{j}'
+            t = f'{le}.encoder_layers.encoder_layer{i + 1}.{j}'
+            P[f'{f}/kernel'] = (f'{t}.0.weight', spconv3)
+            _bn(rules, f'{f}/MaskedBatchNorm_0', f'{t}.1')
 
 
 def slice_rules(cfg: ModelConfig) -> Rules:
@@ -160,6 +185,8 @@ def slice_rules(cfg: ModelConfig) -> Rules:
     _conv(rules, f'{dsn}/seg_out', f'{tdsn}.seg_out', 2)
 
     _resnet3d(rules, 'pre_process_net', 'pre_process_net', (1,))
+    if cfg.use_lidar:
+        _lidar_encoder(rules, cfg.lidar)
     _resnet3d(rules, 'bev_backbone', 'img_bev_encoder_backbone',
               cfg.bev_num_layer)
     _convbn(rules, 'bev_neck/ConvBN_0', 'img_bev_encoder_neck.conv.conv',
@@ -185,7 +212,7 @@ def state_dict_from_flax(params: Any, batch_stats: Any, cfg: ModelConfig
                          ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` for flax ``params`` / ``batch_stats``.
 
-    Raises KeyError for a flax leaf no rule covers (e.g. a LiDAR encoder).
+    Raises KeyError for a flax leaf no rule covers.
     """
     rules = slice_rules(cfg)
     sd: Dict[str, torch.Tensor] = {}

@@ -2,7 +2,9 @@
 
 - Every preset of ``fusionocc_tpu_torch.config`` equals the JAX package's,
   field by field, with the same derived sizes.
-- Configurations that select an unported path are refused.
+- The default multi-modal configuration is supported; configurations that
+  select an unported path are refused.
+- Entry points that make tensors put them on the card unless asked not to.
 - Importing the port pulls in no JAX (the GPU machine has none).
 - ``chip_smoke.py`` refuses to run without a CUDA device, without a
   traceback and without printing a result.
@@ -51,7 +53,9 @@ def test_image_only_preset_matches_named_config():
 
 
 @pytest.mark.parametrize('overrides,item', [
-    (dict(use_lidar=True), 'item 5'),
+    (dict(use_lidar=True,
+          lidar=dataclasses.replace(tcfg.SparseEncoderConfig(),
+                                    backend='coo')), 'item 5'),
     (dict(use_lidar=False,
           swin=dataclasses.replace(tcfg.SwinConfig(), int8_dense=True)),
      'item 12'),
@@ -60,6 +64,46 @@ def test_unported_paths_are_refused(overrides, item):
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc
     with pytest.raises(NotImplementedError, match=item):
         FusionOcc(tcfg.full_model_config(**overrides))
+
+
+@pytest.mark.parametrize('field,value', [
+    ('backend', 'coo'), ('backend', 'tile'), ('zconv', 'lifted'),
+    ('zconv', 'zslice'), ('dense_from', 2), ('stop_after', 'vox')])
+def test_unported_lidar_paths_are_refused(field, value):
+    lidar = dataclasses.replace(tcfg.SparseEncoderConfig(), **{field: value})
+    with pytest.raises(NotImplementedError, match='not ported'):
+        tcfg.check_supported(tcfg.full_model_config(lidar=lidar))
+
+
+@pytest.mark.parametrize('overrides', [
+    {}, dict(zconv='zband'), dict(dense_from=4), dict(dense_mode='xla3d'),
+    dict(zwin_fuse=True, zwin_merged=True, zwin_block=16)])
+def test_default_lidar_config_is_supported(overrides):
+    lidar = dataclasses.replace(tcfg.SparseEncoderConfig(), **overrides)
+    cfg = tcfg.full_model_config(lidar=lidar)
+    assert cfg.use_lidar
+    tcfg.check_supported(cfg)
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card and without device='cpu' the entry points raise;
+    nothing falls back to the CPU."""
+    import torch
+    from fusionocc_tpu_torch.data.synthetic import synthetic_batch
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc
+    from fusionocc_tpu_torch.models.lidar_encoder import SparseEncoder
+    cfg = tcfg.tiny_model_config(
+        lidar=dataclasses.replace(tcfg.tiny_model_config().lidar,
+                                  backend='zfold'))
+    if torch.cuda.is_available():
+        pytest.skip('a card is present: the default is usable here')
+    for make in (lambda: synthetic_batch(cfg, 1, 0, num_points=16),
+                 lambda: FusionOcc(cfg),
+                 lambda: SparseEncoder(cfg.lidar, cfg.grid)):
+        with pytest.raises((RuntimeError, AssertionError)):
+            make()
+    enc = SparseEncoder(cfg.lidar, cfg.grid, device='cpu')
+    assert next(enc.parameters()).device.type == 'cpu'
 
 
 def _run(code_or_args, cwd, env_extra=None):
@@ -74,6 +118,10 @@ def test_port_imports_no_jax():
     code = (
         'import sys\n'
         'import fusionocc_tpu_torch.models.fusion_occ, '
+        'fusionocc_tpu_torch.models.lidar_encoder, '
+        'fusionocc_tpu_torch.ops.zwin_conv, fusionocc_tpu_torch.ops.voxelize, '
+        'fusionocc_tpu_torch.ops.sparse_conv, fusionocc_tpu_torch.ops.zfold, '
+        'fusionocc_tpu_torch.ops.dense_conv, '
         'fusionocc_tpu_torch.weights, fusionocc_tpu_torch.data.synthetic\n'
         'bad = [m for m in sys.modules if m in ("jax", "flax", "fusionocc_tpu")'
         ' or m.startswith(("jax.", "flax.", "jaxlib", "fusionocc_tpu."))]\n'

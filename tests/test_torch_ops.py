@@ -56,7 +56,7 @@ def test_synthetic_batch_bitwise_equal(preset, batch_size, seed):
     j = j_synthetic_batch(getattr(jcfg, f'{preset}_model_config')(),
                           batch_size, seed, num_points=256)
     t = synthetic_batch(getattr(tcfg, f'{preset}_model_config')(),
-                        batch_size, seed, num_points=256)
+                        batch_size, seed, num_points=256, device='cpu')
     for name, want in j._asdict().items():
         got = getattr(t, name).numpy()
         assert got.dtype == want.dtype, name
@@ -279,4 +279,5 @@ def test_build_without_nvcc_raises_naming_the_command(tmp_path, monkeypatch):
     lib = kernels.KernelLibrary(build_dir=tmp_path)
     with pytest.raises(RuntimeError, match='nvcc .*sm_90a'):
         lib.build()
-    assert lib.launches == {'bev_pool_fwd': 0, 'window_attn_fwd': 0}
+    assert lib.launches == {'bev_pool_fwd': 0, 'window_attn_fwd': 0,
+                            'zwin_conv_fwd': 0}

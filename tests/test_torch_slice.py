@@ -85,10 +85,10 @@ def slice_pair(request):
         variables, jbatch)
     jout = {k: np.asarray(v) for k, v in jout.items()}
 
-    model = FusionOcc(tc)
+    model = FusionOcc(tc, device='cpu')
     model.load_state_dict(state_dict_from_flax(
         variables['params'], variables['batch_stats'], tc), strict=True)
-    batch = synthetic_batch(tc, 1, 0, num_points=96)
+    batch = synthetic_batch(tc, 1, 0, num_points=96, device='cpu')
     with torch.inference_mode():
         tout = model(batch)
     return jc, tc, variables, jout, model, batch, tout
@@ -136,42 +136,47 @@ def test_state_dict_round_trips_through_importer(slice_pair):
                                           err_msg=path)
 
 
+# flax leaf shape per converter of weights.py
+CONV_SHAPES = {'conv2d': (2, 3, 4, 5), 'conv3d': (2, 3, 4, 5, 6),
+               'linear': (2, 3), 'spconv3': (27, 3, 4), 'spconv1': (3, 4)}
+
+
 @pytest.mark.parametrize('preset', ['full', 'tiny', 'midsize'])
 def test_rule_table_agrees_with_build_rules(preset):
-    """Same flax leaves (all but the LiDAR encoder), same torch keys, and the
-    two converters are inverses."""
+    """Same flax leaves (the LiDAR encoder's included), same torch keys,
+    and the two converters are inverses."""
     jrules = ti.build_rules(getattr(jcfg, f'{preset}_model_config')())
     trules = slice_rules(getattr(tcfg, f'{preset}_model_config')())
     rng = np.random.RandomState(0)
     for kind in ('params', 'batch_stats'):
-        jslice = {p: r for p, r in jrules[kind].items()
-                  if not p.startswith('lidar_encoder/')}
-        assert set(trules[kind]) == set(jslice), kind
+        assert set(trules[kind]) == set(jrules[kind]), kind
+        assert any(p.startswith('lidar_encoder/') for p in trules[kind])
         for path, (tkey, tconv) in trules[kind].items():
-            jkey, jconv = jslice[path]
+            jkey, jconv = jrules[kind][path]
             assert tkey == jkey, path
-            ndim = {'conv2d': 4, 'conv3d': 5, 'linear': 2}.get(
-                tconv.__name__, 1)
-            x = rng.randn(*range(2, 2 + ndim)).astype(np.float32)
+            shape = CONV_SHAPES.get(tconv.__name__, (2,))
+            x = rng.randn(*shape).astype(np.float32)
             np.testing.assert_array_equal(jconv(tconv(x)), x, err_msg=path)
 
 
 def test_full_size_state_dict_matches_port_module_tree():
-    """At full size (Swin-B 2/2/18/2, production widths) the keys and shapes
-    the converter produces are exactly the port model's ``state_dict``."""
-    jc = jcfg.full_model_config(use_lidar=False)
-    tc = tcfg.image_only_model_config()
+    """At full size (the default config: Swin-B 2/2/18/2, the LiDAR encoder,
+    production widths) the keys and shapes the converter produces are
+    exactly the port model's ``state_dict``."""
+    jc = jcfg.full_model_config()
+    tc = tcfg.full_model_config()
     # parameter shapes do not depend on the image size: trace a small one
     small = dataclasses.replace(jc, input_size=(64, 128))
     jbatch = j_synthetic_batch(small, 1, 0, num_points=64)
     shapes = jax.eval_shape(_init_fn(JFusionOcc(small), jbatch))
     zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
     sd = state_dict_from_flax(zeros['params'], zeros['batch_stats'], tc)
-    with torch.device('meta'):
-        model = FusionOcc(tc)
+    model = FusionOcc(tc, device='meta')
     want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     assert {k: tuple(v.shape) for k, v in sd.items()} == want
     assert 'img_backbone.stages.2.blocks.17.attn.w_msa.qkv.weight' in want
+    assert want['lidar_encoder.encoder_layers.encoder_layer3.2.0.weight'] \
+        == (64, 3, 3, 3, 48)
     assert len(flatten_tree(zeros['params'])) > 500
 
 
@@ -187,11 +192,11 @@ def test_bf16_precision_placement_matches_jax():
     variables = random_variables(_init_fn(jmodel, jbatch), seed=3)
     jout = jax.jit(lambda v, b: jmodel.apply(v, b, train=False))(
         variables, jbatch)
-    model = FusionOcc(tc)
+    model = FusionOcc(tc, device='cpu')
     model.load_state_dict(state_dict_from_flax(
         variables['params'], variables['batch_stats'], tc), strict=True)
     with torch.inference_mode():
-        tout = model(synthetic_batch(tc, 1, 0, num_points=96))
+        tout = model(synthetic_batch(tc, 1, 0, num_points=96, device='cpu'))
     for key, tol in (('occ_logits', 5e-2), ('depth', 5e-3),
                      ('seg_logits', 1e-1)):
         assert str(tout[key].dtype).split('.')[-1] == str(jout[key].dtype)

@@ -1,5 +1,5 @@
-"""Where one full-size image-only ``predict`` of the PyTorch port spends its
-time on the GPU.
+"""Where one full-size ``predict`` of the PyTorch port, in the default
+multi-modal configuration, spends its time on the GPU.
 
     python3 tools/profile_torch_predict.py [--iters 3] [--top 25]
 
@@ -7,10 +7,13 @@ Builds the model as ``chip_smoke.py`` does (bf16, seeded random weights,
 synthetic batch, cached pooling indices), warms up, then over ``--iters``
 predicts reports:
 
-- ms per predict and the device time of each top-level submodule and of
-  the view transformer's parts, from CUDA events recorded by forward hooks
-  (each of the two camera passes enters the camera modules once), with the
-  profiler off;
+- ms per predict and the device time of each top-level submodule (the
+  LiDAR encoder included) and of the view transformer's parts, from CUDA
+  events recorded by forward hooks (each of the two camera passes enters
+  the camera modules once), with the profiler off;
+- the LiDAR encoder's steps the same way: its functions (voxelization,
+  regroup, index builds, the zwin convs, the dense tail) wrapped in CUDA
+  events for the run, and its masked BatchNorms hooked;
 - then, over as many predicts under ``torch.profiler``, the kernels with the
   most device time and the summed kernel time per predict;
 - the device idle share: 1 - kernel time / unprofiled wall time.
@@ -30,10 +33,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from fusionocc_tpu_torch.config import image_only_model_config  # noqa: E402
+from fusionocc_tpu_torch.config import full_model_config  # noqa: E402
 from fusionocc_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from fusionocc_tpu_torch.models import lidar_encoder  # noqa: E402
 from fusionocc_tpu_torch.models.fusion_occ import (  # noqa: E402
     FusionOcc, batch_pooling_indices, init_weights)
+from fusionocc_tpu_torch.nn.layers import MaskedBatchNorm  # noqa: E402
 
 MODULES = ('img_backbone', 'img_neck', 'img_view_transformer',
            'img_view_transformer.img_reduce_conv',
@@ -41,8 +46,24 @@ MODULES = ('img_backbone', 'img_neck', 'img_view_transformer',
            'img_view_transformer.cross_model_fusion',
            'img_view_transformer.further_fuse',
            'img_view_transformer.depth_seg_net',
-           'pre_process_net', 'img_bev_encoder_backbone',
+           'pre_process_net', 'lidar_encoder', 'img_bev_encoder_backbone',
            'img_bev_encoder_neck', 'final_conv')
+# functions the LiDAR encoder calls, by their names in its module
+ENCODER_STEPS = ('voxelize_mean', 'sparse_conv1x1_apply', 'zfold_regroup',
+                 'stage_indices_table', 'strided_lane_mask', 'zwin_conv',
+                 'dense_from_zfold', 'strided_out_mask', 'dense_conv3d')
+
+
+def _record(events, name):
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    events[name].append([ev, None])
+
+
+def _close(events, name):
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    events[name][-1][1] = ev
 
 
 def module_timer(model):
@@ -51,24 +72,35 @@ def module_timer(model):
     handles = []
 
     def pre(name):
-        def hook(mod, args):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events[name].append([ev, None])
-        return hook
+        return lambda mod, args: _record(events, name)
 
     def post(name):
-        def hook(mod, args, out):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events[name][-1][1] = ev
-        return hook
+        return lambda mod, args, out: _close(events, name)
 
-    for name in MODULES:
-        mod = model.get_submodule(name)
+    mods = [(name, model.get_submodule(name)) for name in MODULES]
+    mods += [('  MaskedBatchNorm', m) for m in model.lidar_encoder.modules()
+             if isinstance(m, MaskedBatchNorm)]
+    for name, mod in mods:
         handles.append(mod.register_forward_pre_hook(pre(name)))
         handles.append(mod.register_forward_hook(post(name)))
-    return events, handles
+    originals = {name: getattr(lidar_encoder, name) for name in ENCODER_STEPS}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            _record(events, f'  {name}')
+            out = fn(*args, **kwargs)
+            _close(events, f'  {name}')
+            return out
+        return call
+    for name, fn in originals.items():
+        setattr(lidar_encoder, name, timed(name, fn))
+
+    def remove():
+        for h in handles:
+            h.remove()
+        for name, fn in originals.items():
+            setattr(lidar_encoder, name, fn)
+    return events, remove
 
 
 def main() -> None:
@@ -86,26 +118,26 @@ def main() -> None:
         capture_output=True, text=True).stdout.strip()
     print(f'card: {card}')
 
-    cfg = image_only_model_config()
-    model = init_weights(FusionOcc(cfg), torch.Generator().manual_seed(0))
-    model.to(dev)
+    cfg = full_model_config()
+    model = init_weights(FusionOcc(cfg, device=dev),
+                         torch.Generator().manual_seed(0))
     batch = synthetic_batch(cfg, 1, 0, device=dev)
     idxs = batch_pooling_indices(cfg, batch)
     for _ in range(2):
         model.predict(batch, idxs)
     torch.cuda.synchronize()
 
-    events, handles = module_timer(model)
+    events, remove = module_timer(model)
     t0 = time.perf_counter()
     for _ in range(args.iters):
         model.predict(batch, idxs)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
-    for h in handles:
-        h.remove()
+    remove()
     print(f'ms per predict (hooks on, profiler off): {wall_ms:.2f}')
-    print('device ms per predict by module (calls per predict):')
-    for name in MODULES:
+    print('device ms per predict by module (calls per predict); the LiDAR '
+          "encoder's steps indented below it:")
+    for name in events:
         ms = sum(a.elapsed_time(b) for a, b in events[name])
         print(f'  {name:42s} {ms / args.iters:9.3f}  '
               f'({len(events[name]) // args.iters})')
