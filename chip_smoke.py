@@ -7,18 +7,27 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: the card (nvidia-smi name and power limit), CUDA and nvcc
    versions, TF32 switched off for matmuls and cuDNN.
 2. build: compiles ``fusionocc_tpu_torch/csrc/*.cu`` with nvcc, one process
-   per source, all started together (timed).
+   per source, all started together (timed), prints ptxas's registers and
+   spills, and counts the tensor-core instructions (``HMMA``/``HGMMA``) of
+   every kernel body in the library with ``cuobjdump --dump-sass``: the bf16
+   bodies of K2 and K3 must have some.
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    full-size main path gives it, with errors, tolerances, times and bounds:
    window attention (K2) at the four Swin-B stage shapes, shift 0 and 6,
-   bf16, beside ``scaled_dot_product_attention`` on the same inputs (each
-   backend that takes them, the fastest reported as the library time); frustum
-   pooling (K1) on the full-size pooling index of the synthetic rig, fp32;
-   the zwin sparse conv (K3) at the 9 launches of the full-size LiDAR
-   encoder, bf16, with the inputs that the port's encoder (seeded random
-   weights) gives it on the full-size synthetic cloud.
-4. reference: the midsize multi-modal config in fp32 on the card (kernels)
-   against the same weights on the CPU (plain versions).
+   bf16 (tensor cores), beside ``scaled_dot_product_attention`` on the same
+   inputs (each backend that takes them, the fastest reported as the library
+   time); frustum pooling (K1) on the full-size pooling index of the
+   synthetic rig, fp32; the zwin sparse conv (K3) at the 9 launches of the
+   full-size LiDAR encoder, bf16 (tensor cores), with the inputs that the
+   port's encoder (seeded random weights) gives it on the full-size
+   synthetic cloud; then K3's microbenchmark
+   (``tools/profile_torch_zwin_micro.py``) once at stage 1's SubM launch;
+   then both bf16 bodies at small shapes the main path does not give them
+   (K2 with N = 49 and 100, padded to 144; K3 with B = 2, Cout = 24,
+   f_out = 4, Cin = 64, random maps with misses and mask holes).
+4. reference: the midsize multi-modal config in fp32 on the card (the
+   kernels' fp32 bodies) against the same weights on the CPU (plain
+   versions).
 5. slice: two full-size bf16 paths with seeded random weights, per-frame
    pooling indices built once, ``predict`` on three synthetic batches (seeds
    0-2): the image-only preset, then the default multi-modal config (the
@@ -53,6 +62,19 @@ REF_TOL = dict(atol=2e-3, rtol=2e-3)   # fp32 model, GPU vs CPU
 SLICE_SEEDS = (0, 1, 2)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 PEAK_BYTES = 3.35e12
+# the kernels of the main path; the launch checks read these counts only
+MAIN_KERNELS = ('window_attn_fwd', 'bev_pool_fwd', 'zwin_conv_fwd')
+# mangled-name part of each kernel body -> (C entry, body); the bodies that
+# must use the tensor cores are marked True
+KERNEL_BODIES = {
+    'window_attn_mma_kernel': ('window_attn_fwd', 'bf16', True),
+    'window_attn_fp32_kernel': ('window_attn_fwd', 'fp32', False),
+    'zwin_conv_mma_kernelILb0E': ('zwin_conv_fwd', 'bf16', True),
+    'zwin_conv_mma_kernelILb1E': ('zwin_conv_null', 'bf16, no products',
+                                  False),
+    'zwin_conv_fp32_kernel': ('zwin_conv_fwd', 'fp32', False),
+    'bev_pool_fwd_kernel': ('bev_pool_fwd', 'fp32', False),
+}
 
 
 def fail(msg: str) -> None:
@@ -135,6 +157,25 @@ def phase_device() -> str:
     return card
 
 
+def sass_mma_counts(lib) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per kernel function of the
+    built library, from ``cuobjdump --dump-sass``."""
+    from pathlib import Path
+    from fusionocc_tpu_torch.ops.kernels import find_nvcc
+    cuobjdump = Path(find_nvcc()).with_name('cuobjdump')
+    sass = subprocess.run([str(cuobjdump), '--dump-sass', str(lib)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            name = line.split('Function :', 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and ('HMMA' in line or 'HGMMA' in line):
+            counts[name] += 1
+    return counts
+
+
 def phase_build() -> None:
     from fusionocc_tpu_torch.ops.kernels import KERNELS
     t0 = time.perf_counter()
@@ -145,8 +186,19 @@ def phase_build() -> None:
            else 'found built')
     print(f'[2/5] build: {how} {path.name} in {took:.1f} s')
     for line in KERNELS.build_log.splitlines():
-        if 'Used' in line or 'Compiling entry' in line:
+        if 'Used' in line or 'Compiling entry' in line or 'spill' in line:
             print('  ptxas' + line.split('ptxas', 1)[-1])
+    counts = sass_mma_counts(path)
+    print('  tensor-core instructions (HMMA/HGMMA) per kernel body, '
+          'cuobjdump --dump-sass:')
+    for key, (entry, body, needs_mma) in KERNEL_BODIES.items():
+        found = [n for n in counts if key in n]
+        if not found:
+            fail(f'kernel body {key} ({entry}) not in the library')
+        mma = sum(counts[n] for n in found)
+        print(f'    {entry} {body} ({key}): {mma}', flush=True)
+        if needs_mma and mma == 0:
+            fail(f'the {body} body of {entry} has no tensor-core instruction')
     sys.stdout.flush()
 
 
@@ -285,38 +337,20 @@ def check_bev_pool(cfg, batch0, g) -> dict:
                 bound_by=bound_by, library_ms=None)
 
 
-def record_zwin_launches(cfg, batch0):
-    """The arguments of the 9 zwin conv calls that the port's full-size
-    LiDAR encoder (seeded random weights) makes on the synthetic cloud."""
-    from fusionocc_tpu_torch.models import lidar_encoder as le
-    from fusionocc_tpu_torch.models.fusion_occ import init_weights
+def check_zwin(cfg, batch0) -> dict:
+    """K3 at the full-size encoder's 9 launches, then its microbenchmark
+    at stage 1's SubM launch."""
+    from fusionocc_tpu_torch.ops import zwin_conv as zw
     from fusionocc_tpu_torch.ops.voxelize import voxelize_mean
+    from tools import profile_torch_zwin_micro as micro
     lc = cfg.lidar
-    enc = init_weights(le.SparseEncoder(lc, cfg.grid, cfg.dtype, DEV),
-                       torch.Generator().manual_seed(5))
-    calls = []
-
-    def record(*args):
-        calls.append(args)
-        return real(*args)
-    real, le.zwin_conv = le.zwin_conv, record
-    try:
-        enc(batch0.points, batch0.points_mask)
-    finally:
-        le.zwin_conv = real
+    calls = micro.record_zwin_launches(cfg, batch0, DEV)
     sp = voxelize_mean(batch0.points, batch0.points_mask,
                        cfg.grid.point_cloud_range, lc.voxel_size,
                        lc.sparse_shape(cfg.grid), lc.voxel_capacity[0])
     print(f'  full-size cloud: {int(batch0.points_mask.sum())} points, '
           f'{int(sp.mask.sum())} voxels (JAX capacity '
           f'{lc.voxel_capacity[0]})', flush=True)
-    return calls
-
-
-def check_zwin(cfg, batch0) -> dict:
-    """K3 at the full-size encoder's 9 launches."""
-    from fusionocc_tpu_torch.ops import zwin_conv as zw
-    calls = record_zwin_launches(cfg, batch0)
     caps = cfg.lidar.zfold_capacity
     err, ms, plain_ms, bound = 0.0, 0.0, 0.0, Bound()
     stage = 0
@@ -356,17 +390,56 @@ def check_zwin(cfg, batch0) -> dict:
     print(f'  zwin summed over the 9 launches: kernel {ms:.4f} ms, plain '
           f'{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}',
           flush=True)
+    print('  K3 microbenchmark (tools/profile_torch_zwin_micro.py) at stage '
+          "1's SubM launch:", flush=True)
+    stage1 = micro.stage1_subm(calls)
+    micro.report(micro.run(stage1), stage1, indent='    ')
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def check_edge_shapes(g) -> None:
+    """The bf16 bodies at shapes off the main path: K2's padded keys and
+    query rows, K3's batch offsets, odd n8 tiles, fewer warps, four k16
+    steps."""
+    from fusionocc_tpu_torch.ops import window_attn as wa
+    from fusionocc_tpu_torch.ops import zwin_conv as zw
+    for w, nWh, nWw, heads in ((7, 2, 3, 2), (10, 3, 2, 4)):
+        n, c, bn = w * w, 32 * heads, 2 * nWh * nWw
+        qkv = torch.randn(bn, n, 3 * c, device=DEV, generator=g
+                          ).to(torch.bfloat16)
+        bias = torch.randn(heads, n, n, device=DEV, generator=g)
+        for shift in (0, w // 2):
+            args = (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], bias,
+                    nWh, nWw, w, shift, heads)
+            check_close(f'edge window_attn N={n} heads={heads} shift={shift}',
+                        wa.window_attention_cuda(*args),
+                        wa.window_attention_plain(*args), **WA_TOL)
+    for B, s_in, s_out, cin, cout, f_in, f_out, stride in (
+            (2, 300, 200, 16, 24, 8, 4, 2), (1, 257, 257, 64, 8, 4, 4, 1)):
+        feats = torch.randn(B, s_in, f_in * cin, device=DEV, generator=g
+                            ).to(torch.bfloat16)
+        nbr = torch.randint(0, s_in, (B, s_out, 27), device=DEV, generator=g,
+                            dtype=torch.int32)
+        miss = torch.rand(B, s_out, 27, device=DEV, generator=g) < 0.3
+        nbr = torch.where(miss, s_in, nbr).to(torch.int32)
+        mask = torch.rand(B, s_out, device=DEV, generator=g) > 0.2
+        weight = 0.1 * torch.randn(27, cin, cout, device=DEV, generator=g)
+        args = (feats, mask, nbr, weight, f_in, f_out, stride)
+        check_close(f'edge zwin B={B} Cin {cin}->{cout} f {f_in}->{f_out} '
+                    f'stride {stride}', zw.zwin_conv_cuda(*args),
+                    zw.zwin_conv_plain(*args), **ZWIN_TOL)
 
 
 @torch.inference_mode()
 def phase_kernels(cfg, batch0) -> dict:
     print('[3/5] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
-    return {'zwin_conv_fwd': check_zwin(cfg, batch0),
-            'window_attn_fwd': check_window_attn(cfg, g),
-            'bev_pool_fwd': check_bev_pool(cfg, batch0, g)}
+    measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
+                'window_attn_fwd': check_window_attn(cfg, g),
+                'bev_pool_fwd': check_bev_pool(cfg, batch0, g)}
+    check_edge_shapes(g)
+    return measured
 
 
 def phase_reference() -> None:
@@ -393,7 +466,7 @@ def phase_reference() -> None:
         got_lidar = model.lidar_encoder(batch.points, batch.points_mask)
     torch.cuda.synchronize()
     print(f'  launches on the card: {dict(KERNELS.launches)}')
-    if min(KERNELS.launches.values()) == 0:
+    if min(KERNELS.launches[k] for k in MAIN_KERNELS) == 0:
         fail('a kernel was not launched by the midsize model on the card')
     check_close('midsize lidar feature', got_lidar.cpu(), want_lidar,
                 **REF_TOL)
@@ -456,12 +529,12 @@ def drive_path(label, cfg, batches, expect) -> dict:
         pred = model.predict(batch, pool_idxs)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-        delta = {k: KERNELS.launches[k] - before[k] for k in before}
+        delta = {k: KERNELS.launches[k] - before[k] for k in MAIN_KERNELS}
         if pred.shape != (1, gx, gy, gz) or pred.dtype != torch.uint8:
             fail(f'predict gave {tuple(pred.shape)} {pred.dtype}')
         if delta != expect:
             fail(f'{label}: launches per predict {delta}, expected {expect}')
-    totals = dict(KERNELS.launches)
+    totals = {k: KERNELS.launches[k] for k in MAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     print(f'  {label} predict x{len(batches)}: output (1, {gx}, {gy}, {gz}) '
           f'uint8; launches per predict {expect}, total {totals}')

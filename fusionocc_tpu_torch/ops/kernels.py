@@ -1,6 +1,7 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` have a plain C interface.  The first kernel call
+The sources under ``csrc/`` have a plain C interface (``*.cuh`` headers are
+included by them and hashed with them).  The first kernel call
 in a process compiles them with ``nvcc``, one process per source, all
 started together, and links the objects into one shared library under
 ``fusionocc_tpu_torch/_build/`` (named by a hash of the sources and flags, so
@@ -45,6 +46,9 @@ SIGNATURES: Dict[str, List] = {
     'zwin_conv_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _I, _P],
 }
+# K3's bf16 body with the products left out (the microbenchmark's null
+# variant), same arguments, bf16 only
+SIGNATURES['zwin_conv_null'] = SIGNATURES['zwin_conv_fwd']
 
 
 def find_nvcc() -> str:
@@ -64,19 +68,20 @@ def find_nvcc() -> str:
 class KernelLibrary:
     """The compiled ``csrc/*.cu`` library and its per-kernel launch counts."""
 
-    def __init__(self, build_dir: Path = BUILD_DIR):
+    def __init__(self, build_dir: Path = BUILD_DIR, csrc: Path = CSRC):
         self.build_dir = Path(build_dir)
+        self.csrc = Path(csrc)
         self.launches: Dict[str, int] = {name: 0 for name in SIGNATURES}
         self.build_log = ''
         self.build_seconds: Optional[float] = None
         self._lib: Optional[ctypes.CDLL] = None
 
     def _sources(self) -> List[Path]:
-        return sorted(CSRC.glob('*.cu'))
+        return sorted(self.csrc.glob('*.cu'))
 
     def library_path(self) -> Path:
         h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-        for src in self._sources():
+        for src in self._sources() + sorted(self.csrc.glob('*.cuh')):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return self.build_dir / f'libfusionocc_kernels_{h.hexdigest()[:16]}.so'

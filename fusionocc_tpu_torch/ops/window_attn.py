@@ -12,7 +12,10 @@ kernel's contract); the output has q's dtype.  The shift mask is mmcv's:
 column have.
 
 ``window_attention`` takes the plain version for CPU tensors and launches
-``csrc/window_attn.cu`` for CUDA tensors; it never falls back.
+``csrc/window_attn.cu`` for CUDA tensors; it never falls back.  The kernel
+has two bodies, chosen by dtype: bf16 runs on the tensor cores (N <= 144,
+16-byte aligned q, k, v rows), fp32 on the CUDA cores (N <= 1024).  A bf16
+input that the tensor-core body does not take raises.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from .kernels import KERNELS, stream_ptr
 
 MASK_VALUE = -100.0  # mmcv's masked_fill value
 KERNEL_HEAD_DIM = 32
+MAX_N = {torch.float32: 1024, torch.bfloat16: 144}   # tokens per window
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,9 +88,15 @@ def window_attention_cuda(q, k, v, bias, nWh: int, nWw: int, w: int,
         raise ValueError(f'kernel takes N = w*w and head_dim '
                          f'{KERNEL_HEAD_DIM}; got N={n}, w={w}, C={c}, '
                          f'heads={heads}')
-    if n > 1024 or bn % (nWh * nWw) != 0:
-        raise ValueError(f'bad window grid: N={n}, Bn={bn}, nWh={nWh}, '
-                         f'nWw={nWw}')
+    if n > MAX_N[q.dtype] or bn % (nWh * nWw) != 0:
+        raise ValueError(f'bad window grid for {q.dtype}: N={n} (at most '
+                         f'{MAX_N[q.dtype]}), Bn={bn}, nWh={nWh}, nWw={nWw}')
+    if q.dtype == torch.bfloat16 and (
+            any(t.data_ptr() % 16 for t in (q, k, v))
+            or q.stride(0) % 8 or q.stride(1) % 8):
+        raise ValueError('the bf16 body copies 16-byte chunks: q, k, v need '
+                         '16-byte aligned starts and strides that are '
+                         f'multiples of 8, got {q.stride()}')
     bias = bias.float().contiguous()
     if bias.shape != (heads, n, n) or bias.device != q.device:
         raise ValueError(f'bias must be ({heads}, {n}, {n}) on {q.device}')

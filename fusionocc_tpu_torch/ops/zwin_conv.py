@@ -24,7 +24,11 @@ The TPU kernel's window plan, one-hot row selection, overflow patch and
 ``lax.cond`` fallback exist only because Mosaic had no dynamic gather; the
 CUDA kernel gathers rows by index, so it is exact and has none of them.
 ``zwin_conv`` takes the plain version for CPU tensors and launches
-``csrc/zwin_conv.cu`` for CUDA tensors; it never falls back.
+``csrc/zwin_conv.cu`` for CUDA tensors; it never falls back.  The kernel
+has two bodies, chosen by dtype: bf16 runs on the tensor cores (Cin a
+multiple of 16 up to 64, Cout a multiple of 8 up to 64, f_out <= 8), fp32 on
+the CUDA cores (L_out <= 1024).  A bf16 input that the tensor-core body does
+not take raises.
 """
 from __future__ import annotations
 
@@ -37,7 +41,9 @@ from .sparse_conv import gather_rows
 from .zfold import expand_weight
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_L_OUT = 1024    # one thread per output lane
+MAX_L_OUT = 1024    # fp32 body: one thread per output lane
+MAX_CHANNELS = 64   # bf16 body: Cin and Cout
+MAX_F_OUT = 8       # bf16 body: one warp per out cell
 
 
 def band_pairs(f_in: int, f_out: int, stride: int, ds: int):
@@ -88,8 +94,25 @@ def zwin_conv_plain(feats: torch.Tensor, mask_out: torch.Tensor,
 def zwin_conv_cuda(feats: torch.Tensor, mask_out: torch.Tensor,
                    nbr_idx: torch.Tensor, weight: torch.Tensor,
                    f_in: int, f_out: int, stride: int) -> torch.Tensor:
-    """Launch ``zwin_conv_fwd``: one CTA per 32 output rows, one thread per
-    output lane."""
+    """Launch ``zwin_conv_fwd``: one CTA per 32 output rows."""
+    return _launch('zwin_conv_fwd', feats, mask_out, nbr_idx, weight, f_in,
+                   f_out, stride)
+
+
+def zwin_conv_null_cuda(feats: torch.Tensor, mask_out: torch.Tensor,
+                        nbr_idx: torch.Tensor, weight: torch.Tensor,
+                        f_in: int, f_out: int, stride: int) -> torch.Tensor:
+    """Launch ``zwin_conv_null``, the bf16 body with the products left out:
+    the same gathers and stores, an output of masked zeros.  It times the
+    data movement alone (``tools/profile_torch_zwin_micro.py``)."""
+    if feats.dtype != torch.bfloat16:
+        raise TypeError(f'the null body is bf16 only, got {feats.dtype}')
+    return _launch('zwin_conv_null', feats, mask_out, nbr_idx, weight, f_in,
+                   f_out, stride)
+
+
+def _launch(entry: str, feats, mask_out, nbr_idx, weight, f_in: int,
+            f_out: int, stride: int) -> torch.Tensor:
     dev = feats.device
     if dev.type != 'cuda':
         raise ValueError(f'zwin_conv_cuda needs CUDA tensors, got {dev}')
@@ -109,6 +132,13 @@ def zwin_conv_cuda(feats: torch.Tensor, mask_out: torch.Tensor,
     if stride * (f_out - 1) + 1 > 2 * f_in or l_out > MAX_L_OUT:
         raise ValueError(f'unsupported fold f_in={f_in} f_out={f_out} '
                          f'stride={stride} L_out={l_out}')
+    if feats.dtype == torch.bfloat16 and (
+            cin % 16 or cout % 8 or max(cin, cout) > MAX_CHANNELS
+            or f_out > MAX_F_OUT):
+        raise ValueError(f'the bf16 body takes Cin a multiple of 16 and Cout '
+                         f'a multiple of 8, both <= {MAX_CHANNELS}, and '
+                         f'f_out <= {MAX_F_OUT}; got Cin={cin}, Cout={cout}, '
+                         f'f_out={f_out}')
     if (nbr_idx.dtype != torch.int32 or mask_out.dtype != torch.bool
             or nbr_idx.device != dev or mask_out.device != dev):
         raise ValueError(f'nbr_idx must be int32 and mask_out bool on {dev}')
@@ -124,7 +154,7 @@ def zwin_conv_cuda(feats: torch.Tensor, mask_out: torch.Tensor,
         return out
     with torch.cuda.device(dev):
         KERNELS.launch(
-            'zwin_conv_fwd', feats.data_ptr(), nbr_idx.data_ptr(),
+            entry, feats.data_ptr(), nbr_idx.data_ptr(),
             mask_out.data_ptr(), weight.data_ptr(), out.data_ptr(), B, s_in,
             s_out, cin, cout, stride, l_in, l_out, *bands,
             _DTYPE_CODE[feats.dtype],

@@ -122,7 +122,8 @@ def test_port_imports_no_jax():
         'fusionocc_tpu_torch.ops.zwin_conv, fusionocc_tpu_torch.ops.voxelize, '
         'fusionocc_tpu_torch.ops.sparse_conv, fusionocc_tpu_torch.ops.zfold, '
         'fusionocc_tpu_torch.ops.dense_conv, '
-        'fusionocc_tpu_torch.weights, fusionocc_tpu_torch.data.synthetic\n'
+        'fusionocc_tpu_torch.weights, fusionocc_tpu_torch.data.synthetic, '
+        'chip_smoke, tools.profile_torch_zwin_micro\n'
         'bad = [m for m in sys.modules if m in ("jax", "flax", "fusionocc_tpu")'
         ' or m.startswith(("jax.", "flax.", "jaxlib", "fusionocc_tpu."))]\n'
         'print("BAD", bad)\n'

@@ -1,0 +1,212 @@
+"""The schedules and numerics that the tensor-core bodies of the port's
+kernels rely on, emulated in plain torch on the CPU.
+
+The CUDA kernels run only on the card; these tests hold, here, the order of
+work they take and the roundings they add against the plain versions:
+
+- K3 (``csrc/zwin_conv.cu``, bf16 body): the implicit gather-GEMM per (tap,
+  dz) over 32-row blocks.  Per block, the taps that some active row finds;
+  per tap, the band cells of the neighbour rows gathered with misses and
+  inactive rows zero; per out cell zo (one warp) and dz, one cell GEMM of
+  the gathered cell zi = stride*zo + dz - 1 - (ds - 1)*f_in against the cell
+  kernel t - ds + dz, only where 0 <= zi < f_in.  In fp32 it must equal
+  ``zwin_conv_plain`` within 1e-5, at each distinct geometry of the 9
+  full-size launches (SubM 16/32/48, stride-2 16->32, 32->48, 48->64, fold
+  8), on small random maps with misses and ``mask_out`` holes.  The same
+  cases check that the valid zo of each (ds, dz) form the contiguous range
+  that ``band_pairs`` gives, and that each out cell runs exactly 3 cell
+  GEMMs per (dx, dy): the warps are balanced.
+- K2 (``csrc/window_attn.cu``, bf16 body): P V as two bf16 products, of
+  P's bf16 high part and of its bf16 low part (P - high), O normalised by
+  the fp32 row sum and cast to bf16.  It must stay within the card check's
+  tolerance (atol 1e-3 + rtol 1e-2 |plain|, one bf16 ulp of the output) of
+  ``window_attention_plain`` at the four Swin-B head counts, shift 0 and 6.
+  P in bf16 alone does not: at 4 heads, shift 6, it is two ulps off.
+- The microbenchmark's maps (``tools/profile_torch_zwin_micro.py``): the
+  contiguous and compute-only maps are neighbour maps with the real map's
+  misses, and the plain version on them equals JAX's ``zband_conv_apply``.
+
+Inputs are made with numpy from a seed.
+"""
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fusionocc_tpu.ops import zfold as jzf
+from fusionocc_tpu_torch.ops import window_attn as twa
+from fusionocc_tpu_torch.ops import zwin_conv as tzw
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from chip_smoke import WA_TOL  # noqa: E402
+from tools import profile_torch_zwin_micro as micro  # noqa: E402
+
+ROWS = 32
+
+# (Cin, Cout, stride) of the full-size encoder's 9 launches, fold 8 in and
+# out: SubM at stages 0-2, then each stage's stride-2 conv
+FULL_GEOMETRIES = {'subm16': (16, 16, 1), 'subm32': (32, 32, 1),
+                   'subm48': (48, 48, 1), 'down16_32': (16, 32, 2),
+                   'down32_48': (32, 48, 2), 'down48_64': (48, 64, 2)}
+
+
+def random_zwin_inputs(seed, B, s_in, s_out, cin, cout, fold=8):
+    """Random feats, a neighbour map with about 30 % misses (= s_in) and a
+    mask_out with about 20 % holes, and a (27, Cin, Cout) weight."""
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(B, s_in, fold * cin).astype(np.float32)
+    nbr = rng.randint(0, s_in, size=(B, s_out, 27)).astype(np.int32)
+    nbr[rng.rand(B, s_out, 27) < 0.3] = s_in
+    mask = rng.rand(B, s_out) > 0.2
+    weight = (0.1 * rng.randn(27, cin, cout)).astype(np.float32)
+    return feats, nbr, mask, weight
+
+
+def k3_schedule(feats, mask_out, nbr, weight, f_in, f_out, stride):
+    """The bf16 body's order of work, in fp32 (see the module docstring)."""
+    B, s_in, l_in = feats.shape
+    s_out = nbr.shape[1]
+    cin, cout = weight.shape[1], weight.shape[2]
+    bands = tzw.z_bands(f_in, f_out, stride)
+    rows = B * s_out
+    b_of = torch.arange(rows) // s_out
+    flat = nbr.reshape(rows, 27).long()
+    active = mask_out.reshape(rows)
+    src = torch.where((flat < s_in) & active[:, None],
+                      b_of[:, None] * s_in + flat, -1)
+    table = feats.reshape(B * s_in, l_in).float()
+    out = torch.zeros(rows, f_out, cout)
+    for row0 in range(0, rows, ROWS):
+        blk = src[row0:row0 + ROWS]
+        acc = torch.zeros(blk.shape[0], f_out, cout)
+        for t in range(27):
+            ds = t % 3
+            zi_lo, nzi = bands[ds]
+            found = blk[:, t] >= 0
+            if not nzi or not bool(found.any()):
+                continue
+            stage = torch.zeros(blk.shape[0], nzi, cin)
+            stage[found] = table[blk[found, t],
+                                 zi_lo * cin:(zi_lo + nzi) * cin
+                                 ].reshape(-1, nzi, cin)
+            for zo in range(f_out):
+                for dz in range(3):
+                    zi = stride * zo + dz - 1 - (ds - 1) * f_in
+                    if 0 <= zi < f_in:
+                        acc[:, zo] += stage[:, zi - zi_lo] @ weight[t - ds + dz]
+        out[row0:row0 + ROWS] = acc
+    out = out.reshape(B, s_out, f_out * cout)
+    return torch.where(mask_out[..., None], out, 0)
+
+
+@pytest.mark.parametrize('geometry', list(FULL_GEOMETRIES))
+def test_k3_tensor_core_schedule_matches_plain(geometry):
+    cin, cout, stride = FULL_GEOMETRIES[geometry]
+    fold = 8
+    s_in, s_out = 45, 70 if stride == 1 else 58
+    if stride == 1:
+        s_out = s_in
+    feats, nbr, mask, weight = (torch.from_numpy(x) for x in
+                                random_zwin_inputs(11, 2, s_in, s_out, cin,
+                                                   cout, fold))
+    args = (fold, fold, stride)
+    want = tzw.zwin_conv_plain(feats, mask, nbr, weight, *args)
+    got = k3_schedule(feats, mask, nbr, weight, *args)
+    assert got.shape == want.shape == (2, s_out, fold * cout)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+    for ds, (zi_lo, nzi) in enumerate(tzw.z_bands(fold, fold, stride)):
+        pairs = tzw.band_pairs(fold, fold, stride, ds)
+        for dz in range(3):
+            zos = [zo for zo in range(fold)
+                   if 0 <= stride * zo + dz - 1 - (ds - 1) * fold < fold]
+            assert zos == [zo for zo, d in pairs if d == dz]
+            assert zos == list(range(zos[0], zos[-1] + 1)) if zos else True
+    for zo in range(fold):
+        gemms = sum(0 <= stride * zo + dz - 1 - (ds - 1) * fold < fold
+                    for ds in range(3) for dz in range(3))
+        assert gemms == 3
+
+
+def split_p_attention(q, k, v, bias, nWh, nWw, w, shift, heads):
+    """The bf16 body's numerics: fp32 scores and softmax, P V as the
+    products of P's bf16 high and low parts, O normalised and cast."""
+    bn, n, c = q.shape
+    d = c // heads
+    qh, kh, vh = (t.float().reshape(bn, n, heads, d).transpose(1, 2)
+                  for t in (q, k, v))
+    s = qh @ kh.transpose(-1, -2) * d ** -0.5 + bias[None]
+    if shift:
+        nw = nWh * nWw
+        m = twa.shift_masks(nWh, nWw, w, shift)
+        s = (s.view(bn // nw, nw, heads, n, n) + m[None, :, None]
+             ).view(bn, heads, n, n)
+    p = torch.exp2((s - s.amax(-1, keepdim=True)) * 1.4426950408889634)
+    hi = p.bfloat16().float()
+    lo = (p - hi).bfloat16().float()
+    o = (hi @ vh + lo @ vh) / p.sum(-1, keepdim=True)
+    return o.transpose(1, 2).reshape(bn, n, c).bfloat16()
+
+
+@pytest.mark.parametrize('shift', [0, 6])
+@pytest.mark.parametrize('heads', [4, 8, 16, 32])
+def test_k2_split_probabilities_within_card_tolerance(heads, shift):
+    w, nWh, nWw = 12, 2, 2
+    n, c, bn = w * w, 32 * heads, nWh * nWw
+    rng = np.random.RandomState(heads + shift)
+    qkv = torch.from_numpy(rng.randn(bn, n, 3 * c).astype(np.float32)
+                           ).bfloat16()
+    q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+    bias = torch.from_numpy(rng.randn(heads, n, n).astype(np.float32))
+    args = (q, k, v, bias, nWh, nWw, w, shift, heads)
+    want = twa.window_attention_plain(*args).float()
+    got = split_p_attention(*args).float()
+    bound = WA_TOL['atol'] + WA_TOL['rtol'] * want.abs()
+    assert bool(((got - want).abs() <= bound).all()), \
+        (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize('kind', ['contiguous', 'compute_only'])
+def test_microbenchmark_maps_are_neighbour_maps(kind):
+    s = 64
+    feats, nbr, mask, weight = random_zwin_inputs(7, 1, s, s, 32, 32)
+    real = torch.from_numpy(nbr)
+    made = {'contiguous': micro.contiguous_map,
+            'compute_only': micro.compute_only_map}[kind](real, s)
+    assert made.dtype == torch.int32 and made.shape == real.shape
+    assert bool(((made >= 0) & (made <= s)).all())
+    assert torch.equal(made == s, real == s)
+    hit = made[made < s]
+    if kind == 'compute_only':
+        assert int(hit.max()) < ROWS
+    else:
+        r = torch.arange(s)[None, :, None].expand_as(real)
+        t = torch.arange(27)[None, None].expand_as(real)
+        want = (r + t - 13).clamp(0, s - 1)
+        assert torch.equal(made[real < s].long(), want[real < s])
+    got = tzw.zwin_conv_plain(torch.from_numpy(feats), torch.from_numpy(mask),
+                              made, torch.from_numpy(weight), 8, 8, 1)
+    ref = jzf.zband_conv_apply(jnp.asarray(feats), jnp.asarray(mask),
+                               jnp.asarray(made.numpy()), jnp.asarray(weight),
+                               8, 8, 1)
+    # fp32 sums of up to 27 * 3 * 32 products, taken in another order
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_null_body_wrapper_refuses_fp32_and_cpu_tensors(dtype):
+    feats = torch.zeros(1, 4, 8 * 16, dtype=dtype)
+    args = (feats, torch.ones(1, 4, dtype=torch.bool),
+            torch.zeros(1, 4, 27, dtype=torch.int32),
+            torch.zeros(27, 16, 16), 8, 8, 1)
+    error = TypeError if dtype == torch.float32 else ValueError
+    with pytest.raises(error, match='bf16 only' if error is TypeError
+                       else 'CUDA'):
+        tzw.zwin_conv_null_cuda(*args)
