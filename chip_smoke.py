@@ -17,7 +17,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    bf16 (tensor cores), beside ``scaled_dot_product_attention`` on the same
    inputs (each backend that takes them, the fastest reported as the library
    time); frustum pooling (K1) on the full-size pooling index of the
-   synthetic rig, fp32; the zwin sparse conv (K3) at the 9 launches of the
+   synthetic rig, bf16 features to bf16 voxels (the main path) and fp32 to
+   fp32, two launches bit-identical, beside ``embedding_bag`` on the same
+   inputs and the kernel on an index with no in-grid point (the zero-fill
+   alone); the zwin sparse conv (K3) at the 9 launches of the
    full-size LiDAR encoder, bf16 (tensor cores), with the inputs that the
    port's encoder (seeded random weights) gives it on the full-size
    synthetic cloud; then K3's microbenchmark
@@ -57,11 +60,13 @@ import torch
 DEV = 'cuda:0'
 WA_TOL = dict(atol=1e-3, rtol=1e-2)    # bf16 output: one bf16 ulp is 2^-7 relative
 POOL_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 sums taken in another order
+POOL_BF16_TOL = dict(atol=1e-4, rtol=2 ** -7)  # the same, cast: one bf16 ulp
 ZWIN_TOL = dict(atol=1e-3, rtol=1e-2)  # fp32 sums cast once to bf16: one ulp
 REF_TOL = dict(atol=2e-3, rtol=2e-3)   # fp32 model, GPU vs CPU
 SLICE_SEEDS = (0, 1, 2)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 PEAK_BYTES = 3.35e12
+QUEUE_CYCLES = 20_000_000   # about 10 ms at the H100's SM clock
 # the kernels of the main path; the launch checks read these counts only
 MAIN_KERNELS = ('window_attn_fwd', 'bev_pool_fwd', 'zwin_conv_fwd')
 # mangled-name part of each kernel body -> (C entry, body); the bodies that
@@ -73,7 +78,14 @@ KERNEL_BODIES = {
     'zwin_conv_mma_kernelILb1E': ('zwin_conv_null', 'bf16, no products',
                                   False),
     'zwin_conv_fp32_kernel': ('zwin_conv_fwd', 'fp32', False),
-    'bev_pool_fwd_kernel': ('bev_pool_fwd', 'fp32', False),
+    'bev_pool_fwd_kernelILb1ELb1E': ('bev_pool_fwd', 'bf16 feat, bf16 out',
+                                     False),
+    'bev_pool_fwd_kernelILb1ELb0E': ('bev_pool_fwd', 'bf16 feat, fp32 out',
+                                     False),
+    'bev_pool_fwd_kernelILb0ELb1E': ('bev_pool_fwd', 'fp32 feat, bf16 out',
+                                     False),
+    'bev_pool_fwd_kernelILb0ELb0E': ('bev_pool_fwd', 'fp32 feat, fp32 out',
+                                     False),
 }
 
 
@@ -98,11 +110,15 @@ def check_close(name, got, want, atol, rtol):
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms, by CUDA events over reps calls."""
+    """Mean device time of fn() in ms, by CUDA events over reps calls.  The
+    card first sleeps (QUEUE_CYCLES) while the host queues the calls, so a
+    kernel shorter than its wrapper's host time is timed, not the host."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -301,8 +317,22 @@ def check_window_attn(cfg, g) -> dict:
                 bound_by=bound_by, library_ms=lib_ms)
 
 
+def embedding_bag_pool(depth_flat, feat_flat, ranks_depth, ranks_feat,
+                       bounds):
+    """K1's function as one PyTorch call, the library yardstick (the port
+    never calls it): ``embedding_bag`` sums each voxel's gathered feature
+    rows weighted by the gathered depth values.  ranks_*: the in-grid points
+    (``bounds[-1]`` of them), int64 like ``bounds``."""
+    import torch.nn.functional as F
+    return F.embedding_bag(ranks_feat, feat_flat, bounds, mode='sum',
+                           per_sample_weights=depth_flat[ranks_depth],
+                           include_last_offset=True)
+
+
 def check_bev_pool(cfg, batch0, g) -> dict:
-    """K1 on the full-size pooling index of the synthetic rig."""
+    """K1 on the full-size pooling index of the synthetic rig: bf16 to bf16
+    (the main path) and fp32 to fp32, beside ``embedding_bag`` and the
+    zero-fill alone."""
     from fusionocc_tpu_torch.models.fusion_occ import frame_pooling_index
     from fusionocc_tpu_torch.ops import bev_pool as bp
     idx = frame_pooling_index(cfg, batch0.sensor2keyego[:, 0],
@@ -315,26 +345,75 @@ def check_bev_pool(cfg, batch0, g) -> dict:
     nvox = B * gz * gy * gx
     depth = torch.softmax(torch.randn(B, N, D, h, wf, device=DEV, generator=g),
                           dim=2).reshape(-1)
-    feat = torch.randn(B * N * h * wf, C, device=DEV, generator=g)
-    got = bp.bev_pool_cuda(depth, feat, idx, nvox)
-    want = bp.bev_pool_plain(depth, feat, idx, nvox)
-    torch.cuda.synchronize()
+    feat32 = torch.randn(B * N * h * wf, C, device=DEV, generator=g)
+    feat16 = feat32.bfloat16()
     n_in = int(idx.bounds[-1])
-    err = check_close(
-        f'bev_pool P={idx.ranks_depth.numel()} in-grid={n_in} C={C} '
-        f'voxels={nvox}', got, want, **POOL_TOL)
-    t_k = cuda_ms(lambda: bp.bev_pool_cuda(depth, feat, idx, nvox))
-    t_p = cuda_ms(lambda: bp.bev_pool_plain(depth, feat, idx, nvox))
-    print(f'    kernel {t_k:.4f} ms, plain {t_p:.4f} ms, no single PyTorch '
-          f'call', flush=True)
-    # the in-grid points' depth value and two ranks, every feature row,
-    # the bounds, and the pooled voxels written
-    bound = Bound()
-    bound.add(2 * n_in * C, n_in * 12 + feat.numel() * 4
-              + (nvox + 1) * 4 + nvox * C * 4, torch.float32)
-    bound_ms, bound_by = bound.total()
-    return dict(max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+    runs = idx.bounds[1:] - idx.bounds[:-1]
+    n_long = idx.long_voxels.numel()
+    print(f'  bev_pool index: P={idx.ranks_depth.numel()} in-grid={n_in} '
+          f'C={C} voxels={nvox} (non-empty {int((runs > 0).sum())}); '
+          f'longest run {int(runs.max())}; work table: {n_long} runs longer '
+          f'than {idx.max_short} points (warp items, '
+          f'{int(runs[idx.long_voxels.long()].sum())} points)', flush=True)
+    cases = {}
+    for f_in, out in ((feat16, torch.bfloat16), (feat32, torch.float32),
+                      (feat16, torch.float32), (feat32, torch.bfloat16)):
+        got = bp.bev_pool_cuda(depth, f_in, idx, nvox, out)
+        again = bp.bev_pool_cuda(depth, f_in, idx, nvox, out)
+        want = bp.bev_pool_plain(depth, f_in, idx, nvox).to(out)
+        torch.cuda.synchronize()
+        name = f'bev_pool {f_in.dtype} feat -> {out} out'
+        tol = POOL_BF16_TOL if out == torch.bfloat16 else POOL_TOL
+        err = check_close(name, got, want, **tol)
+        if not torch.equal(got, again):
+            fail(f'{name}: two launches differ')
+        print('    two launches bit-identical', flush=True)
+        cases[out, f_in.dtype] = err
+    main_args = (depth, feat16, idx, nvox, torch.bfloat16)
+    fp32_args = (depth, feat32, idx, nvox, torch.float32)
+    # every point out of the grid: the kernel writes zeros only
+    empty = idx._replace(ranks_bev=torch.full_like(idx.ranks_bev, nvox),
+                         bounds=torch.zeros_like(idx.bounds),
+                         long_voxels=idx.long_voxels[:0])
+    if bp.bev_pool_cuda(depth, feat16, empty, nvox, torch.bfloat16).any():
+        fail('bev_pool on an index with no in-grid point is not all zeros')
+    rd, rf = idx.ranks_depth[:n_in], idx.ranks_feat[:n_in].long()
+    bounds64 = idx.bounds.long()
+    lib = embedding_bag_pool(depth, feat32, rd, rf, bounds64)
+    lib_err = (lib - bp.bev_pool_plain(depth, feat32, idx, nvox)
+               ).abs().max().item()
+    t_k = cuda_ms(lambda: bp.bev_pool_cuda(*main_args))
+    t_k32 = cuda_ms(lambda: bp.bev_pool_cuda(*fp32_args))
+    t_p = cuda_ms(lambda: bp.bev_pool_plain(*main_args[:4]).to(
+        torch.bfloat16))
+    t_lib = cuda_ms(lambda: embedding_bag_pool(depth, feat32, rd, rf,
+                                               bounds64))
+    t_fill = cuda_ms(lambda: bp.bev_pool_cuda(depth, feat16, empty, nvox,
+                                              torch.bfloat16))
+    t_fill32 = cuda_ms(lambda: bp.bev_pool_cuda(depth, feat32, empty, nvox,
+                                                torch.float32))
+    print(f'    per launch: kernel bf16 {t_k:.4f} ms, fp32 {t_k32:.4f} ms; '
+          f'plain (bf16 out) {t_p:.4f} ms; embedding_bag (fp32 weights, '
+          f'depth gather included) {t_lib:.4f} ms, max abs diff to plain '
+          f'{lib_err:.2e}; zero-fill alone (no in-grid point) bf16 '
+          f'{t_fill:.4f} ms, fp32 {t_fill32:.4f} ms', flush=True)
+    # the in-grid points' two ranks and depth value, every feature row, the
+    # work table (bounds and long items), the pooled voxels written
+    table = (nvox + 1) * 4 + n_long * 4
+    bounds_ms = {}
+    for name, f_in, es in (('bf16', feat16, 2), ('fp32', feat32, 4)):
+        bound = Bound()
+        print(f'    {name} out:', flush=True)
+        bound.add(2 * n_in * C, n_in * 12 + f_in.numel() * f_in.element_size()
+                  + table + nvox * C * es, torch.float32)
+        bounds_ms[name] = bound.total()
+    bound_ms, bound_by = bounds_ms['bf16']
+    return dict(max_abs_err=cases[torch.bfloat16, torch.bfloat16], ms=t_k,
+                plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=t_lib, fp32_max_abs_err=cases[torch.float32,
+                                                         torch.float32],
+                fp32_ms=t_k32, fp32_bound_ms=bounds_ms['fp32'][0],
+                zero_fill_ms=t_fill, fp32_zero_fill_ms=t_fill32)
 
 
 def check_zwin(cfg, batch0) -> dict:

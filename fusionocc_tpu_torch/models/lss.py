@@ -158,8 +158,8 @@ class CrossModalLSS(nn.Module):
             fused, mlp_input.reshape(B * N, -1))
         depth = torch.softmax(depth_logits.float(), dim=1)  # (B*N, D, h, w)
         feature = feature.permute(0, 2, 3, 1).reshape(B, N, h, w, -1)
-        voxel = bev_pool(depth.view(B, N, D, h, w), feature.float(), pool_idx,
-                         self.grid)
-        return (voxel.to(x.dtype),
+        voxel = bev_pool(depth.view(B, N, D, h, w), feature, pool_idx,
+                         self.grid, out_dtype=x.dtype)
+        return (voxel,
                 depth.permute(0, 2, 3, 1).reshape(B, N, h, w, D),
                 seg_out.permute(0, 2, 3, 1).reshape(B, N, h, w, -1))

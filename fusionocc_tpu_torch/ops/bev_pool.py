@@ -5,13 +5,17 @@ Port of ``fusionocc_tpu/ops/bev_pool.py`` (forward only):
     out[b, z, y, x, c] = sum over frustum points p falling in that voxel of
                          depth[p] * feat[pixel(p), c]
 
+summed in fp32 and cast to the caller's ``out_dtype``.
+
 ``prepare_pooling_index`` quantises the frustum points, gives out-of-grid
-points a sentinel rank one past the last voxel, sorts stably by rank and
-finds each voxel's run of sorted points (``bounds``).  ``bev_pool`` then sums
-the runs: the plain version by ``index_add_`` over the sorted points, the
-CUDA kernel (``csrc/bev_pool.cu``) by one thread per (voxel, channel).  The
-JAX package's cumulative-sum formulation and trimmed index are TPU devices
-the kernel does not need; the backward's ``order_by_feat`` is left for the
+points a sentinel rank one past the last voxel, sorts stably by rank, finds
+each voxel's run of sorted points (``bounds``) and builds the kernel's work
+table (``long_runs``): the voxels whose run is longer than ``max_short``
+points, longest first.  ``bev_pool`` then sums the runs: the plain version by
+``index_add_`` over the sorted points, the CUDA kernel (``csrc/bev_pool.cu``)
+by a group of C/8 lanes per short run and a warp per long one.  The JAX
+package's cumulative-sum formulation and trimmed index are TPU devices the
+kernel does not need; the backward's ``order_by_feat`` is left for the
 training port.
 """
 from __future__ import annotations
@@ -24,22 +28,43 @@ from ..config import GridConfig
 from .kernels import KERNELS, stream_ptr
 
 
+# The longest run a group of C/8 lanes sums (the kernel's short items);
+# longer runs are one warp's item each.
+MAX_SHORT_RUN = 16
+
+
 class PoolingIndex(NamedTuple):
-    """int32 rank tensors sorted ascending by ``ranks_bev`` (sentinel last).
+    """int32 rank tensors sorted ascending by ``ranks_bev`` (sentinel last),
+    and the kernel's work table.
 
     ranks_* have length P = B*N*D*Hf*Wf; ``bounds`` (num_voxels + 1,) holds
     the first sorted position with ``ranks_bev >= v``, so voxel v's points
     are ``bounds[v]:bounds[v+1]`` and ``bounds[-1]`` counts in-grid points.
+    ``long_voxels`` lists the voxels whose run is longer than ``max_short``,
+    longest first (``long_runs``).
     """
     ranks_depth: torch.Tensor   # into the flattened (B, N, D, Hf, Wf) depth
     ranks_feat: torch.Tensor    # into the flattened (B, N, Hf, Wf) feat rows
     ranks_bev: torch.Tensor     # voxel rank; out of grid = num_voxels
     bounds: torch.Tensor
+    long_voxels: torch.Tensor
+    max_short: int
+
+
+def long_runs(bounds: torch.Tensor, max_short: int) -> torch.Tensor:
+    """int32 ids of the voxels whose run is longer than ``max_short``
+    points, longest first (ties by voxel id): the kernel's warp items.
+    Every other voxel, empty ones included, is a short item."""
+    n = bounds[1:] - bounds[:-1]
+    v = torch.nonzero(n > max_short).flatten()
+    order = torch.sort(n[v], descending=True, stable=True).indices
+    return v[order].to(torch.int32)
 
 
 def prepare_pooling_index(coor: torch.Tensor, grid: GridConfig
                           ) -> PoolingIndex:
-    """Quantise (B, N, D, Hf, Wf, 3) ego coordinates and sort by voxel."""
+    """Quantise (B, N, D, Hf, Wf, 3) ego coordinates, sort by voxel and
+    build the work table."""
     B, N, D, H, W, _ = coor.shape
     P = B * N * D * H * W
     gx, gy, gz = grid.grid_size
@@ -65,7 +90,8 @@ def prepare_pooling_index(coor: torch.Tensor, grid: GridConfig
     bounds = torch.searchsorted(
         rank_s, torch.arange(num_voxels + 1, dtype=torch.int32, device=dev),
         out_int32=True)
-    return PoolingIndex(order.to(torch.int32), rf_s, rank_s, bounds)
+    return PoolingIndex(order.to(torch.int32), rf_s, rank_s, bounds,
+                        long_runs(bounds, MAX_SHORT_RUN), MAX_SHORT_RUN)
 
 
 def bev_pool_plain(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
@@ -81,15 +107,27 @@ def bev_pool_plain(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
 
 
 def bev_pool_cuda(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
-                  idx: PoolingIndex, num_voxels: int) -> torch.Tensor:
-    """Launch ``bev_pool_fwd``: one thread per (voxel, channel)."""
+                  idx: PoolingIndex, num_voxels: int,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch ``bev_pool_fwd``: feat read in its dtype (fp32 or bf16), the
+    fp32 sums written as ``out_dtype`` (fp32 or bf16)."""
     dev = feat_flat.device
     if dev.type != 'cuda':
         raise ValueError(f'bev_pool_cuda needs CUDA tensors, got {dev}')
     C = feat_flat.shape[1]
-    depth_flat = depth_flat.float().contiguous()
-    feat_flat = feat_flat.float().contiguous()
-    for name in ('ranks_depth', 'ranks_feat', 'bounds'):
+    if C not in (8, 32):
+        raise ValueError(f'bev_pool_cuda takes 8 or 32 channels, got {C}')
+    kinds = {torch.float32: 0, torch.bfloat16: 1}
+    if feat_flat.dtype not in kinds or out_dtype not in kinds:
+        raise ValueError(f'bev_pool_cuda takes fp32 or bf16 feat and out, '
+                         f'got {feat_flat.dtype} and {out_dtype}')
+    if depth_flat.dtype != torch.float32:
+        raise ValueError(f'depth must be float32, got {depth_flat.dtype}')
+    depth_flat = depth_flat.contiguous()
+    feat_flat = feat_flat.contiguous()
+    if feat_flat.data_ptr() % 16:
+        raise ValueError('feat must be 16-byte aligned')
+    for name in ('ranks_depth', 'ranks_feat', 'bounds', 'long_voxels'):
         t = getattr(idx, name)
         if t.dtype != torch.int32 or t.device != dev or not t.is_contiguous():
             raise ValueError(f'{name} must be contiguous int32 on {dev}')
@@ -98,23 +136,27 @@ def bev_pool_cuda(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
                          f'expected ({num_voxels + 1},)')
     if depth_flat.device != dev:
         raise ValueError('depth and feat must be on one device')
-    out = torch.empty(num_voxels, C, dtype=torch.float32, device=dev)
+    out = torch.empty(num_voxels, C, dtype=out_dtype, device=dev)
     with torch.cuda.device(dev):
         KERNELS.launch(
             'bev_pool_fwd', depth_flat.data_ptr(), feat_flat.data_ptr(),
             idx.ranks_depth.data_ptr(), idx.ranks_feat.data_ptr(),
-            idx.bounds.data_ptr(), out.data_ptr(), num_voxels, C,
+            idx.bounds.data_ptr(), idx.long_voxels.data_ptr(),
+            idx.long_voxels.numel(), out.data_ptr(), num_voxels, C,
+            idx.max_short, kinds[feat_flat.dtype], kinds[out_dtype],
             stream_ptr(dev))
     return out
 
 
 def bev_pool(depth: torch.Tensor, feat: torch.Tensor, idx: PoolingIndex,
-             grid: GridConfig) -> torch.Tensor:
+             grid: GridConfig, out_dtype: torch.dtype = torch.float32
+             ) -> torch.Tensor:
     """Pool per-pixel depth-weighted features into the voxel grid.
 
-    depth: (B, N, D, Hf, Wf) softmaxed depth; feat: (B, N, Hf, Wf, C).
-    Returns (B, Z, Y, X, C) float32.  Plain version for CPU tensors, the CUDA
-    kernel otherwise.
+    depth: (B, N, D, Hf, Wf) softmaxed depth, float32; feat: (B, N, Hf, Wf,
+    C) in its own dtype.  Returns (B, Z, Y, X, C) in ``out_dtype``: the fp32
+    sums cast once.  Plain version for CPU tensors, the CUDA kernel
+    otherwise.
     """
     B = depth.shape[0]
     C = feat.shape[-1]
@@ -123,7 +165,9 @@ def bev_pool(depth: torch.Tensor, feat: torch.Tensor, idx: PoolingIndex,
     depth_flat = depth.reshape(-1)
     feat_flat = feat.reshape(-1, C)
     if feat.device.type == 'cpu':
-        out = bev_pool_plain(depth_flat, feat_flat, idx, num_voxels)
+        out = bev_pool_plain(depth_flat, feat_flat, idx, num_voxels
+                             ).to(out_dtype)
     else:
-        out = bev_pool_cuda(depth_flat, feat_flat, idx, num_voxels)
+        out = bev_pool_cuda(depth_flat, feat_flat, idx, num_voxels,
+                            out_dtype)
     return out.reshape(B, gz, gy, gx, C)

@@ -34,8 +34,9 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 
 # C entry point -> argument types (each returns an int cudaError_t)
 SIGNATURES: Dict[str, List] = {
-    # depth, feat, ranks_depth, ranks_feat, bounds, out, num_voxels, C, stream
-    'bev_pool_fwd': [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # depth, feat, ranks_depth, ranks_feat, bounds, long_voxels, n_long, out,
+    # num_voxels, C, max_short, feat dtype, out dtype (0 f32, 1 bf16), stream
+    'bev_pool_fwd': [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, bias, out, Bn, N, C, heads, head_dim, stride_win, stride_tok,
     # nWh, nWw, w, shift, scale, dtype (0 f32, 1 bf16), stream
     'window_attn_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,

@@ -123,7 +123,8 @@ def test_port_imports_no_jax():
         'fusionocc_tpu_torch.ops.sparse_conv, fusionocc_tpu_torch.ops.zfold, '
         'fusionocc_tpu_torch.ops.dense_conv, '
         'fusionocc_tpu_torch.weights, fusionocc_tpu_torch.data.synthetic, '
-        'chip_smoke, tools.profile_torch_zwin_micro\n'
+        'chip_smoke, tools.profile_torch_zwin_micro, '
+        'tools.ab_bev_pool_split\n'
         'bad = [m for m in sys.modules if m in ("jax", "flax", "fusionocc_tpu")'
         ' or m.startswith(("jax.", "flax.", "jaxlib", "fusionocc_tpu."))]\n'
         'print("BAD", bad)\n'

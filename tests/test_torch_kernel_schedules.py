@@ -25,6 +25,16 @@ work they take and the roundings they add against the plain versions:
 - The microbenchmark's maps (``tools/profile_torch_zwin_micro.py``): the
   contiguous and compute-only maps are neighbour maps with the real map's
   misses, and the plain version on them equals JAX's ``zband_conv_apply``.
+- K1 (``csrc/bev_pool.cu``): the work table and the order of the sums.  A
+  run of at most ``max_short`` points is a short item, summed point by point
+  in order by a group of C/8 lanes; a longer run (``long_voxels``, longest
+  first) is a warp item: per batch of 32 points, sub-group sg of the 32/G
+  sub-groups (G = C/8) adds points sg, sg + 32/G, ..., and the sub-groups'
+  sums are added by a xor tree.  On a hand-made index with runs of 0, 1,
+  L - 1, L, L + 1 and 480 points and on a random rig, the items cover every
+  in-grid point once, each within one voxel's run, every voxel is written
+  by exactly one item, and the emulated sums equal ``bev_pool_plain``
+  within 1e-5 in fp32 and within one bf16 ulp once cast.
 
 Inputs are made with numpy from a seed.
 """
@@ -37,6 +47,8 @@ import pytest
 import torch
 
 from fusionocc_tpu.ops import zfold as jzf
+from fusionocc_tpu_torch.config import GridConfig as TGrid
+from fusionocc_tpu_torch.ops import bev_pool as tbp
 from fusionocc_tpu_torch.ops import window_attn as twa
 from fusionocc_tpu_torch.ops import zwin_conv as tzw
 
@@ -44,7 +56,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-from chip_smoke import WA_TOL  # noqa: E402
+from chip_smoke import POOL_BF16_TOL, WA_TOL  # noqa: E402
 from tools import profile_torch_zwin_micro as micro  # noqa: E402
 
 ROWS = 32
@@ -210,3 +222,122 @@ def test_null_body_wrapper_refuses_fp32_and_cpu_tensors(dtype):
     with pytest.raises(error, match='bf16 only' if error is TypeError
                        else 'CUDA'):
         tzw.zwin_conv_null_cuda(*args)
+
+
+def handmade_pool_problem(max_short, C, seed):
+    """Runs of 0, 1, L - 1, L, L + 1 and 480 points (L = max_short) among
+    a few short ones, 40 points out of the grid, random depth and feature
+    rows."""
+    L = max_short
+    runs = [0, 1, L - 1, 3, L, 0, L + 1, 480, 2, 0, 2 * L + 5]
+    rng = np.random.RandomState(seed)
+    n_in = sum(runs)
+    P = n_in + 40
+    num_voxels = len(runs)
+    bounds = torch.tensor(np.concatenate([[0], np.cumsum(runs)]),
+                          dtype=torch.int32)
+    ranks_bev = np.concatenate([np.repeat(np.arange(num_voxels), runs),
+                                np.full(40, num_voxels)])
+    n_rows = 97
+    idx = tbp.PoolingIndex(
+        torch.from_numpy(rng.permutation(P).astype(np.int32)),
+        torch.from_numpy(rng.randint(0, n_rows, P).astype(np.int32)),
+        torch.from_numpy(ranks_bev.astype(np.int32)), bounds,
+        tbp.long_runs(bounds, L), L)
+    depth = torch.from_numpy(rng.rand(P).astype(np.float32))
+    feat = torch.from_numpy(rng.randn(n_rows, C).astype(np.float32))
+    return depth, feat, idx, num_voxels
+
+
+def rig_pool_problem(max_short, C, seed):
+    """A random frustum of 2 x 2 x 8 x 6 x 8 points over a 4 x 4 x 2 grid
+    (B = 2), dense near one corner, so runs from 1 point to some tens."""
+    grid = TGrid(x=(-2, 2, 1.0), y=(-2, 2, 1.0), z=(0, 2, 1.0),
+                 depth=(1.0, 9.0, 1.0))
+    rng = np.random.RandomState(seed)
+    B, N, D, H, W = 2, 2, 8, 6, 8
+    coor = np.concatenate([
+        rng.normal(-1.0, 1.2, (B, N, D, H, W, 2)),
+        rng.uniform(-0.3, 2.3, (B, N, D, H, W, 1))], -1).astype(np.float32)
+    idx = tbp.prepare_pooling_index(torch.from_numpy(coor), grid)
+    idx = idx._replace(long_voxels=tbp.long_runs(idx.bounds, max_short),
+                       max_short=max_short)
+    depth = torch.from_numpy(rng.rand(B * N * D * H * W).astype(np.float32))
+    feat = torch.from_numpy(rng.randn(B * N * H * W, C).astype(np.float32))
+    return depth, feat, idx, B * 2 * 4 * 4
+
+
+POOL_PROBLEMS = {'handmade': handmade_pool_problem, 'rig': rig_pool_problem}
+
+
+def k1_items(idx, num_voxels):
+    """The kernel's work items (voxel, begin, end, kind): a short group for
+    every voxel whose run is at most max_short, a warp per long voxel."""
+    b = idx.bounds.tolist()
+    items = [(v, b[v], b[v + 1], 'short') for v in range(num_voxels)
+             if b[v + 1] - b[v] <= idx.max_short]
+    return items + [(v, b[v], b[v + 1], 'long')
+                    for v in idx.long_voxels.tolist()]
+
+
+def k1_schedule(depth, feat, idx, num_voxels):
+    """The kernel's order of the fp32 sums (see the module docstring)."""
+    C = feat.shape[1]
+    S = 32 // (C // 8)
+    prod = depth[idx.ranks_depth.long(), None] * feat[idx.ranks_feat.long()]
+    out = torch.zeros(num_voxels, C)
+    for v, begin, end, kind in k1_items(idx, num_voxels):
+        if kind == 'short':
+            for p in range(begin, end):
+                out[v] = out[v] + prod[p]
+            continue
+        part = torch.zeros(S, C)
+        for base in range(begin, end, 32):
+            for k in range(32 // S):
+                for sg in range(S):
+                    if base + sg + k * S < end:
+                        part[sg] = part[sg] + prod[base + sg + k * S]
+        while part.shape[0] > 1:
+            part = part[0::2] + part[1::2]
+        out[v] = part[0]
+    return out
+
+
+@pytest.mark.parametrize('problem,max_short,C', [
+    ('handmade', 16, 32), ('handmade', 8, 8), ('handmade', 32, 8),
+    ('rig', 16, 32), ('rig', 4, 8)])
+def test_k1_work_table_covers_points_and_voxels_once(problem, max_short, C):
+    depth, feat, idx, num_voxels = POOL_PROBLEMS[problem](max_short, C, 3)
+    runs = (idx.bounds[1:] - idx.bounds[:-1]).tolist()
+    assert max(runs) > max_short >= min(r for r in runs if r)
+    n_in = int(idx.bounds[-1])
+    long = idx.long_voxels.tolist()
+    assert long == sorted((v for v in range(num_voxels)
+                           if runs[v] > max_short),
+                          key=lambda v: (-runs[v], v))
+    cover = torch.zeros(len(idx.ranks_bev), dtype=torch.int64)
+    writes = torch.zeros(num_voxels, dtype=torch.int64)
+    for v, begin, end, kind in k1_items(idx, num_voxels):
+        assert (end - begin <= max_short) == (kind == 'short')
+        # a contiguous stretch of the sorted points, all in voxel v
+        assert bool((idx.ranks_bev[begin:end] == v).all())
+        cover[begin:end] += 1
+        writes[v] += 1
+    assert bool((cover[:n_in] == 1).all()) and bool((cover[n_in:] == 0).all())
+    assert bool((writes == 1).all())
+
+
+@pytest.mark.parametrize('problem,max_short,C', [
+    ('handmade', 16, 32), ('handmade', 8, 8), ('rig', 16, 32),
+    ('rig', 4, 8)])
+def test_k1_schedule_matches_plain(problem, max_short, C):
+    depth, feat, idx, num_voxels = POOL_PROBLEMS[problem](max_short, C, 5)
+    want = tbp.bev_pool_plain(depth, feat, idx, num_voxels)
+    got = k1_schedule(depth, feat, idx, num_voxels)
+    assert bool(want.abs().amax(1).gt(0).any())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    # the bf16 epilogue: each sum rounded once, within one ulp of the plain
+    # sum rounded once
+    got16, want16 = got.bfloat16().float(), want.bfloat16().float()
+    bound = POOL_BF16_TOL['atol'] + POOL_BF16_TOL['rtol'] * want16.abs()
+    assert bool(((got16 - want16).abs() <= bound).all())

@@ -10,7 +10,10 @@ package's own tests run them:
   one-hot depth input, with linear and log-spaced ('sid') bins;
 - ``prepare_pooling_index``: equal ranks and bounds;
 - ``bev_pool``: against JAX ``bev_pool``, against ``boundary_segment_sum``
-  (Pallas segsum, interpret mode) at P = 4096, and against float64;
+  (Pallas segsum, interpret mode) at P = 4096, and against float64; on the
+  tiny and midsize rigs against JAX ``bev_pool``, fp32 and cast to bf16;
+  with ``out_dtype`` bf16, equal to the plain version cast; the library
+  yardstick (``chip_smoke.embedding_bag_pool``) against the plain version;
 - ``window_attention``: against ``fused_window_attention`` (Pallas,
   interpret mode) for the shift cases of test_pallas_window_attn.py and a
   Swin-B-shaped window (w = 12, N = 144, head_dim 32).
@@ -18,6 +21,8 @@ package's own tests run them:
 The CUDA wrappers refuse CPU tensors, and a build without nvcc raises.
 """
 import functools
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +49,13 @@ from fusionocc_tpu_torch.models.lss import downsample_depth_onehot
 from fusionocc_tpu_torch.ops import bev_pool as tbp
 from fusionocc_tpu_torch.ops import kernels
 from fusionocc_tpu_torch.ops import window_attn as twa
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from chip_smoke import embedding_bag_pool  # noqa: E402
 
 
 def _t(x):
@@ -202,6 +214,71 @@ def test_bev_pool_matches_jax_and_float64(B, N, D, H, W, C, seed):
             ji.bounds))
         np.testing.assert_allclose(got.reshape(seg.shape), seg,
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize('preset', ['tiny', 'midsize'])
+def test_bev_pool_on_rig_matches_jax(preset):
+    """The rig's index, random depth and bf16-representable features: the
+    pooled voxels equal JAX's in fp32 and, cast to bf16, within one ulp
+    (plus the fp32 tolerance)."""
+    jc, (s2k, intr, prot, ptr, bda, _) = _geometry(preset)
+    tc = getattr(tcfg, f'{preset}_model_config')()
+    fr = jgeo.make_frustum(jc.grid.depth, jc.input_size, jc.vt.downsample)
+    coor = np.asarray(jgeo.frustum_to_ego(fr, s2k, intr, prot, ptr, bda))
+    B, N, D, h, w, _ = coor.shape
+    C = tc.vt.feature_channels
+    rng = np.random.RandomState(2)
+    depth = rng.rand(B, N, D, h, w).astype(np.float32)
+    feat = _t(rng.randn(B, N, h, w, C).astype(np.float32)).bfloat16()
+    want = np.asarray(j_bev_pool(
+        jnp.asarray(depth), jnp.asarray(feat.float().numpy()),
+        j_prepare_pooling_index(jnp.asarray(coor), jc.grid), jc.grid))
+    ti = tbp.prepare_pooling_index(_t(coor), tc.grid)
+    got = tbp.bev_pool(_t(depth), feat, ti, tc.grid)
+    assert got.dtype == torch.float32 and np.abs(want).max() > 0
+    # JAX differences a running sum over the sorted points (see above)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    got16 = tbp.bev_pool(_t(depth), feat, ti, tc.grid,
+                         out_dtype=torch.bfloat16)
+    assert got16.dtype == torch.bfloat16
+    want16 = _t(want).bfloat16().float()
+    assert bool(((got16.float() - want16).abs()
+                 <= 1e-4 + 2 ** -7 * want16.abs()).all())
+
+
+@pytest.mark.parametrize('feat_dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('out_dtype', [torch.float32, torch.bfloat16])
+def test_bev_pool_out_dtype_is_plain_cast_once(feat_dtype, out_dtype):
+    kw = dict(x=(-4, 4, 1.0), y=(-4, 4, 1.0), z=(-1, 3, 1.0),
+              depth=(1.0, 7.0, 1.0))
+    tg = TGrid(**kw)
+    coor, depth, feat = _random_pool_problem(1, 2, 6, 5, 7, 8, tg, 4)
+    idx = tbp.prepare_pooling_index(_t(coor), tg)
+    f = _t(feat).to(feat_dtype)
+    got = tbp.bev_pool(_t(depth), f, idx, tg, out_dtype=out_dtype)
+    want = tbp.bev_pool_plain(_t(depth).reshape(-1), f.reshape(-1, 8), idx,
+                              int(idx.bounds.numel()) - 1).to(out_dtype)
+    assert got.dtype == out_dtype
+    assert torch.equal(got.reshape(want.shape), want)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_embedding_bag_yardstick_matches_plain(seed):
+    """``embedding_bag`` over the in-grid points computes K1's function:
+    the library time in chip_smoke.py times the same work."""
+    kw = dict(x=(-2, 2, 1.0), y=(-2, 2, 1.0), z=(0, 2, 1.0),
+              depth=(1.0, 9.0, 1.0))
+    tg = TGrid(**kw)
+    coor, depth, feat = _random_pool_problem(2, 2, 8, 6, 8, 32, tg, seed)
+    idx = tbp.prepare_pooling_index(_t(coor), tg)
+    n_in = int(idx.bounds[-1])
+    nvox = idx.bounds.numel() - 1
+    depth_flat, feat_flat = _t(depth).reshape(-1), _t(feat).reshape(-1, 32)
+    got = embedding_bag_pool(depth_flat, feat_flat, idx.ranks_depth[:n_in],
+                             idx.ranks_feat[:n_in].long(), idx.bounds.long())
+    want = tbp.bev_pool_plain(depth_flat, feat_flat, idx, nvox)
+    assert got.shape == want.shape == (nvox, 32)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
 
 def test_bev_pool_plain_empty_voxels_and_sentinel():
