@@ -37,6 +37,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    main path).  Each path checks its output and its launch counts per
    predict, and prints ms per predict and peak memory; the main path also
    prints the LiDAR encoder's own device time.
+6. streaming: the default config at full size, with seeded weights spread
+   so that the argmax takes many classes (``spread_weights``), on a clip of
+   8 synthetic frames (seeds 0-7, batch 1, the ego 0.5 m ahead each frame,
+   frame t's adjacent images frame t-1's key images), kept on the card
+   once.  In bf16 (the main path): the streaming-against-two-pass agreement
+   per frame (``tools/eval_torch_streaming_delta.py``), which is also the
+   warm-up clip; then, with a reset at frame 4, ms per frame, peak memory
+   (also above what was allocated before the run) and the LiDAR encoder's
+   device ms per frame of ``predict_streaming`` frame by frame,
+   ``predict_streaming_scan`` and ``predict_streaming_batch`` at (chunk 4,
+   cam_chunk 0) and (8, 4), each after one warm-up clip, and of
+   ``predict(batch_frames=True)`` on seeds 0-2; the scan equal to the
+   frames one by one, and the other modes' agreement printed.  In fp32
+   (the kernels' fp32 bodies): the time fold within 0.999 of the scan's
+   voxels and ``batch_frames`` of the per-frame two-pass's (in bf16 the
+   random weights' near-tied logits flip about 6 % of argmaxes when cuDNN
+   rounds at another batch size).  Every mode's launches are counted per
+   frame, block or predict, and every output is finite.  In both dtypes,
+   every kernel launch of one block of each time fold (K2 at 24 images, K1
+   at 4 samples, K3 at 4 and 8) and of one ``batch_frames`` predict is held
+   against its plain version; then batch 4 against 4 x batch 1, part by
+   part: the image encoder, the LiDAR encoder and K1 on the fold's index
+   must give the same bits, the rest is printed.
 
 A kernel's bound is the least time the card could take for the same work:
 the larger of its operations over the peak rate of their type and its bytes
@@ -63,7 +86,17 @@ POOL_TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 sums taken in another order
 POOL_BF16_TOL = dict(atol=1e-4, rtol=2 ** -7)  # the same, cast: one bf16 ulp
 ZWIN_TOL = dict(atol=1e-3, rtol=1e-2)  # fp32 sums cast once to bf16: one ulp
 REF_TOL = dict(atol=2e-3, rtol=2e-3)   # fp32 model, GPU vs CPU
+CACHE_TOL = dict(atol=1e-6, rtol=2 ** -7)  # bf16 cache: one ulp
+# each kernel's tolerance by its output dtype, in model runs
+KERNEL_TOLS = {torch.bfloat16: {'window_attn_fwd': WA_TOL,
+                                'bev_pool_fwd': POOL_BF16_TOL,
+                                'zwin_conv_fwd': ZWIN_TOL},
+               torch.float32: {'window_attn_fwd': REF_TOL,
+                               'bev_pool_fwd': POOL_TOL,
+                               'zwin_conv_fwd': REF_TOL}}
 SLICE_SEEDS = (0, 1, 2)
+CLIP_FRAMES, CLIP_RESET = 8, 4          # the streaming clip, its reset
+MIN_AGREE = 0.999                       # voxels, between inference modes
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 PEAK_BYTES = 3.35e12
 QUEUE_CYCLES = 20_000_000   # about 10 ms at the H100's SM clock
@@ -94,13 +127,17 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def check_close(name, got, want, atol, rtol):
-    """Max abs / rel error of got vs want; fail beyond atol + rtol*|want|."""
+def within(got, want, atol, rtol):
+    """(all within atol + rtol*|want|, max abs error, max rel error)."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
-    max_abs = diff.max().item()
-    max_rel = (diff / want.abs().clamp_min(1e-6)).max().item()
-    ok = bool((diff <= atol + rtol * want.abs()).all())
+    return (bool((diff <= atol + rtol * want.abs()).all()), diff.max().item(),
+            (diff / want.abs().clamp_min(1e-6)).max().item())
+
+
+def check_close(name, got, want, atol, rtol):
+    """Max abs / rel error of got vs want; fail beyond atol + rtol*|want|."""
+    ok, max_abs, max_rel = within(got, want, atol, rtol)
     print(f'  {name}: max_abs_err {max_abs:.3e} max_rel_err {max_rel:.3e} '
           f'(tol atol {atol:g} + rtol {rtol:g}*|plain|) '
           f'{"ok" if ok else "FAILED"}', flush=True)
@@ -156,7 +193,7 @@ def phase_device() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ''
-    print('[1/5] device: nvidia-smi name, power.limit:')
+    print('[1/6] device: nvidia-smi name, power.limit:')
     print(card)
     from fusionocc_tpu_torch.ops.kernels import find_nvcc
     nvcc = subprocess.run([find_nvcc(), '--version'], capture_output=True,
@@ -200,7 +237,7 @@ def phase_build() -> None:
     took = time.perf_counter() - t0
     how = ('compiled' if KERNELS.build_seconds is not None
            else 'found built')
-    print(f'[2/5] build: {how} {path.name} in {took:.1f} s')
+    print(f'[2/6] build: {how} {path.name} in {took:.1f} s')
     for line in KERNELS.build_log.splitlines():
         if 'Used' in line or 'Compiling entry' in line or 'spill' in line:
             print('  ptxas' + line.split('ptxas', 1)[-1])
@@ -512,7 +549,7 @@ def check_edge_shapes(g) -> None:
 
 @torch.inference_mode()
 def phase_kernels(cfg, batch0) -> dict:
-    print('[3/5] kernels vs plain versions at main-path shapes')
+    print('[3/6] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
     measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
                 'window_attn_fwd': check_window_attn(cfg, g),
@@ -528,7 +565,7 @@ def phase_reference() -> None:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
     from fusionocc_tpu_torch.ops.kernels import KERNELS
-    print('[4/5] reference: midsize multi-modal fp32, card vs CPU plain '
+    print('[4/6] reference: midsize multi-modal fp32, card vs CPU plain '
           'versions')
     cfg = midsize_model_config(use_lidar=True)
     model = init_weights(FusionOcc(cfg, device='cpu'),
@@ -556,6 +593,96 @@ def phase_reference() -> None:
     print(f'  midsize argmax agreement {agree:.6f} (need >= 0.999)', flush=True)
     if agree < 0.999:
         fail('midsize argmax agreement below 0.999')
+
+
+class ModuleClock:
+    """CUDA events around every call of ``module``."""
+
+    def __init__(self, module):
+        self.events = []
+        self.hooks = [module.register_forward_pre_hook(self._pre),
+                      module.register_forward_hook(self._post)]
+
+    def _pre(self, mod, args):
+        self.events.append([torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True)])
+        self.events[-1][0].record()
+
+    def _post(self, mod, args, result):
+        self.events[-1][1].record()
+
+    def call_ms(self) -> list:
+        """Device ms of each call since the last ``reset``."""
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    def reset(self) -> None:
+        self.events.clear()
+
+    def remove(self) -> None:
+        for h in self.hooks:
+            h.remove()
+
+
+class KernelCheck:
+    """Within ``with``, every launch of a main-path kernel's wrapper is held
+    against its plain version on the same inputs, at the tolerance of the
+    kernel and its output dtype; on leaving, one line per kernel: launches,
+    what a launch took (images or samples), max abs error.  ``keep`` names
+    the kernels whose (inputs, output) are kept in ``kept``, in launch
+    order."""
+
+    def __init__(self, label, cfg, keep=()):
+        from fusionocc_tpu_torch.ops import bev_pool as bp
+        from fusionocc_tpu_torch.ops import window_attn as wa
+        from fusionocc_tpu_torch.ops import zwin_conv as zw
+        self.label, self.keep, self.kept, self.seen = label, keep, [], {}
+        gx, gy, gz = cfg.grid.grid_size
+        # (module, wrapper, kernel, plain version, what a launch takes)
+        self.wrappers = (
+            (wa, 'window_attention_cuda', 'window_attn_fwd',
+             wa.window_attention_plain,
+             lambda q, k, v, bias, nWh, nWw, *_:
+                 f'{q.shape[0] // (nWh * nWw)} images'),
+            (bp, 'bev_pool_cuda', 'bev_pool_fwd',
+             lambda d, f, idx, n, out: bp.bev_pool_plain(d, f, idx, n).to(out),
+             lambda d, f, idx, n, out: f'{n // (gx * gy * gz)} samples'),
+            (zw, 'zwin_conv_cuda', 'zwin_conv_fwd', zw.zwin_conv_plain,
+             lambda feats, *_: f'{feats.shape[0]} samples'))
+
+    def _checked(self, real, name, plain, takes):
+        def run(*args):
+            got = real(*args)
+            ok, err, _ = within(got, plain(*args),
+                                **KERNEL_TOLS[got.dtype][name])
+            if not ok:
+                fail(f'{self.label}: {name} at {tuple(args[0].shape)} '
+                     f'disagrees with its plain version (max abs {err:.3e})')
+            n, worst, seen = self.seen.get(name, (0, 0.0, set()))
+            self.seen[name] = (n + 1, max(worst, err), seen | {takes(*args)})
+            if name in self.keep:
+                self.kept.append((args, got))
+            return got
+        return run
+
+    def __enter__(self):
+        self.reals = [getattr(m, w) for m, w, *_ in self.wrappers]
+        for (m, w, name, plain, takes), real in zip(self.wrappers,
+                                                    self.reals):
+            setattr(m, w, self._checked(real, name, plain, takes))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, w, *_), real in zip(self.wrappers, self.reals):
+            setattr(m, w, real)
+        if exc[0] is None:
+            torch.cuda.synchronize()
+            print(f'  {self.label}, each launch against its plain version: '
+                  + '; '.join(f'{name} {n} launches of '
+                              f'{", ".join(sorted(seen))}, max_abs_err '
+                              f'{err:.3e}'
+                              for name, (n, err, seen) in self.seen.items())
+                  + '; all within tolerance', flush=True)
 
 
 def drive_path(label, cfg, batches, expect) -> dict:
@@ -586,17 +713,8 @@ def drive_path(label, cfg, batches, expect) -> dict:
           f'{tuple(out["seg_logits"].shape)}')
     del out, logits
 
-    enc_events = []
     if cfg.use_lidar:
-        def pre(mod, args):
-            enc_events.append([torch.cuda.Event(enable_timing=True),
-                               torch.cuda.Event(enable_timing=True)])
-            enc_events[-1][0].record()
-
-        def post(mod, args, result):
-            enc_events[-1][1].record()
-        hooks = [model.lidar_encoder.register_forward_pre_hook(pre),
-                 model.lidar_encoder.register_forward_hook(post)]
+        clock = ModuleClock(model.lidar_encoder)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     KERNELS.reset_counts()
@@ -622,9 +740,8 @@ def drive_path(label, cfg, batches, expect) -> dict:
           f'{[round(t, 1) for t in times]}; peak memory '
           f'{peak / 2**30:.2f} GiB', flush=True)
     if cfg.use_lidar:
-        for h in hooks:
-            h.remove()
-        enc_ms = [a.elapsed_time(b) for a, b in enc_events]
+        enc_ms = clock.call_ms()
+        clock.remove()
         print(f'  {label}: LiDAR encoder device ms per predict (CUDA events) '
               f'median {statistics.median(enc_ms):.2f}, all '
               f'{[round(t, 2) for t in enc_ms]}', flush=True)
@@ -633,25 +750,341 @@ def drive_path(label, cfg, batches, expect) -> dict:
     return totals
 
 
+def launches_per(cfg, camera_passes: int, lidar_passes: int) -> dict:
+    """Main-path launches of a run: one window attention per Swin block and
+    one pooling per camera pass, one zwin per sparse-stage conv and LiDAR
+    pass (the last stage runs dense), whatever the batch of a pass."""
+    lc = cfg.lidar
+    sparse = lc.encoder_channels[:min(lc.dense_from,
+                                      len(lc.encoder_channels) - 1)]
+    return {'window_attn_fwd': sum(cfg.swin.depths) * camera_passes,
+            'bev_pool_fwd': camera_passes,
+            'zwin_conv_fwd': sum(map(len, sparse)) * lidar_passes
+            * cfg.use_lidar}
+
+
 def phase_slice(batches) -> dict:
     """The image-only path, then the default multi-modal main path."""
     from fusionocc_tpu_torch.config import (full_model_config,
                                             image_only_model_config)
-    print('[5/5] slice: full-size predict, bf16')
+    print('[5/6] slice: full-size predict, bf16')
     paths = []
     for label, cfg in (('image-only', image_only_model_config()),
                        ('default multi-modal', full_model_config())):
         # one window-attention launch per Swin block and frame, one pooling
         # per frame, one zwin launch per sparse-stage conv (the last stage
         # runs dense)
-        lc = cfg.lidar
-        sparse = lc.encoder_channels[:min(lc.dense_from,
-                                          len(lc.encoder_channels) - 1)]
-        expect = {'window_attn_fwd': sum(cfg.swin.depths) * cfg.num_frame,
-                  'bev_pool_fwd': cfg.num_frame,
-                  'zwin_conv_fwd': sum(map(len, sparse)) * cfg.use_lidar}
-        paths.append(drive_path(label, cfg, batches, expect))
+        paths.append(drive_path(label, cfg, batches,
+                                launches_per(cfg, cfg.num_frame, 1)))
     return paths[-1]
+
+
+def counted(label, run, expect) -> object:
+    """run() with the launch counts set to 0 just before and read just
+    after; fail unless they are ``expect``."""
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    torch.cuda.synchronize()
+    KERNELS.reset_counts()
+    out = run()
+    torch.cuda.synchronize()
+    got = {k: KERNELS.launches[k] for k in MAIN_KERNELS}
+    if got != expect:
+        fail(f'{label}: launches {got}, expected {expect}')
+    return out
+
+
+def agreement(label, got, want, gate: bool) -> float:
+    """Share of voxels where two argmax maps agree; with ``gate``, fail
+    below MIN_AGREE."""
+    agree = (got == want).float().mean().item()
+    print(f'  {label}: voxel agreement {agree:.6f}'
+          + (f' (need >= {MIN_AGREE})' if gate else ''), flush=True)
+    if gate and agree < MIN_AGREE:
+        fail(f'{label}: voxel agreement {agree} below {MIN_AGREE}')
+    return agree
+
+
+def reset_peak() -> int:
+    """Set the peak-memory count to what is allocated now; return that."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_above(base) -> str:
+    """The peak memory since ``reset_peak``, and above ``base``, what was
+    allocated then (weights, clip, indices)."""
+    peak = torch.cuda.max_memory_allocated()
+    return (f'peak memory {peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f}'
+            f' GiB above the {base / 2**30:.2f} GiB held before the run')
+
+
+def report_mode(label, ms, per, launches, base) -> None:
+    print(f'  {label}: ms per {per} median {statistics.median(ms):.2f}, all '
+          f'{[round(t, 2) for t in ms]}; {peak_above(base)}; launches '
+          f'{launches}', flush=True)
+
+
+def check_cache(label, state, want=None, tol=None) -> None:
+    """A cache after the clip: finite and valid, and with ``want`` the same
+    pose and a feature within ``tol`` of it."""
+    if not bool(torch.isfinite(state.voxel_feat).all()):
+        fail(f'{label}: cached feature not finite')
+    if not bool(state.valid.all()):
+        fail(f'{label}: cache not valid after the clip')
+    if want is not None:
+        check_close(f'{label} final cache', state.voxel_feat,
+                    want.voxel_feat, **tol)
+        if not torch.equal(state.ego2global, want.ego2global):
+            fail(f'{label}: final pose differs')
+
+
+def check_batch_fold(model, clip, key_idx, n: int = 4) -> None:
+    """The clip's first n frames at batch n against the same frames one at
+    a time, part by part: what running at another batch size changes.  The
+    image encoder, the LiDAR encoder and the pooling kernel on the fold's
+    index (given the batch-1 inputs) must give the same bits; the view
+    transformer's convolutions, ``pre_process_net`` and the head are
+    printed."""
+    from fusionocc_tpu_torch.models.fusion_occ import (
+        map_batch, streaming_fold_pooling_index)
+    from fusionocc_tpu_torch.ops import bev_pool as bp
+    cfg = model.cfg
+    label = f'{str(cfg.dtype).split(".")[-1]} batch {n} against {n} x batch 1'
+    print(f'  {label}, on the first {n} frames of the clip:', flush=True)
+    frames = [map_batch(lambda a, t=t: a[t], clip) for t in range(n)]
+    folded = map_batch(lambda a: a[:n].reshape((-1,) + a.shape[2:]), clip)
+    fold_idx = streaming_fold_pooling_index(cfg, clip, n)
+
+    def differ(name, got, want, same: bool):
+        d = (got.float() - want.float()).abs()
+        print(f'    {name}: max abs difference {d.max().item():.3e} (max '
+              f'|value| {want.float().abs().max().item():.3e}), mean '
+              f'{d.mean().item():.3e}, share of elements that differ '
+              f'{(d > 0).float().mean().item():.4f}'
+              + (' (must be 0)' if same else ''), flush=True)
+        if same and bool((d > 0).any()):
+            fail(f'{label}: {name} differs')
+
+    def camera(b, idx):
+        return model._frame_voxel_feat(
+            b.imgs[:, 0], b.sensor2keyego[:, 0], b.sensor2keyego[:, 0],
+            b.intrins[:, 0], b.post_rots[:, 0], b.post_trans[:, 0], b.bda,
+            b.sparse_depth, idx)[0]
+
+    with KernelCheck(label, cfg, keep=('bev_pool_fwd',)) as kc:
+        differ('image encoder', model.image_encoder(folded.imgs[:, 0]),
+               torch.cat([model.image_encoder(f.imgs[:, 0]) for f in frames]),
+               True)
+        vox4 = camera(folded, fold_idx)
+        vox1 = torch.cat([camera(f, key_idx) for f in frames])
+        lidar1 = torch.cat([model._lidar_feat(f) for f in frames])
+        differ('LiDAR encoder', model._lidar_feat(folded), lidar1, True)
+    (args4, pooled4), *ones = kc.kept
+    depth1 = torch.cat([args[0] for args, _ in ones])
+    feat1 = torch.cat([args[1] for args, _ in ones])
+    pooled1 = torch.cat([out for _, out in ones])
+    differ("depth softmax, the pooling's input (view transformer)",
+           args4[0], depth1, False)
+    differ("context feature, the pooling's input (view transformer)",
+           args4[1], feat1, False)
+    differ("pooling kernel on the fold's index, given the batch-1 inputs",
+           bp.bev_pool_cuda(depth1, feat1, *args4[2:]), pooled1, True)
+    differ('pooled voxels', pooled4, pooled1, False)
+    gx, gy, gz = cfg.grid.grid_size
+    differ('pre_process_net, given the batch-1 pooled voxels',
+           model.pre_process_net(pooled1.reshape(n, gz, gy, gx, -1))[0],
+           vox1, False)
+    differ('camera voxel feature', vox4, vox1, False)
+    fusion = torch.cat([vox1, vox1, lidar1], dim=-1)
+    h1 = torch.cat([model._head(fusion[i:i + 1]) for i in range(n)])
+    h4 = model._head(fusion)
+    differ('head logits, given the batch-1 fusion', h4, h1, False)
+    agree = (h4.argmax(-1) == h1.argmax(-1)).float()
+    top = h1.topk(2, dim=-1).values
+    gap = (top[..., 0] - top[..., 1]).flatten()
+    print(f'    head argmax agreement {agree.mean().item():.6f}; top-2 logit '
+          'gap ' + ', '.join(f'{(gap < g).float().mean().item():.4f} below {g}'
+                             for g in (1e-3, 1e-2, 1e-1))
+          + f'; mean |logit| {h1.abs().mean().item():.4f}', flush=True)
+
+
+def streaming_modes(cfg, clip, frames, batches, timed: bool) -> None:
+    """The streaming modes and ``batch_frames`` on the clip (``frames`` are
+    its views, one per frame), launches counted per run, and one block of
+    each time fold and one ``batch_frames`` predict with every kernel launch
+    held against its plain version.  Timed (bf16, the main path): each
+    mode's ms and peak memory, the scan held to the frames one by one, and
+    the other modes' agreement printed.  Not timed (fp32, the kernels' fp32
+    bodies): the time fold held to the scan and ``batch_frames`` to
+    two-pass, at least MIN_AGREE of the voxels and the caches within
+    REF_TOL.  Then batch 4 against 4 x batch 1, part by part."""
+    from fusionocc_tpu_torch.models.fusion_occ import (
+        FusionOcc, batch_pooling_indices, batched_frames_pooling_index,
+        map_batch, spread_weights, streaming_fold_pooling_index)
+    from tools.eval_torch_streaming_delta import streaming_delta
+    dt = str(cfg.dtype).split('.')[-1]
+    model = spread_weights(FusionOcc(cfg, device=DEV),
+                           torch.Generator().manual_seed(0))
+    resets = torch.zeros(CLIP_FRAMES, 1, dtype=torch.bool, device=DEV)
+    resets[CLIP_RESET] = True
+    idxs = batch_pooling_indices(cfg, frames[0])     # one rig in every frame
+    per_frame = launches_per(cfg, 1, 1)
+
+    clock = ModuleClock(model.lidar_encoder)
+
+    def report_encoder(label, n_frames):
+        if timed:
+            print(f'  {label}: LiDAR encoder device ms per frame (CUDA events)'
+                  f' {sum(clock.call_ms()) / n_frames:.2f}', flush=True)
+        clock.reset()
+
+    if timed:
+        delta = streaming_delta(model, [frames])     # also the warm-up clip
+        print(f'  {dt}: streaming against two-pass (tools/eval_torch_'
+              'streaming_delta.py, no reset), voxel agreement per frame: '
+              + ', '.join(f'{a:.6f}' for a in delta['agree_by_frame'])
+              + f'; divergence mIoU {delta["divergence_miou"]}; mean |logit '
+              f'difference| / mean |logit| {delta["rel_logit_mae"]:.4f}; '
+              f'two-pass voxels by class {delta["twopass_voxels_by_class"]}',
+              flush=True)
+        if sum(n > 0 for n in delta['twopass_voxels_by_class']) < 4:
+            fail('the two-pass argmax takes fewer than 4 classes')
+
+        base = reset_peak()
+        clock.reset()
+        state, seq, ms, gaps = model.init_streaming_state(1), [], [], []
+        for t, batch in enumerate(frames):
+            t1 = time.perf_counter()
+            pred, out, state = counted(
+                f'predict_streaming frame {t}',
+                lambda: model.predict_streaming(batch, state, idxs[0],
+                                                resets[t]), per_frame)
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if not bool(torch.isfinite(out['occ_logits']).all()):
+                fail(f'predict_streaming frame {t}: logits not finite')
+            top = out['occ_logits'].topk(2, dim=-1).values
+            gaps.append((top[..., 0] - top[..., 1]).flatten())
+            seq.append(pred)
+        seq = torch.stack(seq)
+        check_cache(f'{dt} predict_streaming', state)
+        report_mode(f'{dt} predict_streaming frame by frame', ms, 'frame',
+                    f'per frame {per_frame}', base)
+        report_encoder(f'{dt} predict_streaming frame by frame', CLIP_FRAMES)
+        gaps = torch.cat(gaps)
+        print(f'  {dt}: top-2 logit gap of the streamed frames: '
+              + ', '.join(f'{(gaps < g).float().mean().item():.4f} below {g}'
+                          for g in (1e-3, 1e-2, 1e-1))
+              + f'; mean |logit| {out["occ_logits"].abs().mean().item():.4f}',
+              flush=True)
+        seq_state = state
+        del out, gaps
+
+    def clip_run(label, run, expect):
+        """Timed: one warm-up clip, then three timed, ms per frame of each.
+        Else one run.  Returns the output, the ms and the bytes allocated
+        before the timed runs."""
+        if timed:
+            run()
+        base = reset_peak()
+        clock.reset()
+        ms = []
+        for _ in range(3 if timed else 1):
+            t1 = time.perf_counter()
+            out = counted(label, run, expect)
+            ms.append((time.perf_counter() - t1) * 1e3 / CLIP_FRAMES)
+        return out, ms, base
+
+    label = f'{dt} predict_streaming_scan'
+    (scan_preds, scan_state), ms, base = clip_run(
+        label, lambda: model.predict_streaming_scan(
+            clip, model.init_streaming_state(1), resets, idxs[0]),
+        launches_per(cfg, CLIP_FRAMES, CLIP_FRAMES))
+    check_cache(label, scan_state)
+    if timed:
+        report_mode(label, ms, 'frame', f'per frame {per_frame}', base)
+        report_encoder(label, 3 * CLIP_FRAMES)
+        if not torch.equal(scan_preds, seq):
+            fail('predict_streaming_scan differs from predict_streaming')
+        print(f'  {label}: preds equal to the frames one by one', flush=True)
+        check_cache(label, scan_state, seq_state, CACHE_TOL)
+
+    for chunk, cam_chunk in ((4, 0), (8, 4)):
+        label = (f'{dt} predict_streaming_batch chunk {chunk} cam_chunk '
+                 f'{cam_chunk}')
+        cams = chunk // cam_chunk if cam_chunk else 1
+        idx = streaming_fold_pooling_index(cfg, clip, chunk, cam_chunk)
+        blocks = CLIP_FRAMES // chunk
+        (preds, final), ms, base = clip_run(
+            label, lambda: model.predict_streaming_batch(
+                clip, model.init_streaming_state(1), resets, idx, chunk,
+                cam_chunk), launches_per(cfg, cams * blocks, blocks))
+        if timed:
+            report_mode(label, ms, 'frame', f'per block of {chunk} frames '
+                        f'{launches_per(cfg, cams, 1)}', base)
+            report_encoder(label, 3 * CLIP_FRAMES)
+        agreement(f'{label} against the scan', preds, scan_preds, not timed)
+        check_cache(label, final, None if timed else scan_state, REF_TOL)
+        if timed:
+            diff = (final.voxel_feat.float()
+                    - scan_state.voxel_feat.float()).abs().max().item()
+            print(f'  {label}: final cache against the scan\'s, max abs '
+                  f'difference {diff:.3e}', flush=True)
+        with KernelCheck(f'{label}, its first block', cfg):
+            model.predict_streaming_batch(
+                map_batch(lambda a: a[:chunk], clip),
+                model.init_streaming_state(1), None, idx, chunk, cam_chunk)
+        del idx, preds, final
+
+    label = f'{dt} predict(batch_frames=True)'
+    base = reset_peak()
+    two_pass = [model.predict(b, idxs) for b in batches]
+    if timed:
+        print(f'  {dt} two-pass predict on seeds {SLICE_SEEDS}: '
+              f'{peak_above(base)}', flush=True)
+    idx = batched_frames_pooling_index(cfg, batches[0])
+    if timed:
+        model.predict(batches[0], batch_frames=True, pool_idx_folded=idx)
+    base = reset_peak()
+    clock.reset()
+    ms = []
+    for b, want in zip(batches, two_pass):
+        t1 = time.perf_counter()
+        pred = counted(label, lambda: model.predict(
+            b, batch_frames=True, pool_idx_folded=idx), per_frame)
+        ms.append((time.perf_counter() - t1) * 1e3)
+        agreement(f'{label} against two-pass predict', pred, want, not timed)
+    if timed:
+        report_mode(label, ms, 'predict', f'per predict {per_frame}', base)
+        report_encoder(label, len(batches))
+    with KernelCheck(f'{label} on seed {SLICE_SEEDS[0]}', cfg):
+        model.predict(batches[0], batch_frames=True, pool_idx_folded=idx)
+    clock.remove()
+    check_batch_fold(model, clip, idxs[0])
+    del model
+    torch.cuda.empty_cache()
+
+
+@torch.inference_mode()
+def phase_streaming(batches) -> None:
+    """The streaming modes and ``batch_frames`` at full size: timed in
+    bf16, then held to each other in fp32."""
+    from fusionocc_tpu_torch.config import full_model_config
+    from fusionocc_tpu_torch.models.fusion_occ import map_batch, stack_batches
+    from tools.eval_torch_streaming_delta import clip_frames
+    print('[6/6] streaming: full-size default config, a clip of '
+          f'{CLIP_FRAMES} frames, a reset at frame {CLIP_RESET}')
+    t0 = time.perf_counter()
+    clip = stack_batches(clip_frames(full_model_config(), 0, CLIP_FRAMES,
+                                     DEV))
+    frames = [map_batch(lambda a, t=t: a[t], clip) for t in range(CLIP_FRAMES)]
+    torch.cuda.synchronize()
+    print(f'  clip ready in {time.perf_counter() - t0:.1f} s, '
+          f'{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated',
+          flush=True)
+    for dtype, timed in (('bfloat16', True), ('float32', False)):
+        cfg = full_model_config(compute_dtype=dtype)
+        streaming_modes(cfg, clip, frames, batches, timed)
 
 
 def main() -> None:
@@ -667,6 +1100,7 @@ def main() -> None:
     measured = phase_kernels(cfg, batches[0])
     phase_reference()
     launches = phase_slice(batches)
+    phase_streaming(batches)
     sources = {
         'window_attn_fwd': ('fusionocc_tpu_torch/csrc/window_attn.cu',
                             'fusionocc_tpu/ops/pallas/window_attn.py:79'),

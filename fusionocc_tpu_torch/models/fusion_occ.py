@@ -1,17 +1,24 @@
-"""FusionOcc two-pass inference, reference module names.
+"""FusionOcc inference, reference module names.
 
-Port of ``FusionOcc.__call__`` / ``predict`` of
-``fusionocc_tpu/models/fusion_occ.py``.  Each temporal frame, oldest first,
-goes through the camera branch (Swin -> FPN_LSS -> CrossModalLSS ->
+Port of ``FusionOcc.__call__`` / ``predict`` and the streaming entry points
+of ``fusionocc_tpu/models/fusion_occ.py``.
+
+Two-pass inference (``forward`` / ``predict``): each temporal frame, oldest
+first, goes through the camera branch (Swin -> FPN_LSS -> CrossModalLSS ->
 bev_pool -> pre_process ResNet3D) with its own pose, so every frame lands
-in the key-ego voxel grid.  The LiDAR sweep goes through the sparse encoder
-(``models/lidar_encoder.py``), or is zeros when ``use_lidar`` is False (the
-reference's image-only fallback).  The features are concatenated in the
-order [adjacent frames..., key frame, lidar] and run through
-CustomResNet3D -> LSSFPN3D -> final conv -> MLP predicter.
+in the key-ego voxel grid; with ``batch_frames`` all frames go through one
+camera pass at batch B*F instead.  The LiDAR sweep goes through the sparse
+encoder (``models/lidar_encoder.py``), or is zeros when ``use_lidar`` is
+False (the reference's image-only fallback).  The features are concatenated
+in the order [adjacent frames..., key frame, lidar] and run through the head
+(``_head``: CustomResNet3D -> LSSFPN3D -> final conv -> MLP predicter).
 
-Streaming inference and ``batch_frames`` are not ported yet (ROADMAP Queue
-A); ``check_supported`` refuses configurations the port does not run.
+Streaming inference (``predict_streaming``, ``predict_streaming_scan``,
+``predict_streaming_batch``) runs one camera pass per frame and takes the
+adjacent frame's feature from a cache (``StreamingState``): the previous
+frame's camera voxel feature, warped into the new ego frame (``_shift_bev``).
+
+``check_supported`` refuses configurations the port does not run.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from ..geometry import frustum_to_ego, get_mlp_input, make_frustum
 from ..nn.layers import BatchNorm, Conv3d, LayerNorm, Linear
 from ..nn.swin import SwinTransformer
 from ..ops.bev_pool import PoolingIndex, prepare_pooling_index
+from ..ops.grid_sample import grid_sample_2d
 from .fpn import FPN_LSS, LSSFPN3D, CustomResNet3D
 from .lidar_encoder import SparseEncoder, SpConv
 from .lss import CrossModalLSS
@@ -67,6 +75,57 @@ def batch_pooling_indices(cfg: ModelConfig, batch: Batch):
                                 batch.intrins[:, f], batch.post_rots[:, f],
                                 batch.post_trans[:, f], batch.bda)
             for f in range(cfg.num_frame)]
+
+
+class StreamingState(NamedTuple):
+    """Temporal cache of streaming inference: the previous key frame's
+    camera voxel feature (in its own ego frame) and its ego pose."""
+    voxel_feat: torch.Tensor    # (B, Z, Y, X, C_img) in cfg.dtype
+    ego2global: torch.Tensor    # (B, 4, 4) float32
+    valid: torch.Tensor         # (B,) bool, False at scene starts
+
+
+def map_batch(fn, batch: Batch) -> Batch:
+    """``fn`` applied to every tensor of ``batch`` (absent fields stay
+    None)."""
+    return Batch(*(None if a is None else fn(a) for a in batch))
+
+
+def stack_batches(batches: Sequence[Batch]) -> Batch:
+    """Batches stacked on a new leading (time) axis: (T, B, ...)."""
+    return Batch(*(None if a[0] is None else torch.stack(a)
+                   for a in zip(*batches)))
+
+
+def batched_frames_pooling_index(cfg: ModelConfig, batch: Batch
+                                 ) -> PoolingIndex:
+    """Pooling index of ``forward(batch_frames=True)``: the (B, F) frames
+    folded into one batch of B*F, each with its own pose and ``bda``
+    repeated per frame (the fold order of ``_batched_frame_feats``)."""
+    def fold(a):
+        return a.reshape((-1,) + a.shape[2:])
+    return frame_pooling_index(
+        cfg, fold(batch.sensor2keyego), fold(batch.intrins),
+        fold(batch.post_rots), fold(batch.post_trans),
+        batch.bda.repeat_interleave(batch.sensor2keyego.shape[1], dim=0))
+
+
+def streaming_fold_pooling_index(cfg: ModelConfig, stacked: Batch,
+                                 chunk: int, cam_chunk: int = 0
+                                 ) -> PoolingIndex:
+    """Pooling index of ``predict_streaming_batch``: the key-frame geometry
+    of the first n stacked (T, B, ...) frames folded into one batch of n*B,
+    where n is the camera fold (``cam_chunk`` when it is below ``chunk``,
+    else ``chunk``).  The rig is the same in every frame, so one index
+    serves every block."""
+    n = cam_chunk if 0 < cam_chunk < chunk else chunk
+
+    def fold(a):
+        return a[:n].reshape((-1,) + a.shape[2:])
+    return frame_pooling_index(
+        cfg, fold(stacked.sensor2keyego)[:, 0], fold(stacked.intrins)[:, 0],
+        fold(stacked.post_rots)[:, 0], fold(stacked.post_trans)[:, 0],
+        fold(stacked.bda))
 
 
 class FinalConv(nn.Module):
@@ -124,20 +183,44 @@ class FusionOcc(nn.Module):
         y = self.img_neck(feats)
         return y.reshape(B, N, y.shape[1], y.shape[2], -1)
 
-    def _frame_voxel_feat(self, batch: Batch, fid: int,
-                          pool_idx: Optional[PoolingIndex]):
-        """One temporal frame through the camera branch."""
-        mlp_input = get_mlp_input(
-            batch.sensor2keyego[:, 0], batch.intrins[:, fid],
-            batch.post_rots[:, fid], batch.post_trans[:, fid], batch.bda)
-        x = self.image_encoder(batch.imgs[:, fid])
+    def _frame_voxel_feat(self, imgs_f, s2k_f, s2k_key, intrin_f, post_rot_f,
+                          post_tran_f, bda, sparse_depth,
+                          pool_idx: Optional[PoolingIndex] = None):
+        """One temporal frame (or a fold of frames) through the camera
+        branch, pooled with the frame's own pose ``s2k_f``; the MLP input
+        takes the key frame's ``s2k_key``.  Returns the voxel feature
+        (B, Z, Y, X, C_img), the depth softmax and the seg logits."""
+        mlp_input = get_mlp_input(s2k_key, intrin_f, post_rot_f, post_tran_f,
+                                  bda)
+        x = self.image_encoder(imgs_f)
         if pool_idx is None:
-            pool_idx = frame_pooling_index(
-                self.cfg, batch.sensor2keyego[:, fid], batch.intrins[:, fid],
-                batch.post_rots[:, fid], batch.post_trans[:, fid], batch.bda)
+            pool_idx = frame_pooling_index(self.cfg, s2k_f, intrin_f,
+                                           post_rot_f, post_tran_f, bda)
         voxel, depth, seg = self.img_view_transformer(
-            x, batch.sparse_depth, mlp_input, pool_idx)
+            x, sparse_depth, mlp_input, pool_idx)
         return self.pre_process_net(voxel)[0], depth, seg
+
+    def _batched_frame_feats(self, batch: Batch,
+                             pool_idx: Optional[PoolingIndex] = None):
+        """All F temporal frames through one camera pass at batch B*F.
+        Every frame's MLP input takes the key frame's pose, and the key
+        frame's sparse depth serves every frame.  Returns the voxel features
+        in the order [frame F-1 ... frame 0] and frame 0's depth and seg."""
+        B, F_, N, H, W, _ = batch.imgs.shape
+
+        def fold(a):
+            return a.reshape((B * F_,) + a.shape[2:])
+        key = batch.sensor2keyego[:, :1].expand_as(batch.sensor2keyego)
+        voxel, depth, seg = self._frame_voxel_feat(
+            fold(batch.imgs), fold(batch.sensor2keyego), fold(key),
+            fold(batch.intrins), fold(batch.post_rots),
+            fold(batch.post_trans), batch.bda.repeat_interleave(F_, dim=0),
+            fold(batch.sparse_depth[:, None].expand(B, F_, N, H, W)),
+            pool_idx)
+        voxel = voxel.reshape((B, F_) + voxel.shape[1:])
+        feats = [voxel[:, f] for f in range(F_ - 1, -1, -1)]
+        return (feats, depth.reshape((B, F_) + depth.shape[1:])[:, 0],
+                seg.reshape((B, F_) + seg.shape[1:])[:, 0])
 
     def _lidar_feat(self, batch: Batch) -> torch.Tensor:
         """(B, Z, Y, X, C_lidar) in the compute dtype; zeros if image-only."""
@@ -150,37 +233,222 @@ class FusionOcc(nn.Module):
         return self.lidar_encoder(batch.points,
                                   batch.points_mask).to(cfg.dtype)
 
+    def _head(self, fusion: torch.Tensor) -> torch.Tensor:
+        """The fused (B, Z, Y, X, C) volume through the BEV trunk, the final
+        conv and the predicter: (B, X, Y, Z, ncls) float32 logits."""
+        x = self.img_bev_encoder_neck(self.img_bev_encoder_backbone(fusion))
+        x = self.final_conv(x.permute(0, 4, 1, 2, 3))     # (B, C, Z, Y, X)
+        x = x.permute(0, 4, 3, 2, 1)                      # (B, X, Y, Z, C)
+        h = F.softplus(self.predicter[0](x))
+        return self.predicter[2](h.float())
+
     def forward(self, batch: Batch,
-                pool_idxs: Optional[Sequence[PoolingIndex]] = None
+                pool_idxs: Optional[Sequence[PoolingIndex]] = None,
+                batch_frames: bool = False,
+                pool_idx_folded: Optional[PoolingIndex] = None
                 ) -> Dict[str, torch.Tensor]:
         """Two-pass inference.  pool_idxs: optional per-frame indices
         (``batch_pooling_indices``), else each is built in the call.
+        batch_frames: all temporal frames in one camera pass, with the
+        optional index ``pool_idx_folded``
+        (``batched_frames_pooling_index``).
 
         Returns occ_logits (B, X, Y, Z, ncls) float32, the key frame's depth
         softmax (B, N, h, w, D) and seg logits (B, N, h, w, num_seg).
         """
         cfg = self.cfg
-        voxel_feats = []            # order: [frame F-1 (oldest) ... frame 0]
-        for fid in range(cfg.num_frame - 1, -1, -1):
-            voxel, depth, seg = self._frame_voxel_feat(
-                batch, fid, None if pool_idxs is None else pool_idxs[fid])
-            voxel_feats.append(voxel)
-        depth_key, seg_key = depth, seg      # the loop ends on the key frame
-        fusion = torch.cat(voxel_feats + [self._lidar_feat(batch)], dim=-1)
-        x = self.img_bev_encoder_neck(self.img_bev_encoder_backbone(fusion))
-        x = self.final_conv(x.permute(0, 4, 1, 2, 3))     # (B, C, Z, Y, X)
-        x = x.permute(0, 4, 3, 2, 1)                      # (B, X, Y, Z, C)
-        h = F.softplus(self.predicter[0](x))
-        logits = self.predicter[2](h.float())
-        return {'occ_logits': logits, 'depth': depth_key, 'seg_logits': seg_key}
+        if batch_frames and cfg.num_frame > 1:
+            voxel_feats, depth_key, seg_key = self._batched_frame_feats(
+                batch, pool_idx_folded)
+        else:
+            voxel_feats = []        # order: [frame F-1 (oldest) ... frame 0]
+            for fid in range(cfg.num_frame - 1, -1, -1):
+                voxel, depth_key, seg_key = self._frame_voxel_feat(
+                    batch.imgs[:, fid], batch.sensor2keyego[:, fid],
+                    batch.sensor2keyego[:, 0], batch.intrins[:, fid],
+                    batch.post_rots[:, fid], batch.post_trans[:, fid],
+                    batch.bda, batch.sparse_depth,
+                    None if pool_idxs is None else pool_idxs[fid])
+                voxel_feats.append(voxel)   # the loop ends on the key frame
+        logits = self._head(
+            torch.cat(voxel_feats + [self._lidar_feat(batch)], dim=-1))
+        return {'occ_logits': logits, 'depth': depth_key,
+                'seg_logits': seg_key}
 
     @torch.inference_mode()
     def predict(self, batch: Batch,
-                pool_idxs: Optional[Sequence[PoolingIndex]] = None
+                pool_idxs: Optional[Sequence[PoolingIndex]] = None,
+                batch_frames: bool = False,
+                pool_idx_folded: Optional[PoolingIndex] = None
                 ) -> torch.Tensor:
         """(B, X, Y, Z) uint8 class ids."""
-        out = self(batch, pool_idxs=pool_idxs)
+        out = self(batch, pool_idxs=pool_idxs, batch_frames=batch_frames,
+                   pool_idx_folded=pool_idx_folded)
         return out['occ_logits'].argmax(dim=-1).to(torch.uint8)
+
+    # -- streaming inference with a temporal BEV cache ----------------------
+    def init_streaming_state(self, batch_size: int = 1) -> StreamingState:
+        """An empty cache on the model's device."""
+        cfg = self.cfg
+        dev = next(self.parameters()).device
+        gx, gy, gz = cfg.grid.grid_size
+        return StreamingState(
+            torch.zeros(batch_size, gz, gy, gx, cfg.img_channels,
+                        dtype=cfg.dtype, device=dev),
+            torch.eye(4, device=dev).expand(batch_size, 4, 4).clone(),
+            torch.zeros(batch_size, dtype=torch.bool, device=dev))
+
+    def _check_streaming(self, frames: Batch) -> None:
+        if frames.ego2global is None:
+            raise ValueError('streaming needs ego2global in the batch')
+        if self.cfg.num_adj != 1:
+            raise ValueError('the streaming cache assumes one adjacent frame, '
+                             f'got num_adj={self.cfg.num_adj}')
+
+    def _shift_bev(self, feat: torch.Tensor, dst2src: torch.Tensor
+                   ) -> torch.Tensor:
+        """Warp a (B, Z, Y, X, C) voxel feature from its source ego frame
+        onto the destination ego grid (a planar x-y warp; z is carried):
+        each destination cell centre goes through ``dst2src`` (B, 4, 4) and
+        is sampled bilinearly, in float32, from the source cell centres."""
+        grid = self.cfg.grid
+        B, Z, Y, X, C = feat.shape
+        dev = feat.device
+        lo = torch.tensor(grid.lower_bound, dtype=torch.float32, device=dev)
+        step = torch.tensor(grid.interval, dtype=torch.float32, device=dev)
+        xs = lo[0] + (torch.arange(X, device=dev) + 0.5) * step[0]
+        ys = lo[1] + (torch.arange(Y, device=dev) + 0.5) * step[1]
+        gy, gx = torch.meshgrid(ys, xs, indexing='ij')      # (Y, X)
+        pts = torch.stack([gx, gy, torch.zeros_like(gx),
+                           torch.ones_like(gx)], -1)        # (Y, X, 4)
+        src = torch.einsum('bij,yxj->byxi', dst2src.float(), pts)
+        # normalised source coordinates, align_corners over cell centres
+        nx = (src[..., 0] - lo[0]) / step[0] - 0.5
+        ny = (src[..., 1] - lo[1]) / step[1] - 0.5
+        sample = torch.stack([nx / (X - 1) * 2.0 - 1.0,
+                              ny / (Y - 1) * 2.0 - 1.0], -1)  # (B, Y, X, 2)
+        flat = feat.permute(0, 4, 1, 2, 3).reshape(B, C * Z, Y, X)
+        warped = grid_sample_2d(flat, sample).reshape(B, C, Z, Y, X)
+        return warped.permute(0, 2, 3, 4, 1).to(feat.dtype)
+
+    def _fused_logits(self, prev_feat, dst2src, valid, voxel, lidar):
+        """Warp the cached features, take the frame's own feature where the
+        cache is not valid, fuse as [prev, key, lidar] and run the head."""
+        warped = self._shift_bev(prev_feat, dst2src)
+        prev = torch.where(valid[:, None, None, None, None], warped, voxel)
+        return self._head(torch.cat([prev, voxel, lidar], dim=-1))
+
+    @torch.inference_mode()
+    def predict_streaming(self, batch: Batch, state: StreamingState,
+                          pool_idx: Optional[PoolingIndex] = None,
+                          reset: Optional[torch.Tensor] = None):
+        """One frame with one camera pass (frame 0 of ``batch``), the
+        adjacent feature taken from the cache warped into this frame's ego
+        frame.  Where the cache is not valid (a scene start, or ``reset``
+        (B,) bool set) the frame's own feature stands in for it.
+
+        pool_idx: the key frame's pooling index (``frame_pooling_index``),
+        else built in the call.  Returns (pred (B, X, Y, Z) uint8, outputs,
+        new_state); no step waits on the card.
+        """
+        self._check_streaming(batch)
+        valid = state.valid if reset is None else state.valid & ~reset
+        voxel, depth, seg = self._frame_voxel_feat(
+            batch.imgs[:, 0], batch.sensor2keyego[:, 0],
+            batch.sensor2keyego[:, 0], batch.intrins[:, 0],
+            batch.post_rots[:, 0], batch.post_trans[:, 0], batch.bda,
+            batch.sparse_depth, pool_idx)
+        pose = batch.ego2global.float()
+        dst2src = torch.linalg.inv_ex(state.ego2global.float())[0] @ pose
+        logits = self._fused_logits(state.voxel_feat, dst2src, valid, voxel,
+                                    self._lidar_feat(batch))
+        pred = logits.argmax(dim=-1).to(torch.uint8)
+        new_state = StreamingState(voxel, pose, torch.ones_like(valid))
+        return pred, {'occ_logits': logits, 'depth': depth,
+                      'seg_logits': seg}, new_state
+
+    @torch.inference_mode()
+    def predict_streaming_scan(self, frames: Batch, state: StreamingState,
+                               resets: Optional[torch.Tensor] = None,
+                               pool_idx: Optional[PoolingIndex] = None):
+        """``predict_streaming`` over T frames, threading the cache.
+
+        frames: a Batch whose tensors have a leading (T, B, ...) time axis;
+        resets: optional (T, B) bool.  Returns (preds (T, B, X, Y, Z) uint8,
+        final state).
+        """
+        preds = []
+        for t in range(frames.imgs.shape[0]):
+            pred, _, state = self.predict_streaming(
+                map_batch(lambda a: a[t], frames), state, pool_idx,
+                None if resets is None else resets[t])
+            preds.append(pred)
+        return torch.stack(preds), state
+
+    @torch.inference_mode()
+    def predict_streaming_batch(self, frames: Batch, state: StreamingState,
+                                resets: Optional[torch.Tensor] = None,
+                                pool_idx: Optional[PoolingIndex] = None,
+                                chunk: int = 4, cam_chunk: int = 0):
+        """Streaming over T frames with time folded into the batch.
+
+        The cache is the previous frame's camera feature, which this pass
+        computes for every frame, so within a block of ``chunk`` frames
+        ``prev[t] = warp(voxel[t-1])`` has no serial dependence: the LiDAR
+        and camera branches and the head run at batch chunk*B.  Blocks carry
+        (last voxel feature, last pose, valid).  The same math as
+        ``predict_streaming_scan``.
+
+        frames: (T, B, ...) tensors, T % chunk == 0; resets: optional
+        (T, B) bool.  cam_chunk: 0 or ``chunk`` runs the camera branch at
+        chunk*B; a divisor of ``chunk`` below it runs it in microbatches of
+        cam_chunk*B.  pool_idx: the index on the camera fold's geometry
+        (``streaming_fold_pooling_index``), else built per microbatch.
+        Returns (preds (T, B, X, Y, Z) uint8, final state).
+        """
+        self._check_streaming(frames)
+        T, B = frames.imgs.shape[0], state.valid.shape[0]
+        n = cam_chunk if 0 < cam_chunk < chunk else chunk
+        if T % chunk or chunk % n:
+            raise ValueError(f'T={T} must be a multiple of chunk={chunk}, '
+                             f'and chunk of cam_chunk={cam_chunk}')
+        if resets is None:
+            resets = torch.zeros(T, B, dtype=torch.bool,
+                                 device=state.valid.device)
+        prev_voxel = state.voxel_feat
+        prev_pose = state.ego2global.float()
+        prev_valid = state.valid
+        always = torch.ones(chunk - 1, B, dtype=torch.bool,
+                            device=state.valid.device)
+
+        def fold(a):
+            return a.reshape((chunk * B,) + a.shape[2:])
+        preds = []
+        for t0 in range(0, T, chunk):
+            fb = map_batch(lambda a: fold(a[t0:t0 + chunk]), frames)
+            lidar = self._lidar_feat(fb)
+            cam = (fb.imgs[:, 0], fb.sensor2keyego[:, 0], fb.intrins[:, 0],
+                   fb.post_rots[:, 0], fb.post_trans[:, 0], fb.bda,
+                   fb.sparse_depth)
+            voxel = torch.cat([
+                self._frame_voxel_feat(imgs, s2k, s2k, intr, rot, tran, bda,
+                                       sd, pool_idx)[0]
+                for imgs, s2k, intr, rot, tran, bda, sd in zip(
+                    *(a.split(n * B) for a in cam))])
+            vox_t = voxel.reshape((chunk, B) + voxel.shape[1:])
+            pose = frames.ego2global[t0:t0 + chunk].float()  # (chunk, B, 4, 4)
+            prev_feat = torch.cat([prev_voxel[None], vox_t[:-1]])
+            pp = torch.cat([prev_pose[None], pose[:-1]])
+            pv = torch.cat([prev_valid[None], always]) & ~resets[t0:t0 + chunk]
+            dst2src = torch.linalg.inv_ex(pp)[0] @ pose
+            logits = self._fused_logits(fold(prev_feat), fold(dst2src),
+                                        fold(pv), voxel, lidar)
+            preds.append(logits.argmax(dim=-1).to(torch.uint8)
+                         .reshape((chunk, B) + logits.shape[1:4]))
+            prev_voxel, prev_pose = vox_t[-1], pose[-1]
+            prev_valid = torch.ones_like(state.valid)
+        return torch.cat(preds), StreamingState(
+            prev_voxel, prev_pose, torch.ones_like(state.valid))
 
 
 @torch.no_grad()
@@ -205,4 +473,23 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         if name.endswith('relative_position_bias_table'):
             p.copy_(torch.randn(p.shape, generator=generator).clamp(-2, 2)
                     * 0.02)
+    return model
+
+
+@torch.no_grad()
+def spread_weights(model: nn.Module, generator: torch.Generator
+                   ) -> nn.Module:
+    """``init_weights``, then every conv and linear weight times sqrt(2) (He
+    gain) and the rows of the predicter's last layer centred.  With
+    ``init_weights`` alone every voxel takes one class: its fan-in scale
+    halves the variance at each ReLU, so the logits vary between voxels by
+    about 1e-3 of their spread between classes, which the constant part of
+    the softplus gives.  These weights give many classes, so comparisons of
+    argmax maps between inference modes are not trivial."""
+    init_weights(model, generator)
+    for mod in model.modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, SpConv)):
+            mod.weight.mul_(2 ** 0.5)
+    w = model.predicter[2].weight
+    w.sub_(w.mean(dim=1, keepdim=True))
     return model

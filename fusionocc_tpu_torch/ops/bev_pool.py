@@ -69,6 +69,9 @@ def prepare_pooling_index(coor: torch.Tensor, grid: GridConfig
     P = B * N * D * H * W
     gx, gy, gz = grid.grid_size
     num_voxels = B * gz * gy * gx
+    if max(P, num_voxels + 1) >= 2 ** 31:
+        # the ranks and bounds are int32 (the kernel's offsets are int64)
+        raise ValueError(f'{P} points or {num_voxels} voxels exceed int32')
     dev = coor.device
     lower = torch.tensor(grid.lower_bound, dtype=torch.float32, device=dev)
     interval = torch.tensor(grid.interval, dtype=torch.float32, device=dev)

@@ -97,6 +97,10 @@ def window_attention_cuda(q, k, v, bias, nWh: int, nWw: int, w: int,
         raise ValueError('the bf16 body copies 16-byte chunks: q, k, v need '
                          '16-byte aligned starts and strides that are '
                          f'multiples of 8, got {q.stride()}')
+    if bn * n >= 2 ** 31:
+        # the kernel takes window and token ids as int and forms its
+        # offsets in int64: only the token count must fit in int32
+        raise ValueError(f'{bn} windows of {n} tokens exceed int32')
     bias = bias.float().contiguous()
     if bias.shape != (heads, n, n) or bias.device != q.device:
         raise ValueError(f'bias must be ({heads}, {n}, {n}) on {q.device}')

@@ -123,8 +123,10 @@ def test_port_imports_no_jax():
         'fusionocc_tpu_torch.ops.sparse_conv, fusionocc_tpu_torch.ops.zfold, '
         'fusionocc_tpu_torch.ops.dense_conv, '
         'fusionocc_tpu_torch.weights, fusionocc_tpu_torch.data.synthetic, '
+        'fusionocc_tpu_torch.eval.metrics, '
         'chip_smoke, tools.profile_torch_zwin_micro, '
-        'tools.ab_bev_pool_split\n'
+        'tools.ab_bev_pool_split, tools.eval_torch_streaming_delta, '
+        'tools.profile_torch_predict\n'
         'bad = [m for m in sys.modules if m in ("jax", "flax", "fusionocc_tpu")'
         ' or m.startswith(("jax.", "flax.", "jaxlib", "fusionocc_tpu."))]\n'
         'print("BAD", bad)\n'

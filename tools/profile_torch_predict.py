@@ -1,21 +1,27 @@
-"""Where one full-size ``predict`` of the PyTorch port, in the default
-multi-modal configuration, spends its time on the GPU.
+"""Where one full-size ``predict`` of the PyTorch port, or one
+``predict_streaming`` frame, in the default multi-modal configuration,
+spends its time on the GPU.
 
-    python3 tools/profile_torch_predict.py [--iters 3] [--top 25]
+    python3 tools/profile_torch_predict.py [--iters 3] [--top 25] [--streaming]
 
 Builds the model as ``chip_smoke.py`` does (bf16, seeded random weights,
 synthetic batch, cached pooling indices), warms up, then over ``--iters``
-predicts reports:
+steps reports, where a step is one two-pass ``predict`` or, with
+``--streaming``, one ``predict_streaming`` frame on the cache the step
+before left (the same frame each step: the warp costs the same whatever
+the motion):
 
-- ms per predict and the device time of each top-level submodule (the
+- ms per step and the device time of each top-level submodule (the
   LiDAR encoder included) and of the view transformer's parts, from CUDA
-  events recorded by forward hooks (each of the two camera passes enters
-  the camera modules once), with the profiler off;
+  events recorded by forward hooks (each camera pass enters the camera
+  modules once: two per predict, one per streaming frame), with the
+  profiler off;
 - the LiDAR encoder's steps the same way: its functions (voxelization,
   regroup, index builds, the zwin convs, the dense tail) wrapped in CUDA
-  events for the run, and its masked BatchNorms hooked;
-- then, over as many predicts under ``torch.profiler``, the kernels with the
-  most device time and the summed kernel time per predict;
+  events for the run, and its masked BatchNorms hooked; with
+  ``--streaming`` also the cache warp (``_shift_bev``);
+- then, over as many steps under ``torch.profiler``, the kernels with the
+  most device time and the summed kernel time per step;
 - the device idle share: 1 - kernel time / unprofiled wall time.
 
 Needs a CUDA GPU.
@@ -87,19 +93,22 @@ def module_timer(model):
 
     def timed(name, fn):
         def call(*args, **kwargs):
-            _record(events, f'  {name}')
+            _record(events, name)
             out = fn(*args, **kwargs)
-            _close(events, f'  {name}')
+            _close(events, name)
             return out
         return call
     for name, fn in originals.items():
-        setattr(lidar_encoder, name, timed(name, fn))
+        setattr(lidar_encoder, name, timed(f'  {name}', fn))
+    # the streaming cache's warp, a method of the model
+    model._shift_bev = timed('_shift_bev (cache warp)', model._shift_bev)
 
     def remove():
         for h in handles:
             h.remove()
         for name, fn in originals.items():
             setattr(lidar_encoder, name, fn)
+        del model._shift_bev
     return events, remove
 
 
@@ -107,6 +116,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--iters', type=int, default=3)
     ap.add_argument('--top', type=int, default=25)
+    ap.add_argument('--streaming', action='store_true',
+                    help='profile predict_streaming frames, not predict')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('profile_torch_predict: needs a CUDA GPU')
@@ -123,19 +134,28 @@ def main() -> None:
                          torch.Generator().manual_seed(0))
     batch = synthetic_batch(cfg, 1, 0, device=dev)
     idxs = batch_pooling_indices(cfg, batch)
+    state = model.init_streaming_state(1)
+
+    def step():
+        nonlocal state
+        if args.streaming:
+            _, _, state = model.predict_streaming(batch, state, idxs[0])
+        else:
+            model.predict(batch, idxs)
+    what = 'streaming frame' if args.streaming else 'predict'
     for _ in range(2):
-        model.predict(batch, idxs)
+        step()
     torch.cuda.synchronize()
 
     events, remove = module_timer(model)
     t0 = time.perf_counter()
     for _ in range(args.iters):
-        model.predict(batch, idxs)
+        step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
     remove()
-    print(f'ms per predict (hooks on, profiler off): {wall_ms:.2f}')
-    print('device ms per predict by module (calls per predict); the LiDAR '
+    print(f'ms per {what} (hooks on, profiler off): {wall_ms:.2f}')
+    print(f'device ms per {what} by module (calls per {what}); the LiDAR '
           "encoder's steps indented below it:")
     for name in events:
         ms = sum(a.elapsed_time(b) for a, b in events[name])
@@ -146,12 +166,12 @@ def main() -> None:
            torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=act) as prof:
         for _ in range(args.iters):
-            model.predict(batch, idxs)
+            step()
         torch.cuda.synchronize()
     kernel_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     ) / 1e3 / args.iters
-    print(f'kernel time per predict (profiled) {kernel_ms:.2f} ms; device '
+    print(f'kernel time per {what} (profiled) {kernel_ms:.2f} ms; device '
           f'idle share {1 - kernel_ms / wall_ms:.3f}')
     print(prof.key_averages().table(sort_by='self_device_time_total',
                                     row_limit=args.top,
