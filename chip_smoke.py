@@ -10,7 +10,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    per source, all started together (timed), prints ptxas's registers and
    spills, and counts the tensor-core instructions (``HMMA``/``HGMMA``) of
    every kernel body in the library with ``cuobjdump --dump-sass``: the bf16
-   bodies of K2 and K3 must have some.
+   bodies of K2 and K3 (K3's with the fused epilogue too) must have some.
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    full-size main path gives it, with errors, tolerances, times and bounds:
    window attention (K2) at the four Swin-B stage shapes, shift 0 and 6,
@@ -23,20 +23,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    alone); the zwin sparse conv (K3) at the 9 launches of the
    full-size LiDAR encoder, bf16 (tensor cores), with the inputs that the
    port's encoder (seeded random weights) gives it on the full-size
-   synthetic cloud; then K3's microbenchmark
-   (``tools/profile_torch_zwin_micro.py``) once at stage 1's SubM launch;
-   then both bf16 bodies at small shapes the main path does not give them
-   (K2 with N = 49 and 100, padded to 144; K3 with B = 2, Cout = 24,
-   f_out = 4, Cin = 64, random maps with misses and mask holes).
+   synthetic cloud; K3 with its fused eval epilogue (``zwin_conv_fwd_epi``,
+   ``zwin_fuse=True``) at the same 9 launches of an encoder whose
+   BatchNorms are away from the identity, bf16 and fp32, each launch timed
+   beside the unfused chain it replaces (K3, MaskedBatchNorm, ReLU); then
+   K3's microbenchmark (``tools/profile_torch_zwin_micro.py``) once at
+   stage 1's SubM launch; then both bf16 bodies at small shapes the main
+   path does not give them (K2 with N = 49 and 100, padded to 144; K3,
+   plain and fused, with B = 2, Cout = 24, f_out = 4, Cin = 64, random maps
+   with misses and mask holes).
 4. reference: the midsize multi-modal config in fp32 on the card (the
    kernels' fp32 bodies) against the same weights on the CPU (plain
    versions).
-5. slice: two full-size bf16 paths with seeded random weights, per-frame
+5. slice: three full-size bf16 paths with seeded random weights, per-frame
    pooling indices built once, ``predict`` on three synthetic batches (seeds
-   0-2): the image-only preset, then the default multi-modal config (the
-   main path).  Each path checks its output and its launch counts per
-   predict, and prints ms per predict and peak memory; the main path also
-   prints the LiDAR encoder's own device time.
+   0-2): the image-only preset, the default multi-modal config (the main
+   path), and the same with ``zwin_fuse=True`` (K3's fused epilogue).  Each
+   path checks its output and its launch counts per predict, and prints ms
+   per predict and peak memory; the multi-modal paths also print the LiDAR
+   encoder's own device time.  Then ``zwin_fuse`` True against False on the
+   same weights (spread, BatchNorms away from the identity), every launch
+   of the fused runs held against its plain version: argmax agreement at
+   least 0.999 in fp32, logit differences printed in bf16 and fp32.  Then
+   the host syncs of one LiDAR encoder pass (``torch.cuda``'s sync debug
+   mode), fused and unfused, at batch 1, 4 and 8: one count at every batch
+   size and at most one per build site.
 6. streaming: the default config at full size, with seeded weights spread
    so that the argmax takes many classes (``spread_weights``), on a clip of
    8 synthetic frames (seeds 0-7, batch 1, the ego 0.5 m ahead each frame,
@@ -59,7 +70,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    at 4 samples, K3 at 4 and 8) and of one ``batch_frames`` predict is held
    against its plain version; then batch 4 against 4 x batch 1, part by
    part: the image encoder, the LiDAR encoder and K1 on the fold's index
-   must give the same bits, the rest is printed.
+   must give the same bits, the rest is printed.  The bf16 fold at (8, 4)
+   runs once more with each row table over all 8 samples, for its peak
+   memory.  Last, ``predict_streaming`` over the clip with ``zwin_fuse``:
+   once with every launch held against its plain version, once timed, and
+   its agreement with the unfused path on the same weights.
 
 A kernel's bound is the least time the card could take for the same work:
 the larger of its operations over the peak rate of their type and its bytes
@@ -90,27 +105,38 @@ CACHE_TOL = dict(atol=1e-6, rtol=2 ** -7)  # bf16 cache: one ulp
 # each kernel's tolerance by its output dtype, in model runs
 KERNEL_TOLS = {torch.bfloat16: {'window_attn_fwd': WA_TOL,
                                 'bev_pool_fwd': POOL_BF16_TOL,
-                                'zwin_conv_fwd': ZWIN_TOL},
+                                'zwin_conv_fwd': ZWIN_TOL,
+                                'zwin_conv_fwd_epi': ZWIN_TOL},
                torch.float32: {'window_attn_fwd': REF_TOL,
                                'bev_pool_fwd': POOL_TOL,
-                               'zwin_conv_fwd': REF_TOL}}
+                               'zwin_conv_fwd': REF_TOL,
+                               'zwin_conv_fwd_epi': REF_TOL}}
 SLICE_SEEDS = (0, 1, 2)
 CLIP_FRAMES, CLIP_RESET = 8, 4          # the streaming clip, its reset
 MIN_AGREE = 0.999                       # voxels, between inference modes
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 PEAK_BYTES = 3.35e12
 QUEUE_CYCLES = 20_000_000   # about 10 ms at the H100's SM clock
-# the kernels of the main path; the launch checks read these counts only
-MAIN_KERNELS = ('window_attn_fwd', 'bev_pool_fwd', 'zwin_conv_fwd')
+# the kernels of the main paths (K3 with or without its fused epilogue); the
+# launch checks read these counts only
+MAIN_KERNELS = ('window_attn_fwd', 'bev_pool_fwd', 'zwin_conv_fwd',
+                'zwin_conv_fwd_epi')
+# where an encoder pass may wait for the card: voxelize, regroup, each
+# sparse stage's table build (3), densify
+SYNC_SITES = 6
 # mangled-name part of each kernel body -> (C entry, body); the bodies that
 # must use the tensor cores are marked True
 KERNEL_BODIES = {
     'window_attn_mma_kernel': ('window_attn_fwd', 'bf16', True),
     'window_attn_fp32_kernel': ('window_attn_fwd', 'fp32', False),
-    'zwin_conv_mma_kernelILb0E': ('zwin_conv_fwd', 'bf16', True),
-    'zwin_conv_mma_kernelILb1E': ('zwin_conv_null', 'bf16, no products',
-                                  False),
-    'zwin_conv_fp32_kernel': ('zwin_conv_fwd', 'fp32', False),
+    'zwin_conv_mma_kernelILb0ELb0E': ('zwin_conv_fwd', 'bf16', True),
+    'zwin_conv_mma_kernelILb1ELb0E': ('zwin_conv_null', 'bf16, no products',
+                                      False),
+    'zwin_conv_mma_kernelILb0ELb1E': ('zwin_conv_fwd_epi',
+                                      'bf16, fused epilogue', True),
+    'zwin_conv_fp32_kernelILb0E': ('zwin_conv_fwd', 'fp32', False),
+    'zwin_conv_fp32_kernelILb1E': ('zwin_conv_fwd_epi',
+                                   'fp32, fused epilogue', False),
     'bev_pool_fwd_kernelILb1ELb1E': ('bev_pool_fwd', 'bf16 feat, bf16 out',
                                      False),
     'bev_pool_fwd_kernelILb1ELb0E': ('bev_pool_fwd', 'bf16 feat, fp32 out',
@@ -514,10 +540,113 @@ def check_zwin(cfg, batch0) -> dict:
                 bound_by=bound_by, library_ms=None)
 
 
+@torch.no_grad()
+def bn_away_from_identity(model, generator) -> None:
+    """The LiDAR encoder's BatchNorms with statistics and parameters away
+    from the identity (``init_weights`` leaves mean 0, var 1, scale 1, bias
+    0), so the fused epilogue's affine is exercised."""
+    from fusionocc_tpu_torch.nn.layers import MaskedBatchNorm
+    for bn in model.modules():
+        if isinstance(bn, MaskedBatchNorm):
+            c = bn.num_features
+            for t, v in ((bn.running_mean, 0.1 * torch.randn(c, generator=
+                                                              generator)),
+                         (bn.running_var, 0.5 + torch.rand(c, generator=
+                                                           generator)),
+                         (bn.weight, 1 + 0.1 * torch.randn(c, generator=
+                                                           generator)),
+                         (bn.bias, 0.1 * torch.randn(c, generator=generator))):
+                t.copy_(v)
+
+
+def fused_launches(cfg, batch):
+    """The fused zwin calls (9 at full size) of the port's encoder with
+    ``zwin_fuse=True`` (seeded random weights, BatchNorms away from the
+    identity) on ``batch``, each with the MaskedBatchNorm it fuses."""
+    import dataclasses
+    from fusionocc_tpu_torch.models import lidar_encoder as le
+    from fusionocc_tpu_torch.models.fusion_occ import init_weights
+    g = torch.Generator().manual_seed(5)
+    enc = init_weights(le.SparseEncoder(
+        dataclasses.replace(cfg.lidar, zwin_fuse=True), cfg.grid, cfg.dtype,
+        DEV), g)
+    bn_away_from_identity(enc, g)
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+    real, le.zwin_conv_epi = le.zwin_conv_epi, record
+    try:
+        with torch.inference_mode():
+            enc(batch.points, batch.points_mask)
+    finally:
+        le.zwin_conv_epi = real
+    bns = [conv[1] for conv in enc.modules()
+           if isinstance(conv, le.SparseConvBN)]
+    return list(zip(calls, bns))
+
+
+def check_zwin_fused(cfg, batch0) -> dict:
+    """K3 with the fused epilogue at the full-size encoder's 9 launches:
+    the bf16 body within ZWIN_TOL and the fp32 body within REF_TOL of the
+    plain version, each launch's time beside the plain version's and the
+    unfused chain's it replaces (K3, MaskedBatchNorm, ReLU)."""
+    import torch.nn.functional as F
+    from fusionocc_tpu_torch.ops import zwin_conv as zw
+    err = err32 = ms = plain_ms = chain_ms = 0.0
+    bound = Bound()
+    launches = fused_launches(cfg, batch0)
+    for args, bn in launches:
+        feats, mask_out, nbr, weight, f_in, f_out, stride, *epi = args
+        B, s_in, _ = feats.shape
+        s_out = nbr.shape[1]
+        cin, cout = weight.shape[1], weight.shape[2]
+        name = (f'zwin fused {"subm" if stride == 1 else "down"} Cin {cin}->'
+                f'{cout} rows {s_in}->{s_out} (active {int(mask_out.sum())}'
+                f', lanes on {int(epi[2].sum())} of {epi[2].numel()})')
+        err = max(err, check_close(
+            f'{name} bf16', zw.zwin_conv_epi_cuda(*args),
+            zw.zwin_conv_epi_plain(*args), **ZWIN_TOL))
+        args32 = (feats.float(), *args[1:])
+        err32 = max(err32, check_close(
+            f'{name} fp32', zw.zwin_conv_epi_cuda(*args32),
+            zw.zwin_conv_epi_plain(*args32), **REF_TOL))
+
+        def chain():
+            y = zw.zwin_conv_cuda(feats, mask_out, nbr, weight, f_in, f_out,
+                                  stride)
+            return F.relu(bn(y, epi[2]))
+        t_k = cuda_ms(lambda: zw.zwin_conv_epi_cuda(*args))
+        t_p = cuda_ms(lambda: zw.zwin_conv_epi_plain(*args))
+        t_c = cuda_ms(chain)
+        ms, plain_ms, chain_ms = ms + t_k, plain_ms + t_p, chain_ms + t_c
+        print(f'    fused kernel {t_k:.4f} ms, plain {t_p:.4f} ms, unfused '
+              f'chain (K3, MaskedBatchNorm, ReLU) {t_c:.4f} ms', flush=True)
+        # K3's work and bytes, plus the lane mask read and inv, shift
+        found = ((nbr < s_in) & mask_out[..., None]).sum(dim=(0, 1)).tolist()
+        macs = sum(found[t] * len(zw.band_pairs(f_in, f_out, stride, t % 3))
+                   * cin * cout for t in range(27))
+        es = feats.element_size()
+        bound.add(2 * macs, feats.numel() * es + nbr.numel() * 4
+                  + mask_out.numel() + 27 * cin * cout * es
+                  + B * s_out * f_out * cout * es + epi[2].numel()
+                  + 2 * f_out * cout * 4, feats.dtype)
+    if len(launches) != 9:
+        fail(f'the fused encoder made {len(launches)} zwin calls, not 9')
+    bound_ms, bound_by = bound.total()
+    print(f'  zwin fused summed over the 9 launches: kernel {ms:.4f} ms, '
+          f'plain {plain_ms:.4f} ms, unfused chain {chain_ms:.4f} ms, bound '
+          f'{bound_ms:.4f} ms by {bound_by}', flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, fp32_max_abs_err=err32,
+                unfused_chain_ms=chain_ms)
+
+
 def check_edge_shapes(g) -> None:
     """The bf16 bodies at shapes off the main path: K2's padded keys and
     query rows, K3's batch offsets, odd n8 tiles, fewer warps, four k16
-    steps."""
+    steps, with and without the fused epilogue."""
     from fusionocc_tpu_torch.ops import window_attn as wa
     from fusionocc_tpu_torch.ops import zwin_conv as zw
     for w, nWh, nWw, heads in ((7, 2, 3, 2), (10, 3, 2, 4)):
@@ -545,6 +674,13 @@ def check_edge_shapes(g) -> None:
         check_close(f'edge zwin B={B} Cin {cin}->{cout} f {f_in}->{f_out} '
                     f'stride {stride}', zw.zwin_conv_cuda(*args),
                     zw.zwin_conv_plain(*args), **ZWIN_TOL)
+        epi = (0.5 + torch.rand(f_out * cout, device=DEV, generator=g),
+               0.2 * torch.randn(f_out * cout, device=DEV, generator=g),
+               torch.rand(B, s_out, f_out, device=DEV, generator=g) > 0.3)
+        check_close(f'edge zwin fused B={B} Cin {cin}->{cout} f {f_in}->'
+                    f'{f_out} stride {stride}',
+                    zw.zwin_conv_epi_cuda(*args, *epi),
+                    zw.zwin_conv_epi_plain(*args, *epi), **ZWIN_TOL)
 
 
 @torch.inference_mode()
@@ -552,6 +688,7 @@ def phase_kernels(cfg, batch0) -> dict:
     print('[3/6] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
     measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
+                'zwin_conv_fwd_epi': check_zwin_fused(cfg, batch0),
                 'window_attn_fwd': check_window_attn(cfg, g),
                 'bev_pool_fwd': check_bev_pool(cfg, batch0, g)}
     check_edge_shapes(g)
@@ -560,7 +697,8 @@ def phase_kernels(cfg, batch0) -> dict:
 
 def phase_reference() -> None:
     """Midsize multi-modal fp32: the card (kernels) against the CPU (plain
-    versions)."""
+    versions); the LiDAR encoder also with ``zwin_fuse`` (BatchNorms away
+    from the identity)."""
     from fusionocc_tpu_torch.config import midsize_model_config
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
@@ -568,24 +706,36 @@ def phase_reference() -> None:
     print('[4/6] reference: midsize multi-modal fp32, card vs CPU plain '
           'versions')
     cfg = midsize_model_config(use_lidar=True)
-    model = init_weights(FusionOcc(cfg, device='cpu'),
-                         torch.Generator().manual_seed(7))
+    g = torch.Generator().manual_seed(7)
+    model = init_weights(FusionOcc(cfg, device='cpu'), g)
+    bn_away_from_identity(model.lidar_encoder, g)
     batch = synthetic_batch(cfg, 1, 0, device='cpu')
+
+    def lidar_both(b):
+        """The LiDAR feature unfused, then fused."""
+        outs = []
+        for fuse in (False, True):
+            set_fuse(model, fuse)
+            outs.append(model.lidar_encoder(b.points, b.points_mask))
+        set_fuse(model, False)
+        return outs
     with torch.inference_mode():
         want = model(batch)
-        want_lidar = model.lidar_encoder(batch.points, batch.points_mask)
+        want_lidar = lidar_both(batch)
     model.to(DEV)
     batch = synthetic_batch(cfg, 1, 0, device=DEV)
     KERNELS.reset_counts()
     with torch.inference_mode():
         got = model(batch)
-        got_lidar = model.lidar_encoder(batch.points, batch.points_mask)
+        got_lidar = lidar_both(batch)
     torch.cuda.synchronize()
     print(f'  launches on the card: {dict(KERNELS.launches)}')
     if min(KERNELS.launches[k] for k in MAIN_KERNELS) == 0:
         fail('a kernel was not launched by the midsize model on the card')
-    check_close('midsize lidar feature', got_lidar.cpu(), want_lidar,
-                **REF_TOL)
+    for fused, g_l, w_l in zip(('', ', zwin_fuse=True'), got_lidar,
+                               want_lidar):
+        check_close(f'midsize lidar feature{fused}', g_l.cpu(), w_l,
+                    **REF_TOL)
     for key in ('occ_logits', 'depth', 'seg_logits'):
         check_close(f'midsize {key}', got[key].cpu(), want[key], **REF_TOL)
     agree = (got['occ_logits'].argmax(-1).cpu()
@@ -648,6 +798,9 @@ class KernelCheck:
              lambda d, f, idx, n, out: bp.bev_pool_plain(d, f, idx, n).to(out),
              lambda d, f, idx, n, out: f'{n // (gx * gy * gz)} samples'),
             (zw, 'zwin_conv_cuda', 'zwin_conv_fwd', zw.zwin_conv_plain,
+             lambda feats, *_: f'{feats.shape[0]} samples'),
+            (zw, 'zwin_conv_epi_cuda', 'zwin_conv_fwd_epi',
+             zw.zwin_conv_epi_plain,
              lambda feats, *_: f'{feats.shape[0]} samples'))
 
     def _checked(self, real, name, plain, takes):
@@ -753,30 +906,159 @@ def drive_path(label, cfg, batches, expect) -> dict:
 def launches_per(cfg, camera_passes: int, lidar_passes: int) -> dict:
     """Main-path launches of a run: one window attention per Swin block and
     one pooling per camera pass, one zwin per sparse-stage conv and LiDAR
-    pass (the last stage runs dense), whatever the batch of a pass."""
+    pass (the last stage runs dense; fused with ``zwin_fuse``), whatever
+    the batch of a pass."""
     lc = cfg.lidar
     sparse = lc.encoder_channels[:min(lc.dense_from,
                                       len(lc.encoder_channels) - 1)]
+    zwin = sum(map(len, sparse)) * lidar_passes * cfg.use_lidar
     return {'window_attn_fwd': sum(cfg.swin.depths) * camera_passes,
             'bev_pool_fwd': camera_passes,
-            'zwin_conv_fwd': sum(map(len, sparse)) * lidar_passes
-            * cfg.use_lidar}
+            'zwin_conv_fwd': 0 if lc.zwin_fuse else zwin,
+            'zwin_conv_fwd_epi': zwin if lc.zwin_fuse else 0}
+
+
+def fused_config(cfg):
+    """``cfg`` with the fused zwin epilogue (``zwin_fuse=True``)."""
+    import dataclasses
+    return dataclasses.replace(cfg, lidar=dataclasses.replace(
+        cfg.lidar, zwin_fuse=True))
+
+
+def set_fuse(model, fuse: bool) -> None:
+    """Switch the LiDAR encoder's convs between the fused and the unfused
+    zwin path (the same weights either way)."""
+    from fusionocc_tpu_torch.models.lidar_encoder import SparseConvBN
+    for conv in model.lidar_encoder.modules():
+        if isinstance(conv, SparseConvBN):
+            conv.fuse = fuse
+
+
+@torch.inference_mode()
+def fused_against_unfused(batches) -> None:
+    """Two-pass predict on seeds 0-2 with ``zwin_fuse`` True and False on
+    the same weights (spread, BatchNorms away from the identity), every
+    launch of the fused runs held against its plain version: the argmax
+    agreement (at least MIN_AGREE in fp32) and the logit difference, in
+    bf16 and fp32."""
+    from fusionocc_tpu_torch.config import full_model_config
+    from fusionocc_tpu_torch.models.fusion_occ import (
+        FusionOcc, batch_pooling_indices, spread_weights)
+    for dtype in ('bfloat16', 'float32'):
+        cfg = full_model_config(compute_dtype=dtype)
+        g = torch.Generator().manual_seed(0)
+        model = spread_weights(FusionOcc(cfg, device=DEV), g)
+        bn_away_from_identity(model.lidar_encoder, g)
+        idxs = batch_pooling_indices(cfg, batches[0])
+        want = [model(b, idxs)['occ_logits'] for b in batches]
+        set_fuse(model, True)
+        label = (f'{dtype} zwin_fuse=True two-pass predict on seeds '
+                 f'{SLICE_SEEDS}')
+        with KernelCheck(label, cfg):
+            got = counted(label, lambda: [model(b, idxs)['occ_logits']
+                                          for b in batches],
+                          launches_per(fused_config(cfg), 2 * len(batches),
+                                       len(batches)))
+        diff = torch.stack([(a - b).abs().max() for a, b in zip(got, want)])
+        rel = (sum((a - b).abs().mean() for a, b in zip(got, want))
+               / sum(b.abs().mean() for b in want)).item()
+        if not all(bool(torch.isfinite(x).all()) for x in got):
+            fail(f'{label}: logits not finite')
+        print(f'  {dtype} zwin_fuse=True against False, same weights: max '
+              f'abs logit difference per seed '
+              f'{[f"{d:.3e}" for d in diff.tolist()]}, mean abs difference '
+              f'/ mean abs logit {rel:.3e}', flush=True)
+        agreement(f'{dtype} zwin_fuse=True against False',
+                  torch.stack([x.argmax(-1) for x in got]),
+                  torch.stack([x.argmax(-1) for x in want]),
+                  dtype == 'float32')
+        del model, got, want
+        torch.cuda.empty_cache()
+
+
+def sync_sites(fn):
+    """Run fn() with torch.cuda's sync debug mode on: the host syncs it
+    made, counted by where the port made each (the innermost port function
+    on the stack other than the one that reads a width)."""
+    import collections
+    import traceback
+    sites = collections.Counter()
+
+    def record(message, *_):
+        if 'called a synchronizing' not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if 'fusionocc_tpu_torch' in f.filename
+                  and f.name != 'padded_width']
+        where = frames[-1] if frames else traceback.extract_stack()[-2]
+        sites[f'{where.name} ({where.filename.rsplit("/", 1)[-1]}:'
+              f'{where.lineno})'] += 1
+    with warnings.catch_warnings():
+        warnings.simplefilter('always')
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    return sites
+
+
+@torch.inference_mode()
+def count_encoder_syncs(batches) -> dict:
+    """Host syncs of one LiDAR encoder pass, fused (the slice's path) and
+    unfused, at batch 1, 4 and 8 (the clouds of seeds 0-2 in turn): fail if
+    a count grows with the batch or passes SYNC_SITES."""
+    from fusionocc_tpu_torch.config import full_model_config
+    from fusionocc_tpu_torch.models.fusion_occ import init_weights
+    from fusionocc_tpu_torch.models.lidar_encoder import SparseEncoder
+    points = torch.cat([b.points for b in batches])
+    pmask = torch.cat([b.points_mask for b in batches])
+    counts = {}
+    for cfg in (fused_config(full_model_config()), full_model_config()):
+        enc = init_weights(SparseEncoder(cfg.lidar, cfg.grid, cfg.dtype, DEV),
+                           torch.Generator().manual_seed(0))
+        label = f'zwin_fuse={cfg.lidar.zwin_fuse}'
+        for n in (1, 4, 8):
+            rows = torch.arange(n, device=DEV) % len(batches)
+            p, m = points[rows], pmask[rows]
+            enc(p, m)                  # warm-up
+            sites = sync_sites(lambda: enc(p, m))
+            counts[label, n] = sum(sites.values())
+            print(f'  host syncs of one LiDAR encoder pass, {label}, batch '
+                  f'{n}: {counts[label, n]} ('
+                  + ', '.join(f'{k} x{v}' for k, v in sorted(sites.items()))
+                  + ')', flush=True)
+        per_batch = {counts[label, n] for n in (1, 4, 8)}
+        if len(per_batch) != 1 or max(per_batch) > SYNC_SITES:
+            fail(f'{label}: host syncs per encoder pass {sorted(per_batch)} '
+                 f'at batch 1, 4, 8; need one count, at most {SYNC_SITES}')
+        del enc
+    return counts
 
 
 def phase_slice(batches) -> dict:
-    """The image-only path, then the default multi-modal main path."""
+    """The image-only path, the default multi-modal main path and the same
+    with the fused zwin epilogue; then the fused path against the unfused
+    one on the same weights, and the encoder's host syncs.  Returns each
+    kernel's launches on the path that runs it."""
     from fusionocc_tpu_torch.config import (full_model_config,
                                             image_only_model_config)
     print('[5/6] slice: full-size predict, bf16')
     paths = []
     for label, cfg in (('image-only', image_only_model_config()),
-                       ('default multi-modal', full_model_config())):
+                       ('default multi-modal', full_model_config()),
+                       ('multi-modal zwin_fuse=True',
+                        fused_config(full_model_config()))):
         # one window-attention launch per Swin block and frame, one pooling
         # per frame, one zwin launch per sparse-stage conv (the last stage
         # runs dense)
         paths.append(drive_path(label, cfg, batches,
                                 launches_per(cfg, cfg.num_frame, 1)))
-    return paths[-1]
+    fused_against_unfused(batches)
+    count_encoder_syncs(batches)
+    return {k: max(p[k] for p in paths) for k in MAIN_KERNELS}
 
 
 def counted(label, run, expect) -> object:
@@ -1034,6 +1316,8 @@ def streaming_modes(cfg, clip, frames, batches, timed: bool) -> None:
             model.predict_streaming_batch(
                 map_batch(lambda a: a[:chunk], clip),
                 model.init_streaming_state(1), None, idx, chunk, cam_chunk)
+        if timed and chunk == 8:
+            one_table_fold(model, clip, resets, idx, label)
         del idx, preds, final
 
     label = f'{dt} predict(batch_frames=True)'
@@ -1065,6 +1349,77 @@ def streaming_modes(cfg, clip, frames, batches, timed: bool) -> None:
     torch.cuda.empty_cache()
 
 
+def one_table_fold(model, clip, resets, idx, label) -> None:
+    """The fold once more with every row table over all samples of a block
+    (``sparse_conv.TABLE_CELLS`` unbounded), against the default that
+    builds a large table one sample at a time: peak memory and ms."""
+    from fusionocc_tpu_torch.ops import sparse_conv
+    cfg, cells = model.cfg, sparse_conv.TABLE_CELLS
+    sparse_conv.TABLE_CELLS = 2 ** 62
+    try:
+        base = reset_peak()
+        t1 = time.perf_counter()
+        counted(label, lambda: model.predict_streaming_batch(
+            clip, model.init_streaming_state(1), resets, idx, 8, 4),
+            launches_per(cfg, 2 * CLIP_FRAMES // 8, CLIP_FRAMES // 8))
+        ms = (time.perf_counter() - t1) * 1e3 / CLIP_FRAMES
+    finally:
+        sparse_conv.TABLE_CELLS = cells
+    print(f'  {label}, each row table over all 8 samples (TABLE_CELLS '
+          f'unbounded; the default {cells} cells builds the stage-0 table '
+          f'one sample at a time): {peak_above(base)}; {ms:.2f} ms per '
+          'frame, one clip', flush=True)
+
+
+@torch.inference_mode()
+def fused_streaming(unfused, frames) -> None:
+    """``predict_streaming`` frame by frame over the clip with ``zwin_fuse``
+    (spread weights, BatchNorms away from the identity): one clip with
+    every launch held against its plain version, then one timed (ms and
+    the encoder's device ms per frame) and the same weights unfused (its
+    agreement printed)."""
+    from fusionocc_tpu_torch.models.fusion_occ import (
+        FusionOcc, batch_pooling_indices, spread_weights)
+    cfg = fused_config(unfused)
+    g = torch.Generator().manual_seed(0)
+    model = spread_weights(FusionOcc(cfg, device=DEV), g)
+    bn_away_from_identity(model.lidar_encoder, g)
+    idx = batch_pooling_indices(cfg, frames[0])[0]
+    per_frame = launches_per(cfg, 1, 1)
+
+    def clip_run(label, expect=per_frame):
+        state, preds = model.init_streaming_state(1), []
+        for t, batch in enumerate(frames):
+            pred, out, state = counted(
+                f'{label} frame {t}', lambda: model.predict_streaming(
+                    batch, state, idx), expect)
+            if not bool(torch.isfinite(out['occ_logits']).all()):
+                fail(f'{label} frame {t}: logits not finite')
+            preds.append(pred)
+        check_cache(label, state)
+        return torch.stack(preds)
+    dt = str(cfg.dtype).split('.')[-1]
+    label = f'{dt} zwin_fuse=True predict_streaming frame by frame'
+    with KernelCheck(f'{label}, the clip', cfg):
+        clip_run(label)
+    clock = ModuleClock(model.lidar_encoder)
+    base = reset_peak()
+    t1 = time.perf_counter()
+    preds = clip_run(label)
+    ms = (time.perf_counter() - t1) * 1e3 / CLIP_FRAMES
+    enc = sum(clock.call_ms()) / CLIP_FRAMES
+    clock.remove()
+    print(f'  {label}: {ms:.2f} ms per frame (one clip, launches counted '
+          f'per frame {per_frame}), LiDAR encoder device ms per frame '
+          f'{enc:.2f}; {peak_above(base)}', flush=True)
+    set_fuse(model, False)
+    agreement(f'{label} against zwin_fuse=False, same weights', preds,
+              clip_run(f'{dt} predict_streaming',
+                       launches_per(unfused, 1, 1)), False)
+    del model
+    torch.cuda.empty_cache()
+
+
 @torch.inference_mode()
 def phase_streaming(batches) -> None:
     """The streaming modes and ``batch_frames`` at full size: timed in
@@ -1085,6 +1440,7 @@ def phase_streaming(batches) -> None:
     for dtype, timed in (('bfloat16', True), ('float32', False)):
         cfg = full_model_config(compute_dtype=dtype)
         streaming_modes(cfg, clip, frames, batches, timed)
+    fused_streaming(full_model_config(), frames)
 
 
 def main() -> None:
@@ -1108,6 +1464,8 @@ def main() -> None:
                          'fusionocc_tpu/ops/pallas/segsum.py:31'),
         'zwin_conv_fwd': ('fusionocc_tpu_torch/csrc/zwin_conv.cu',
                           'fusionocc_tpu/ops/pallas/zwin_conv.py:145'),
+        'zwin_conv_fwd_epi': ('fusionocc_tpu_torch/csrc/zwin_conv.cu',
+                              'fusionocc_tpu/ops/pallas/zwin_conv.py:78'),
     }
     kernels = []
     for name, m in measured.items():

@@ -103,10 +103,14 @@ class SparseEncoderConfig:
     switches give one result and take one path: ``dense_mode`` 'zbatch' and
     'xla3d' (two TPU formulations of one dense conv) and ``dense_from`` 3
     and 4 (the last stage has no stride-2 conv, so it runs in the dense tail
-    either way).  The TPU tiling knobs ``zwin_block``, ``zwin_nwin``,
-    ``zwin_bad_frac``, ``zwin_merged``, ``zwin_fuse``, ``tap_chunk`` and
-    ``col_chunk`` change nothing in the result and are ignored, as are the
-    other backends' fields (``gather``, ``index``, ``tile_*``,
+    either way).  ``zwin_fuse`` is honoured: the z-folded convs then run
+    with the BatchNorm, ReLU and lane mask fused into the kernel's epilogue
+    (``ops/zwin_conv.zwin_conv_epi``), as JAX's eval path does; the default
+    stays False, the config's default (the JAX modules' own default is
+    True).  The TPU tiling knobs ``zwin_block``, ``zwin_nwin``,
+    ``zwin_bad_frac``, ``zwin_merged``, ``tap_chunk`` and ``col_chunk``
+    change nothing in the result and are ignored, as are the other
+    backends' fields (``gather``, ``index``, ``tile_*``,
     ``voxel_capacity[1:]``) and the training switch ``remat_conv``.
     """
     in_channels: int = 5

@@ -1,8 +1,9 @@
 // Z-folded 3x3x3 sparse convolution forward (SubM stride 1 and stride 2).
 //
 // Replaces the TPU kernel fusionocc_tpu/ops/pallas/zwin_conv.py::_make_kernel
-// (and its variants _make_kernel_merged and _epilogue_in_kernel, which
-// compute the same contract).  The contract is ops/zfold.py's
+// (and its variant _make_kernel_merged, which computes the same contract),
+// and with the entry zwin_conv_fwd_epi its fused eval epilogue
+// _epilogue_in_kernel (below).  The contract is ops/zfold.py's
 // zband_conv_apply:
 //
 //   out[r, zo*Cout + co] = mask_out[r] *
@@ -50,6 +51,19 @@
 // rows are gathered into shared memory as fp32 and each thread runs the at
 // most 3 band cells its out cell reads against its column of the cell
 // kernel.
+//
+// The fused eval epilogue (the EPI instantiations of both bodies, entry
+// zwin_conv_fwd_epi; SparseEncoderConfig.zwin_fuse): before the single
+// store, each fp32 accumulator of lane c = zo*Cout + co of row r becomes
+//
+//   lane[r, zo] ? max(acc * inv[c] + shift[c], 0) : 0
+//
+// with inv, shift the eval BatchNorm's (L_out,) affine and lane the compact
+// (B*S_out, f_out) cell mask, one byte per cell (JAX's kernel read an
+// expanded (B, S_out, L_out) multiplier instead, Cout times the bytes).
+// The product and the sum round separately (no FMA), as the plain version
+// does.  What it saves is the unfused chain's passes over the output: the
+// BatchNorm's fp32 copy, its masked affine and cast, and the ReLU.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
@@ -69,11 +83,24 @@ struct Bands {
   int dz_used[3]; // bit dz set when some out cell reads dz in band ds
 };
 
+// operands of the fused eval epilogue; unused by the plain instantiations
+struct Epilogue {
+  const float* inv;      // (L_out,) BatchNorm scale
+  const float* shift;    // (L_out,) BatchNorm shift
+  const uint8_t* lane;   // (B*S_out, f_out) cell lane mask
+  int f_out;
+};
+
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+
+__device__ __forceinline__ float affine_relu(float acc, float inv,
+                                             float shift) {
+  return fmaxf(__fadd_rn(__fmul_rn(acc, inv), shift), 0.f);
+}
 
 // ---------------------------------------------------------------- bf16 body
 
-template <bool NULL_BODY>
+template <bool NULL_BODY, bool EPI>
 __global__ void __launch_bounds__(MAX_FOUT * 32, 2)
     zwin_conv_mma_kernel(const __nv_bfloat16* __restrict__ feats,
                          const int32_t* __restrict__ nbr,
@@ -82,7 +109,7 @@ __global__ void __launch_bounds__(MAX_FOUT * 32, 2)
                          __nv_bfloat16* __restrict__ out, int S_in, int S_out,
                          int total_rows, int cin, int cout, int f_in,
                          int stride, int L_in, int L_out, Bands bands,
-                         int g_bytes, int w_bytes) {
+                         int g_bytes, int w_bytes, Epilogue epi) {
   extern __shared__ __align__(16) uint8_t smem[];
   int* src_s = reinterpret_cast<int*>(smem);       // (ROWS, 27) feats rows
   uint32_t* hits_s = reinterpret_cast<uint32_t*>(smem + ROWS * 27 * 4);
@@ -208,13 +235,21 @@ __global__ void __launch_bounds__(MAX_FOUT * 32, 2)
     for (int half = 0; half < 2; ++half) {
       const int r = row0 + m * 16 + half * 8 + g;
       if (r >= total_rows) continue;
-      const bool keep = mask_out[r] != 0;
+      const bool keep =
+          mask_out[r] != 0 &&
+          (!EPI || epi.lane[(int64_t)r * epi.f_out + zo] != 0);
       __nv_bfloat16* orow = out + (int64_t)r * L_out + zo * cout;
 #pragma unroll
       for (int n = 0; n < MAX_NT; ++n) {
         if (n < n_tiles) {
-          const float v0 = keep ? acc[m][n][2 * half] : 0.f;
-          const float v1 = keep ? acc[m][n][2 * half + 1] : 0.f;
+          float v0 = keep ? acc[m][n][2 * half] : 0.f;
+          float v1 = keep ? acc[m][n][2 * half + 1] : 0.f;
+          if (EPI && keep) {
+            const int c = zo * cout + n * 8 + 2 * qd;
+            v0 = affine_relu(v0, __ldg(epi.inv + c), __ldg(epi.shift + c));
+            v1 = affine_relu(v1, __ldg(epi.inv + c + 1),
+                             __ldg(epi.shift + c + 1));
+          }
           *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * qd) =
               tc::pack_bf16(v0, v1);
         }
@@ -225,6 +260,7 @@ __global__ void __launch_bounds__(MAX_FOUT * 32, 2)
 
 // ---------------------------------------------------------------- fp32 body
 
+template <bool EPI>
 __global__ void zwin_conv_fp32_kernel(const float* __restrict__ feats,
                                       const int32_t* __restrict__ nbr,
                                       const uint8_t* __restrict__ mask_out,
@@ -232,7 +268,8 @@ __global__ void zwin_conv_fp32_kernel(const float* __restrict__ feats,
                                       float* __restrict__ out, int S_in,
                                       int S_out, int total_rows, int cin,
                                       int cout, int f_in, int stride, int L_in,
-                                      int L_out, int kp_max, Bands bands) {
+                                      int L_out, int kp_max, Bands bands,
+                                      Epilogue epi) {
   extern __shared__ __align__(16) float smem_f[];
   float* gs = smem_f;                              // (ROWS, kp_max) fp32
   int* nbr_s = (int*)(smem_f + ROWS * kp_max);     // (ROWS, 27)
@@ -302,19 +339,27 @@ __global__ void zwin_conv_fp32_kernel(const float* __restrict__ feats,
   }
 
   if (c >= L_out) return;
+  const float inv = EPI ? __ldg(epi.inv + c) : 1.f;
+  const float shift = EPI ? __ldg(epi.shift + c) : 0.f;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int r = row0 + i;
-    if (r < total_rows) out[(int64_t)r * L_out + c] = mask_out[r] ? acc[i] : 0.f;
+    if (r >= total_rows) continue;
+    const bool keep = mask_out[r] != 0 &&
+                      (!EPI || epi.lane[(int64_t)r * epi.f_out + zo] != 0);
+    const float v = EPI ? affine_relu(acc[i], inv, shift) : acc[i];
+    out[(int64_t)r * L_out + c] = keep ? v : 0.f;
   }
 }
 
 // ------------------------------------------------------------------ launch
 
+template <bool EPI>
 int launch_fp32(const void* feats, const void* nbr, const void* mask_out,
                 const void* weight, void* out, int S_in, int S_out,
                 int total_rows, int cin, int cout, int f_in, int stride,
-                int L_in, int L_out, const Bands& bands, cudaStream_t stream) {
+                int L_in, int L_out, const Bands& bands, const Epilogue& epi,
+                cudaStream_t stream) {
   int kp_max = 0;
   for (int ds = 0; ds < 3; ++ds) {
     const int kp = bands.nzi[ds] * round4(cin);
@@ -324,24 +369,24 @@ int launch_fp32(const void* feats, const void* nbr, const void* mask_out,
   if (threads > 1024) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)ROWS * kp_max * sizeof(float) +
                       (size_t)ROWS * 27 * sizeof(int);
+  auto kernel = zwin_conv_fp32_kernel<EPI>;
   cudaError_t err = cudaFuncSetAttribute(
-      zwin_conv_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (total_rows + ROWS - 1) / ROWS;
-  zwin_conv_fp32_kernel<<<blocks, threads, smem, stream>>>(
+  kernel<<<blocks, threads, smem, stream>>>(
       (const float*)feats, (const int32_t*)nbr, (const uint8_t*)mask_out,
       (const float*)weight, (float*)out, S_in, S_out, total_rows, cin, cout,
-      f_in, stride, L_in, L_out, kp_max, bands);
+      f_in, stride, L_in, L_out, kp_max, bands, epi);
   return (int)cudaGetLastError();
 }
 
-template <bool NULL_BODY>
+template <bool NULL_BODY, bool EPI>
 int launch_bf16(const void* feats, const void* nbr, const void* mask_out,
                 const void* weight, void* out, int S_in, int S_out,
                 int total_rows, int cin, int cout, int f_in, int f_out,
                 int stride, int L_in, int L_out, const Bands& bands,
-                cudaStream_t stream) {
+                const Epilogue& epi, cudaStream_t stream) {
   // k16 steps over Cin, n8 tiles over Cout, one warp per out cell, 16-byte
   // copies of band cells and kernel rows
   const bool aligned =
@@ -356,7 +401,7 @@ int launch_bf16(const void* feats, const void* nbr, const void* mask_out,
   const int w_bytes = 3 * cin * (cout * 2 + 16);
   const size_t smem = (size_t)ROWS * 27 * 4 + 16 + 2 * (size_t)g_bytes +
                       2 * (size_t)w_bytes;
-  auto kernel = zwin_conv_mma_kernel<NULL_BODY>;
+  auto kernel = zwin_conv_mma_kernel<NULL_BODY, EPI>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -365,7 +410,7 @@ int launch_bf16(const void* feats, const void* nbr, const void* mask_out,
       (const __nv_bfloat16*)feats, (const int32_t*)nbr,
       (const uint8_t*)mask_out, (const __nv_bfloat16*)weight,
       (__nv_bfloat16*)out, S_in, S_out, total_rows, cin, cout, f_in, stride,
-      L_in, L_out, bands, g_bytes, w_bytes);
+      L_in, L_out, bands, g_bytes, w_bytes, epi);
   return (int)cudaGetLastError();
 }
 
@@ -393,6 +438,33 @@ bool make_bands(int cin, int cout, int stride, int L_in, int L_out,
   return true;
 }
 
+// Both bodies, chosen by dtype (0 fp32, 1 bf16), with the fused epilogue
+// when EPI.
+template <bool EPI>
+int zwin_conv_run(const void* feats, const void* nbr, const void* mask_out,
+                  const void* weight, const Epilogue& epi, void* out, int B,
+                  int S_in, int S_out, int cin, int cout, int stride,
+                  int L_in, int L_out, const int (&zi_lo)[3],
+                  const int (&nzi)[3], int dtype, cudaStream_t stream) {
+  if (B * S_out == 0) return (int)cudaSuccess;
+  int f_in = 0, f_out = 0;
+  Bands bands;
+  if (!make_bands(cin, cout, stride, L_in, L_out, zi_lo, nzi, &f_in, &f_out,
+                  &bands))
+    return (int)cudaErrorInvalidValue;
+  Epilogue e = epi;
+  e.f_out = f_out;
+  if (dtype == 0)
+    return launch_fp32<EPI>(feats, nbr, mask_out, weight, out, S_in, S_out,
+                            B * S_out, cin, cout, f_in, stride, L_in, L_out,
+                            bands, e, stream);
+  if (dtype == 1)
+    return launch_bf16<false, EPI>(feats, nbr, mask_out, weight, out, S_in,
+                                   S_out, B * S_out, cin, cout, f_in, f_out,
+                                   stride, L_in, L_out, bands, e, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int zwin_conv_fwd(const void* feats, const void* nbr,
@@ -401,21 +473,28 @@ extern "C" int zwin_conv_fwd(const void* feats, const void* nbr,
                              int cout, int stride, int L_in, int L_out,
                              int zi_lo0, int nzi0, int zi_lo1, int nzi1,
                              int zi_lo2, int nzi2, int dtype, void* stream) {
-  if (B * S_out == 0) return (int)cudaSuccess;
-  int f_in = 0, f_out = 0;
-  Bands bands;
-  if (!make_bands(cin, cout, stride, L_in, L_out, {zi_lo0, zi_lo1, zi_lo2},
-                  {nzi0, nzi1, nzi2}, &f_in, &f_out, &bands))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return launch_fp32(feats, nbr, mask_out, weight, out, S_in, S_out,
-                       B * S_out, cin, cout, f_in, stride, L_in, L_out, bands,
-                       (cudaStream_t)stream);
-  if (dtype == 1)
-    return launch_bf16<false>(feats, nbr, mask_out, weight, out, S_in, S_out,
-                              B * S_out, cin, cout, f_in, f_out, stride, L_in,
-                              L_out, bands, (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  return zwin_conv_run<false>(feats, nbr, mask_out, weight, Epilogue{}, out,
+                              B, S_in, S_out, cin, cout, stride, L_in, L_out,
+                              {zi_lo0, zi_lo1, zi_lo2}, {nzi0, nzi1, nzi2},
+                              dtype, (cudaStream_t)stream);
+}
+
+// zwin_conv_fwd with the fused eval epilogue: inv and shift (L_out,) fp32,
+// lane (B*S_out, f_out) uint8.
+extern "C" int zwin_conv_fwd_epi(const void* feats, const void* nbr,
+                                 const void* mask_out, const void* weight,
+                                 const void* inv, const void* shift,
+                                 const void* lane, void* out, int B, int S_in,
+                                 int S_out, int cin, int cout, int stride,
+                                 int L_in, int L_out, int zi_lo0, int nzi0,
+                                 int zi_lo1, int nzi1, int zi_lo2, int nzi2,
+                                 int dtype, void* stream) {
+  const Epilogue epi{(const float*)inv, (const float*)shift,
+                     (const uint8_t*)lane, 0};
+  return zwin_conv_run<true>(feats, nbr, mask_out, weight, epi, out, B, S_in,
+                             S_out, cin, cout, stride, L_in, L_out,
+                             {zi_lo0, zi_lo1, zi_lo2}, {nzi0, nzi1, nzi2},
+                             dtype, (cudaStream_t)stream);
 }
 
 // The bf16 body with the products left out (gathers, staging and stores
@@ -433,7 +512,8 @@ extern "C" int zwin_conv_null(const void* feats, const void* nbr,
       !make_bands(cin, cout, stride, L_in, L_out, {zi_lo0, zi_lo1, zi_lo2},
                   {nzi0, nzi1, nzi2}, &f_in, &f_out, &bands))
     return (int)cudaErrorInvalidValue;
-  return launch_bf16<true>(feats, nbr, mask_out, weight, out, S_in, S_out,
-                           B * S_out, cin, cout, f_in, f_out, stride, L_in,
-                           L_out, bands, (cudaStream_t)stream);
+  return launch_bf16<true, false>(feats, nbr, mask_out, weight, out, S_in,
+                                  S_out, B * S_out, cin, cout, f_in, f_out,
+                                  stride, L_in, L_out, bands, Epilogue{},
+                                  (cudaStream_t)stream);
 }

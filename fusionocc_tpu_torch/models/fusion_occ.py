@@ -349,7 +349,12 @@ class FusionOcc(nn.Module):
 
         pool_idx: the key frame's pooling index (``frame_pooling_index``),
         else built in the call.  Returns (pred (B, X, Y, Z) uint8, outputs,
-        new_state); no step waits on the card.
+        new_state).  The streaming glue (the pose inverse, ``valid`` and
+        ``reset``, the warp) never waits on the card; the LiDAR encoder
+        waits five times, once per padded width of its index builds
+        (``models/lidar_encoder.py``), and building ``pool_idx`` in the call
+        waits too (``ops/bev_pool.prepare_pooling_index``: its constants
+        copied from the host and ``long_runs``' ``nonzero``).
         """
         self._check_streaming(batch)
         valid = state.valid if reset is None else state.valid & ~reset

@@ -6,13 +6,20 @@ Port of ``fusionocc_tpu/models/lidar_encoder.py`` for inference, the
     points -> voxelize_mean -> conv_input (1x1) -> zfold_regroup
     -> stages 0 .. dense_from-1: SubM convs, then a stride-2 conv, each
        conv (ops/zwin_conv.py, kernel K3) masked to its super rows, then
-       MaskedBatchNorm on the cell lane mask, then ReLU
+       MaskedBatchNorm on the cell lane mask, then ReLU; with
+       ``zwin_fuse`` the three are one launch (``zwin_conv_epi``: the
+       BatchNorm's affine, the ReLU and the lane mask in K3's epilogue), as
+       the JAX package's eval path with ``zwin_fuse=True`` runs them
     -> stages dense_from ..: the masked dense tail (ops/dense_conv.py)
     -> conv_out (1x1) -> (B, Z, Y, X, C_out), the image voxel layout.
 
 Each stage builds one neighbour table on its super grid, shared by its SubM
 convs and its stride-2 conv.  Stage i keeps ``zfold_capacity[i]`` super
-rows at most, as the JAX package does.
+rows at most, as the JAX package does.  The index builds run on the whole
+batch at once; an encoder pass waits for the card five times, once for
+each padded width (the voxels, the super rows, each sparse stage's
+stride-2 output set), at any batch size.  The dense tail's BatchNorms stay
+unfused, as in JAX.
 
 The last stage always runs in the dense tail.  It has no stride-2 conv, so
 its active set is the one the stage before it made, and a masked dense SubM
@@ -38,7 +45,7 @@ from ..ops.sparse_conv import (out_shape_strided, sparse_conv1x1_apply,
 from ..ops.voxelize import voxelize_mean
 from ..ops.zfold import (ZFoldVoxels, as_sparse, strided_lane_mask,
                          super_shape, zfold_regroup)
-from ..ops.zwin_conv import zwin_conv
+from ..ops.zwin_conv import zwin_conv, zwin_conv_epi
 
 
 class SpConv(nn.Module):
@@ -58,16 +65,23 @@ class SpConv(nn.Module):
 class SparseConvBN(nn.Sequential):
     """A 3x3x3 conv (key ``0``), masked BN (key ``1``) and ReLU: the JAX
     package's ``SubMConvBN`` (stride 1) and ``SparseConvBNStride2``, in
-    their z-folded and dense modes."""
+    their z-folded and dense modes.  ``fuse`` runs the z-folded mode as one
+    fused launch (``zwin_fuse``)."""
 
-    def __init__(self, cin: int, cout: int, stride: int):
+    def __init__(self, cin: int, cout: int, stride: int, fuse: bool = False):
         super().__init__(SpConv(cin, cout, 3), MaskedBatchNorm(cout))
-        self.stride = stride
+        self.stride, self.fuse = stride, fuse
 
     def zfold(self, feats, mask_out, nbr, lane_mask, f_in: int, f_out: int):
-        """feats (B, S_in, f_in*Cin) -> (B, S_out, f_out*Cout)."""
-        y = zwin_conv(feats, mask_out, nbr, self[0].kernel(), f_in, f_out,
-                      self.stride)
+        """feats (B, S_in, f_in*Cin) -> (B, S_out, f_out*Cout); lane_mask
+        is the output's cell lane mask (B, S_out, f_out)."""
+        w = self[0].kernel()
+        if self.fuse:
+            inv, shift = self[1].scale_shift()
+            return zwin_conv_epi(feats, mask_out, nbr, w, f_in, f_out,
+                                 self.stride, inv.repeat(f_out),
+                                 shift.repeat(f_out), lane_mask)
+        y = zwin_conv(feats, mask_out, nbr, w, f_in, f_out, self.stride)
         return F.relu(self[1](y, lane_mask))
 
     def dense(self, x, mask):
@@ -96,7 +110,8 @@ class SparseEncoder(nn.Module):
                 convs = []
                 for j, c in enumerate(blocks):
                     down = i < last and j == len(blocks) - 1
-                    convs.append(SparseConvBN(cin, c, 2 if down else 1))
+                    convs.append(SparseConvBN(cin, c, 2 if down else 1,
+                                              cfg.zwin_fuse))
                     cin = c
                 layers[f'encoder_layer{i + 1}'] = nn.Sequential(*convs)
             self.encoder_layers = nn.ModuleDict(layers)

@@ -78,14 +78,23 @@ class MaskedBatchNorm(BatchNorm):
     """Inference BatchNorm of sparse voxel features, eps 1e-3 (spconv's BN1d
     in the reference's LiDAR encoder; not torch's 1e-5).
 
-    y = ((x - mean) * inv + bias) * mask in float32, then cast to x's dtype,
-    with inv = weight / sqrt(var + eps).  Two layouts share the (C,)
+    y = (x * inv + shift) * mask in float32, then cast to x's dtype, with
+    the per-channel affine of ``scale_shift()`` (``affine`` is torch's
+    bool attribute of a BatchNorm).  Two layouts share the (C,)
     parameters: z-folded lanes, x (..., F*C) with the cell lane mask
     (..., F); and cells, x (..., C) with the cell mask (...).
     """
 
     def __init__(self, c: int):
         super().__init__(c, eps=1e-3)
+
+    def scale_shift(self):
+        """(inv, shift), (C,) float32, with eval BN(x) = x * inv + shift:
+        inv = weight * rsqrt(var + eps), shift = bias - mean * inv (JAX's
+        ``MaskedBatchNorm`` queried with ``x=None``, the fused zwin
+        epilogue's operands)."""
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return inv, self.bias - self.running_mean * inv
 
     def forward(self, x, mask):
         C = self.num_features
@@ -94,9 +103,8 @@ class MaskedBatchNorm(BatchNorm):
             m = mask.float().repeat_interleave(C, dim=-1)
         else:
             fold, m = 1, mask.float()[..., None]
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = ((x.float() - self.running_mean.repeat(fold)) * inv.repeat(fold)
-             + self.bias.repeat(fold)) * m
+        inv, shift = self.scale_shift()
+        y = (x.float() * inv.repeat(fold) + shift.repeat(fold)) * m
         return y.to(x.dtype)
 
 

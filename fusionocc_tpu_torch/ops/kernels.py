@@ -50,6 +50,12 @@ SIGNATURES: Dict[str, List] = {
 # K3's bf16 body with the products left out (the microbenchmark's null
 # variant), same arguments, bf16 only
 SIGNATURES['zwin_conv_null'] = SIGNATURES['zwin_conv_fwd']
+# K3 with the fused eval epilogue: after weight, inv (L_out fp32), shift
+# (L_out fp32) and the lane mask (B, S_out, f_out) uint8; then as
+# zwin_conv_fwd from out on
+SIGNATURES['zwin_conv_fwd_epi'] = (SIGNATURES['zwin_conv_fwd'][:4]
+                                   + [_P, _P, _P]
+                                   + SIGNATURES['zwin_conv_fwd'][4:])
 
 
 def find_nvcc() -> str:

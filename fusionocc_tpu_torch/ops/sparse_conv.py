@@ -9,15 +9,20 @@ t = dx*9 + dy*3 + dz reads the input at out*stride + (dx, dy, dz) - 1, and a
 miss points at row V_in (one past the input rows), as in JAX.  One dense
 cell -> row table per stage serves the stage's SubM map and its stride-2
 map (spconv's ``indice_key`` sharing).  At full size the stage-0 super grid
-is 1600x1600x16, so its table is 164 MB of int32: plain on the card.
+is 1600x1600x16, so its table is 164 MB of int32 per sample.
 
 The stride-2 output set is the JAX package's: an output site is active iff
 any active input lies in its 3x3x3 stride-2 receptive field, and a sample
-keeps its first ``capacity`` output keys ascending.  Each sample is built on
-its own (a Python loop over the batch); the builds run on the inputs'
-device.  Invalid rows write a dump slot past the end instead of being
-filtered out, so a stage's builds wait for the device once, for the size
-of the stride-2 output set.
+keeps its first ``capacity`` output keys ascending.  The builds run on the
+whole batch at once on the inputs' device, as JAX's ``vmap`` does: one
+occupancy grid and one prefix count over the batch find every sample's
+output set, and each row table holds several samples side by side (a
+sample offset per row of the table).  Above ``TABLE_CELLS`` cells the
+tables are built a few samples at a time, as JAX's ``lax.map`` does above
+``_TABLE_VMAP_CELLS``: a loop of launches, never a wait.  Invalid rows write
+dump slots instead of being filtered out, so a stage's builds wait for the
+card once, for the width of the stride-2 output set; ``sparse_to_dense``
+never waits.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .voxelize import SparseVoxels, key_set, key_to_coords, pad_stack
+from .voxelize import SparseVoxels, key_set, padded_width
 
 KERNEL_OFFSETS = np.stack(np.meshgrid(
     np.arange(3), np.arange(3), np.arange(3), indexing='ij'),
@@ -39,96 +44,112 @@ def out_shape_strided(shape: Tuple[int, int, int], stride: int = 2,
     return tuple((s + 2 * padding - kernel) // stride + 1 for s in shape)
 
 
-def _row_table_one(keys: torch.Tensor, mask: torch.Tensor,
-                   n_cells: int) -> torch.Tensor:
-    """(n_cells + 3,) int32 cell -> row table, miss -> V.
+# cells of the row tables built at once; JAX's _TABLE_VMAP_CELLS
+TABLE_CELLS = 2 ** 26
 
-    Padded by one miss cell in front and two behind, so the 3-tap z slice
-    starting at table index c reads cells (c-1, c, c+1) without clamping.
+
+def _row_table(keys: torch.Tensor, mask: torch.Tensor,
+               n_cells: int) -> torch.Tensor:
+    """(G, n_cells + 4) int32 cell -> row tables of G samples, miss -> V.
+
+    Column c holds cell c - 1: one miss column in front and two behind, so
+    the 3-tap z slice starting at column c reads cells (c-1, c, c+1) without
+    clamping.  Invalid rows write the last column, which no lookup reads.
     """
-    v = keys.shape[0]
-    table = torch.full((n_cells + 4,), v, dtype=torch.int32,
+    G, v = keys.shape
+    table = torch.full((G, n_cells + 4), v, dtype=torch.int32,
                        device=keys.device)
-    # invalid rows write the dump slot n_cells + 3, cut off below
-    table[torch.where(mask, keys.long() + 1, n_cells + 3)] = torch.arange(
-        v, dtype=torch.int32, device=keys.device)
-    return table[:n_cells + 3]
+    col = torch.where(mask, keys.long() + 1, n_cells + 3)
+    rows = torch.arange(v, dtype=torch.int32, device=keys.device)
+    return table.scatter_(1, col, rows.expand(G, v))
 
 
-def _index_from_table_one(table: torch.Tensor, out_coords: torch.Tensor,
-                          out_mask: torch.Tensor,
-                          shape_in: Tuple[int, int, int], stride: int,
-                          v_in: int) -> torch.Tensor:
-    """(V_out, 27) neighbour map read from a row table; miss -> v_in."""
+def _index_from_table(table: torch.Tensor, out_coords: torch.Tensor,
+                      out_mask: torch.Tensor,
+                      shape_in: Tuple[int, int, int], stride: int,
+                      v_in: int) -> torch.Tensor:
+    """(G, V_out, 27) neighbour maps read from G row tables; miss -> v_in."""
     sx, sy, sz = shape_in
+    G = table.shape[0]
     g = torch.arange(9, dtype=torch.int32, device=table.device)[:, None]
-    qx = out_coords[None, :, 0] * stride + g // 3 - 1   # (9, V); g = dx*3+dy
-    qy = out_coords[None, :, 1] * stride + g % 3 - 1
-    zb = (out_coords[:, 2] * stride)[None, :]                     # (1, V)
-    ok_xy = (out_mask[None, :] & (qx >= 0) & (qx < sx)
+    qx = out_coords[:, None, :, 0] * stride + g // 3 - 1   # (G, 9, V)
+    qy = out_coords[:, None, :, 1] * stride + g % 3 - 1    # g = dx*3+dy
+    zb = (out_coords[..., 2] * stride)[:, None, :]          # (G, 1, V)
+    ok_xy = (out_mask[:, None, :] & (qx >= 0) & (qx < sx)
              & (qy >= 0) & (qy < sy))
-    # table index c holds cell c-1, so taps dz = 0, 1, 2 sit at c + dz
+    # column c holds cell c-1, so taps dz = 0, 1, 2 sit at c + dz
     c = torch.where(ok_xy, (qx * sy + qy) * sz + zb, sx * sy * sz).long()
-    taps = []
-    for dz in range(3):
-        zt = zb + dz - 1
-        ok = ok_xy & (zt >= 0) & (zt < sz)
-        taps.append(torch.where(ok, table[c + dz], v_in))
-    nbr = torch.stack(taps, dim=1)                  # (9, 3, V) tap-major
-    return nbr.reshape(27, -1).t().contiguous().to(torch.int32)
+    c += torch.arange(G, device=table.device)[:, None, None] * table.shape[1]
+    dz = torch.arange(3, device=table.device)[:, None, None, None]
+    zt = zb + dz - 1                                         # (3, G, 1, V)
+    ok = ok_xy & (zt >= 0) & (zt < sz)
+    nbr = torch.where(ok, table.view(-1)[c + dz], v_in)      # (3, G, 9, V)
+    nbr = nbr.permute(1, 2, 0, 3)                  # (G, 9, 3, V) tap-major
+    return nbr.reshape(G, 27, -1).transpose(1, 2).contiguous()
 
 
-def _downsample_keys_one(in_coords: torch.Tensor, in_mask: torch.Tensor,
-                         shape_out: Tuple[int, int, int],
-                         capacity: int) -> torch.Tensor:
-    """Sorted keys of the first ``capacity`` active stride-2 outputs.
+def _downsample_keys(in_coords: torch.Tensor, in_mask: torch.Tensor,
+                     shape_out: Tuple[int, int, int], capacity: int):
+    """(coords, keys, mask) of each sample's first ``capacity`` active
+    stride-2 outputs, ascending, padded to the largest sample.
 
     Input coordinate d reaches outputs d/2 (d even) or (d±1)/2 (d odd); the
-    8 per-axis combinations mark a dense occupancy grid (plus a dump cell
-    for invalid rows and out-of-grid candidates) whose set cells, in
-    ascending order, are the output set.
+    8 per-axis combinations, one scatter, mark a (B, n_out) occupancy grid
+    (plus a dump column for invalid rows and out-of-grid candidates).  Its
+    prefix count per sample numbers the set cells, and output i of a sample
+    is the first cell whose count reaches i + 1, found by binary search
+    (JAX's ``_downsample_out_set_table_one``).
     """
     sx, sy, sz = shape_out
     n_out = sx * sy * sz
+    B = in_coords.shape[0]
     d = in_coords.long()
     even = (d % 2) == 0
-    cands = (torch.where(even, d // 2, (d + 1) // 2),
-             torch.where(even, d // 2, (d - 1) // 2))
-    occ = torch.zeros(n_out + 1, dtype=torch.bool, device=d.device)
-    for ix in range(2):
-        for iy in range(2):
-            for iz in range(2):
-                x, y, z = cands[ix][:, 0], cands[iy][:, 1], cands[iz][:, 2]
-                ok = (in_mask & (x >= 0) & (x < sx) & (y >= 0) & (y < sy)
-                      & (z >= 0) & (z < sz))
-                occ[torch.where(ok, (x * sy + y) * sz + z, n_out)] = True
-    return occ[:n_out].nonzero().squeeze(1)[:capacity].to(torch.int32)
+    cands = torch.stack([torch.where(even, d // 2, (d + 1) // 2),
+                         torch.where(even, d // 2, (d - 1) // 2)])
+    x = cands[:, None, None, ..., 0]                    # (2, 1, 1, B, V)
+    y = cands[None, :, None, ..., 1]                    # (1, 2, 1, B, V)
+    z = cands[None, None, :, ..., 2]                    # (1, 1, 2, B, V)
+    ok = (in_mask & (x >= 0) & (x < sx) & (y >= 0) & (y < sy)
+          & (z >= 0) & (z < sz))                        # (2, 2, 2, B, V)
+    key = torch.where(ok, (x * sy + y) * sz + z, n_out)
+    occ = torch.zeros(B, n_out + 1, dtype=torch.bool, device=d.device)
+    occ.scatter_(1, key.permute(3, 0, 1, 2, 4).reshape(B, -1), True)
+    count = occ[:, :n_out].cumsum(dim=1, dtype=torch.int32)
+    n = torch.clamp(count[:, -1], max=capacity)
+    S = padded_width(n)
+    rank = torch.arange(1, S + 1, dtype=torch.int32, device=d.device)
+    rank = rank.expand(B, S).contiguous()
+    mask = rank <= n[:, None]
+    keys = torch.where(mask, torch.searchsorted(count, rank), n_out)
+    return key_set(keys, mask, shape_out)
 
 
 def stage_indices_table(sp: SparseVoxels, shape: Tuple[int, int, int],
                         down_capacity: int):
-    """All neighbour maps of one encoder stage from one row table per sample.
+    """All neighbour maps of one encoder stage from one row table per
+    sample.
 
     Returns (subm_nbr, ((out_coords, out_keys, out_mask, strided_nbr),
     shape_out)): subm_nbr (B, V, 27), and the stride-2 output set (at most
-    ``down_capacity`` rows per sample) padded like the input.
+    ``down_capacity`` rows per sample) padded to its largest sample.
     """
     n_cells = shape[0] * shape[1] * shape[2]
-    v_in = sp.keys.shape[1]
+    B, v_in = sp.keys.shape
     shape_out = out_shape_strided(shape)
-    subm, out_keys, snbr = [], [], []
-    for b in range(sp.keys.shape[0]):
-        table = _row_table_one(sp.keys[b], sp.mask[b], n_cells)
-        subm.append(_index_from_table_one(table, sp.coords[b], sp.mask[b],
-                                          shape, 1, v_in))
-        okeys = _downsample_keys_one(sp.coords[b], sp.mask[b], shape_out,
-                                     down_capacity)
-        out_keys.append(okeys)
-        snbr.append(_index_from_table_one(
-            table, key_to_coords(okeys, shape_out),
-            torch.ones_like(okeys, dtype=torch.bool), shape, 2, v_in))
-    return torch.stack(subm), ((*key_set(out_keys, shape_out),
-                                pad_stack(snbr, v_in)), shape_out)
+    out_coords, out_keys, out_mask = _downsample_keys(
+        sp.coords, sp.mask, shape_out, down_capacity)
+    group = max(1, TABLE_CELLS // (n_cells + 4))
+    subm, snbr = [], []
+    for b in range(0, B, group):
+        s = slice(b, b + group)
+        table = _row_table(sp.keys[s], sp.mask[s], n_cells)
+        subm.append(_index_from_table(table, sp.coords[s], sp.mask[s],
+                                      shape, 1, v_in))
+        snbr.append(_index_from_table(table, out_coords[s], out_mask[s],
+                                      shape, 2, v_in))
+    return torch.cat(subm), ((out_coords, out_keys, out_mask,
+                              torch.cat(snbr)), shape_out)
 
 
 def gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -165,10 +186,13 @@ def sparse_conv1x1_apply(feats: torch.Tensor, mask: torch.Tensor,
 def sparse_to_dense(feats: torch.Tensor, keys: torch.Tensor,
                     mask: torch.Tensor,
                     shape: Tuple[int, int, int]) -> torch.Tensor:
-    """Scatter (B, V, C) voxel rows into a dense (B, X, Y, Z, C) volume."""
-    B, _, C = feats.shape
+    """Scatter (B, V, C) voxel rows into a dense (B, X, Y, Z, C) volume:
+    one row scatter over the batch, invalid rows to dump rows past it."""
+    B, V, C = feats.shape
     sx, sy, sz = shape
-    dense = feats.new_zeros(B, sx * sy * sz, C)
-    for b in range(B):
-        dense[b, keys[b][mask[b]].long()] = feats[b][mask[b]]
-    return dense.reshape(B, sx, sy, sz, C)
+    n = sx * sy * sz
+    dense = feats.new_zeros(B * n + V, C)
+    base = torch.arange(B, device=feats.device)[:, None] * n
+    dump = B * n + torch.arange(V, device=feats.device)
+    dense[torch.where(mask, base + keys.long(), dump)] = feats
+    return dense[:B * n].view(B, sx, sy, sz, C)

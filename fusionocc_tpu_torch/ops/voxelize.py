@@ -3,14 +3,17 @@
 Port of ``fusionocc_tpu/ops/voxelize.py``.  Conventions shared by the
 port's sparse stack (``ops/zfold.py``, ``ops/sparse_conv.py``):
 
-- voxel key = (x * SY + y) * SZ + z, int32, ascending per sample (the order
-  ``torch.unique`` gives);
+- voxel key = (x * SY + y) * SZ + z, int32, ascending per sample;
 - a sample keeps its first ``capacity`` keys ascending, the JAX package's
   static-capacity cut, so both packages hold the same set when a cloud
   overflows;
 - sets have their own size: a batch is padded to its largest sample, not to
   the capacity.  Padded rows carry the sentinel key SX*SY*SZ, zero coords
-  and features, and mask False.
+  and features, and mask False;
+- every build runs on the whole batch at once on the inputs' device, as
+  JAX's ``vmap`` does: no loop over the samples.  The padded width is the
+  one number a build reads from the card (``padded_width``), so each build
+  waits for the card once, whatever the batch size.
 
 Points are binned with ``floor`` in fp32 exactly as the JAX package does.
 The mean is an exact segment mean: each voxel's few points are summed in
@@ -20,7 +23,7 @@ full-size synthetic cloud; tests/test_torch_lidar_ops.py, ROADMAP Queue C.)
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -50,23 +53,35 @@ def key_to_coords(keys: torch.Tensor,
     return torch.stack([x, y, rem - y * sz], dim=-1).to(torch.int32)
 
 
-def pad_stack(rows: Sequence[torch.Tensor], fill) -> torch.Tensor:
-    """Stack per-sample tensors of different lengths along a new batch
-    axis, padding each to the longest with ``fill``."""
-    n = max(r.shape[0] for r in rows)
-    out = rows[0].new_full((len(rows), n) + tuple(rows[0].shape[1:]), fill)
-    for b, r in enumerate(rows):
-        out[b, :r.shape[0]] = r
-    return out
+def device_vector(values, dtype, device) -> torch.Tensor:
+    """A small constant vector on ``device`` made by fill kernels: a copy
+    from the host would wait for the card's queue to drain."""
+    return torch.stack([torch.full((), float(v), dtype=dtype, device=device)
+                        for v in values])
 
 
-def key_set(keys: List[torch.Tensor], shape: Tuple[int, int, int]):
-    """Pad per-sample sorted (n_b,) int32 keys: (coords, keys, mask)."""
-    k = pad_stack(keys, shape[0] * shape[1] * shape[2])
-    mask = pad_stack([torch.ones_like(x, dtype=torch.bool) for x in keys],
-                     False)
+def segment_ranks(keys: torch.Tensor, valid: torch.Tensor):
+    """Per row of (B, N) keys sorted along the row: each entry's rank among
+    the row's distinct valid keys (0-based; runs of one key share a rank)
+    and whether it starts its run."""
+    prev = torch.cat([torch.full_like(keys[:, :1], -1), keys[:, :-1]], dim=1)
+    first = (keys != prev) & valid
+    return torch.cumsum(first, dim=1, dtype=torch.int32) - 1, first
+
+
+def padded_width(n: torch.Tensor) -> int:
+    """The largest of the per-sample counts ``n`` (B,): the padded width of
+    a batched set, read from the card (the one wait of a build)."""
+    return int(n.max()) if n.numel() else 0
+
+
+def key_set(keys: torch.Tensor, mask: torch.Tensor,
+            shape: Tuple[int, int, int]):
+    """(coords, keys, mask) of a padded (B, V) key set: sentinel keys and
+    zero coords where ``mask`` is False."""
+    k = torch.where(mask, keys, shape[0] * shape[1] * shape[2])
     coords = torch.where(mask[..., None], key_to_coords(k, shape), 0)
-    return coords, k, mask
+    return coords, k.to(torch.int32), mask
 
 
 def voxelize_mean(points: torch.Tensor, valid: torch.Tensor,
@@ -75,25 +90,41 @@ def voxelize_mean(points: torch.Tensor, valid: torch.Tensor,
     """Mean voxelization of (B, P, C) padded clouds; valid (B, P) bool.
 
     Voxel features are the mean of the full point vectors (the reference's
-    ``scatter_mean`` over the 5-dim points), float32.
+    ``scatter_mean`` over the 5-dim points), float32.  One sort of each
+    cloud by key (a batched sort along the points), per-sample voxel ranks
+    by a prefix count, the capacity cut on those ranks, and float64 sums
+    scattered into (B, V) rows, with dump rows for cut and invalid points.
     """
     dev = points.device
-    pcr_min = torch.tensor(point_cloud_range[:3], dtype=torch.float32,
-                           device=dev)
-    vsize = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
+    B, P, C = points.shape
+    pcr_min = device_vector(point_cloud_range[:3], torch.float32, dev)
+    vsize = device_vector(voxel_size, torch.float32, dev)
     pts = points.float()
     coord = torch.floor((pts[..., :3] - pcr_min) / vsize).to(torch.int32)
-    hi = torch.tensor(shape, dtype=torch.int32, device=dev)
-    ok = valid & ((coord >= 0) & (coord < hi)).all(dim=-1)
-    key = coords_to_key(coord, shape, ok)
-    feats, keys = [], []
-    for b in range(points.shape[0]):
-        k, p = key[b][ok[b]], pts[b][ok[b]]
-        uniq, inv, cnt = torch.unique(k, sorted=True, return_inverse=True,
-                                      return_counts=True)
-        n = min(uniq.shape[0], capacity)
-        sums = torch.zeros(uniq.shape[0], p.shape[1], dtype=torch.float64,
-                           device=dev).index_add_(0, inv, p.double())
-        feats.append((sums[:n] / cnt[:n, None]).float())
-        keys.append(uniq[:n].to(torch.int32))
-    return SparseVoxels(pad_stack(feats, 0), *key_set(keys, shape))
+    ok = valid.clone()
+    for axis in range(3):
+        ok &= (coord[..., axis] >= 0) & (coord[..., axis] < shape[axis])
+    key, order = torch.sort(coords_to_key(coord, shape, ok), dim=1,
+                            stable=True)
+    ok = torch.gather(ok, 1, order)
+    vid, first = segment_ranks(key, ok)
+    n = torch.clamp(first.sum(dim=1), max=capacity)
+    V = padded_width(n)
+    # cut and invalid points go to P dump rows past the B*V voxel rows, one
+    # per position, so no single row takes the scattered writes of a batch
+    dump = B * V + torch.arange(P, device=dev)
+    row = torch.where(ok & (vid < capacity),
+                      torch.arange(B, device=dev)[:, None] * V + vid, dump)
+    row = row.reshape(-1)
+    pts = torch.gather(pts, 1, order[..., None].expand(B, P, C))
+    sums = torch.zeros(B * V + P, C, dtype=torch.float64, device=dev)
+    sums.index_add_(0, row, pts.reshape(-1, C).double())
+    cnt = torch.zeros(B * V + P, dtype=torch.float64, device=dev)
+    cnt.index_add_(0, row, torch.ones_like(row, dtype=torch.float64))
+    vkeys = torch.zeros(B * V + P, dtype=torch.int32, device=dev)
+    vkeys[torch.where(first, row.view(B, P), dump)] = key
+    mask = torch.arange(V, device=dev) < n[:, None]
+    feats = (sums[:B * V] / cnt[:B * V].clamp_min(1)[:, None]).float()
+    feats = torch.where(mask[..., None], feats.view(B, V, C), 0)
+    return SparseVoxels(feats, *key_set(vkeys[:B * V].view(B, V), mask,
+                                        shape))

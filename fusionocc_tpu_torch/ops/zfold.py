@@ -16,7 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from .sparse_conv import sparse_conv_apply
-from .voxelize import SparseVoxels, key_set, pad_stack
+from .voxelize import SparseVoxels, key_set, padded_width, segment_ranks
 
 
 class ZFoldVoxels(NamedTuple):
@@ -69,28 +69,35 @@ def zfold_regroup(sp: SparseVoxels, shape: Tuple[int, int, int],
     """Regroup sorted cell rows into sorted super rows with lane masks.
 
     Cell keys are z-fastest, so key // F is the super key and a super's
-    cells are consecutive rows.  A sample keeps its first ``capacity``
-    supers (the JAX package's cut).
+    cells are consecutive rows: a prefix count numbers each sample's supers,
+    and one row scatter over the batch places each cell in its super's lane
+    (cells cut or invalid go to dump rows).  A sample keeps its first
+    ``capacity`` supers (the JAX package's cut).
     """
-    C = sp.feats.shape[-1]
-    feats, lanes, keys = [], [], []
-    for b in range(sp.keys.shape[0]):
-        m = sp.mask[b]
-        k, f = sp.keys[b][m], sp.feats[b][m]
-        skeys, sid = torch.unique_consecutive(k // fold, return_inverse=True)
-        n = min(skeys.shape[0], capacity)
-        ok = sid < n
-        slot = (sid * fold + k % fold)[ok]
-        buf = f.new_zeros(n * fold, C)
-        buf[slot] = f[ok]
-        lane = torch.zeros(n * fold, dtype=torch.bool, device=k.device)
-        lane[slot] = True
-        feats.append(buf.reshape(n, fold * C))
-        lanes.append(lane.reshape(n, fold))
-        keys.append(skeys[:n].to(torch.int32))
-    coords, skeys, smask = key_set(keys, super_shape(shape, fold))
-    return ZFoldVoxels(pad_stack(feats, 0), coords, skeys, smask,
-                       pad_stack(lanes, False), fold)
+    B, V, C = sp.feats.shape
+    dev = sp.keys.device
+    sshape = super_shape(shape, fold)
+    skey = torch.where(sp.mask, sp.keys // fold, sshape[0] * sshape[1]
+                       * sshape[2])
+    sid, first = segment_ranks(skey, sp.mask)
+    n = torch.clamp(first.sum(dim=1), max=capacity)
+    S = padded_width(n)
+    ok = sp.mask & (sid < capacity)
+    row = torch.arange(B, device=dev)[:, None] * S + sid
+    dump = torch.arange(V, device=dev)
+    slot = torch.where(ok, row * fold + sp.keys % fold, B * S * fold + dump)
+    buf = sp.feats.new_zeros(B * S * fold + V, C)
+    buf[slot] = sp.feats
+    lane = torch.zeros(B * S * fold + V, dtype=torch.bool, device=dev)
+    lane[slot] = ok
+    keys = torch.zeros(B * S + V, dtype=torch.int32, device=dev)
+    keys[torch.where(first & ok, row, B * S + dump)] = skey
+    coords, skeys, smask = key_set(keys[:B * S].view(B, S),
+                                   torch.arange(S, device=dev) < n[:, None],
+                                   sshape)
+    return ZFoldVoxels(buf[:B * S * fold].view(B, S, fold * C), coords,
+                       skeys, smask, lane[:B * S * fold].view(B, S, fold),
+                       fold)
 
 
 def strided_lane_mask(lane_mask: torch.Tensor, out_smask: torch.Tensor,

@@ -29,6 +29,15 @@ has two bodies, chosen by dtype: bf16 runs on the tensor cores (Cin a
 multiple of 16 up to 64, Cout a multiple of 8 up to 64, f_out <= 8), fp32 on
 the CUDA cores (L_out <= 1024).  A bf16 input that the tensor-core body does
 not take raises.
+
+``zwin_conv_epi`` is the eval path with the BatchNorm fused in
+(``SparseEncoderConfig.zwin_fuse``), the port of JAX's
+``_epilogue_in_kernel`` reached through ``zwin_conv_infer``: the fp32 sums
+times ``inv``, plus ``shift`` (the (L_out,) affine of the BatchNorm tiled
+over the fold), ReLU, times the (B, S_out, f_out) cell lane mask, then one
+cast; zero at rows off ``mask_out``.  Both bodies apply it to their fp32
+accumulators before their single store (C entry ``zwin_conv_fwd_epi``),
+reading the compact lane mask, not JAX's (B, S_out, L_out) multiplier.
 """
 from __future__ import annotations
 
@@ -38,7 +47,7 @@ import torch
 
 from .kernels import KERNELS, stream_ptr
 from .sparse_conv import gather_rows
-from .zfold import expand_weight
+from .zfold import expand_lane_mask, expand_weight
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_L_OUT = 1024    # fp32 body: one thread per output lane
@@ -63,12 +72,12 @@ def z_bands(f_in: int, f_out: int, stride: int) -> List[Tuple[int, int]]:
     return bands
 
 
-def zwin_conv_plain(feats: torch.Tensor, mask_out: torch.Tensor,
-                    nbr_idx: torch.Tensor, weight: torch.Tensor,
-                    f_in: int, f_out: int, stride: int) -> torch.Tensor:
-    """``zband_conv_apply``: per super shift ds, gather the band lanes of
-    the 9 (dx, dy) taps and run one fp32 GEMM against the band of the lifted
-    weight."""
+def _zwin_sums(feats: torch.Tensor, nbr_idx: torch.Tensor,
+               weight: torch.Tensor, f_in: int, f_out: int,
+               stride: int) -> torch.Tensor:
+    """``zband_conv_apply``'s fp32 sums, unmasked: per super shift ds,
+    gather the band lanes of the 9 (dx, dy) taps and run one fp32 GEMM
+    against the band of the lifted weight."""
     B, _, L = feats.shape
     cin, cout = weight.shape[1], weight.shape[2]
     assert L == f_in * cin, (L, f_in, cin)
@@ -88,7 +97,32 @@ def zwin_conv_plain(feats: torch.Tensor, mask_out: torch.Tensor,
         wk = w_e[:, ds, zi_lo:zi_lo + nzi, :, zo_lo:zo_hi + 1].reshape(
             9 * nzi * cin, (zo_hi - zo_lo + 1) * cout)
         out[:, :, zo_lo * cout:(zo_hi + 1) * cout] += gat.float() @ wk
+    return out
+
+
+def zwin_conv_plain(feats: torch.Tensor, mask_out: torch.Tensor,
+                    nbr_idx: torch.Tensor, weight: torch.Tensor,
+                    f_in: int, f_out: int, stride: int) -> torch.Tensor:
+    """``zband_conv_apply``: the fp32 sums cast once, zero off
+    ``mask_out``."""
+    out = _zwin_sums(feats, nbr_idx, weight, f_in, f_out, stride)
     return torch.where(mask_out[..., None], out.to(feats.dtype), 0)
+
+
+def zwin_conv_epi_plain(feats: torch.Tensor, mask_out: torch.Tensor,
+                        nbr_idx: torch.Tensor, weight: torch.Tensor,
+                        f_in: int, f_out: int, stride: int,
+                        inv: torch.Tensor, shift: torch.Tensor,
+                        lane_mask: torch.Tensor) -> torch.Tensor:
+    """The conv with the fused eval epilogue, in the order of JAX's
+    ``_epilogue_in_kernel``: the fp32 sums (before any cast) times ``inv``
+    plus ``shift`` ((L_out,) fp32), ReLU, times the lane mask (B, S_out,
+    f_out), all in fp32, then one cast; zero off ``mask_out``."""
+    cout = weight.shape[2]
+    y = _zwin_sums(feats, nbr_idx, weight, f_in, f_out, stride)
+    y = torch.relu(y * inv.float() + shift.float())
+    y = y * expand_lane_mask(lane_mask, cout, torch.float32)
+    return torch.where(mask_out[..., None], y.to(feats.dtype), 0)
 
 
 def zwin_conv_cuda(feats: torch.Tensor, mask_out: torch.Tensor,
@@ -111,8 +145,33 @@ def zwin_conv_null_cuda(feats: torch.Tensor, mask_out: torch.Tensor,
                    f_out, stride)
 
 
+def zwin_conv_epi_cuda(feats: torch.Tensor, mask_out: torch.Tensor,
+                       nbr_idx: torch.Tensor, weight: torch.Tensor,
+                       f_in: int, f_out: int, stride: int,
+                       inv: torch.Tensor, shift: torch.Tensor,
+                       lane_mask: torch.Tensor) -> torch.Tensor:
+    """Launch ``zwin_conv_fwd_epi``: K3 with the BatchNorm affine, ReLU and
+    lane mask applied to its accumulators before the store."""
+    dev = feats.device
+    l_out = f_out * weight.shape[2]
+    if (tuple(inv.shape) != (l_out,) or tuple(shift.shape) != (l_out,)
+            or tuple(lane_mask.shape) != (*nbr_idx.shape[:2], f_out)):
+        raise ValueError(f'epilogue shapes: inv {tuple(inv.shape)}, shift '
+                         f'{tuple(shift.shape)}, lane_mask '
+                         f'{tuple(lane_mask.shape)}; L_out {l_out}, f_out '
+                         f'{f_out}')
+    if lane_mask.dtype != torch.bool or lane_mask.device != dev:
+        raise ValueError(f'lane_mask must be bool on {dev}')
+    epi = (inv.to(dev, torch.float32).contiguous(),
+           shift.to(dev, torch.float32).contiguous(), lane_mask.contiguous())
+    return _launch('zwin_conv_fwd_epi', feats, mask_out, nbr_idx, weight,
+                   f_in, f_out, stride, epi)
+
+
 def _launch(entry: str, feats, mask_out, nbr_idx, weight, f_in: int,
-            f_out: int, stride: int) -> torch.Tensor:
+            f_out: int, stride: int, epi=()) -> torch.Tensor:
+    """Check the operands and launch C entry ``entry``; ``epi`` is the
+    fused epilogue's (inv, shift, lane_mask), passed after the weight."""
     dev = feats.device
     if dev.type != 'cuda':
         raise ValueError(f'zwin_conv_cuda needs CUDA tensors, got {dev}')
@@ -155,7 +214,8 @@ def _launch(entry: str, feats, mask_out, nbr_idx, weight, f_in: int,
     with torch.cuda.device(dev):
         KERNELS.launch(
             entry, feats.data_ptr(), nbr_idx.data_ptr(),
-            mask_out.data_ptr(), weight.data_ptr(), out.data_ptr(), B, s_in,
+            mask_out.data_ptr(), weight.data_ptr(),
+            *(t.data_ptr() for t in epi), out.data_ptr(), B, s_in,
             s_out, cin, cout, stride, l_in, l_out, *bands,
             _DTYPE_CODE[feats.dtype],
             stream_ptr(dev))
@@ -168,3 +228,16 @@ def zwin_conv(feats: torch.Tensor, mask_out: torch.Tensor,
     """Plain version for CPU tensors, the CUDA kernel otherwise."""
     fn = zwin_conv_plain if feats.device.type == 'cpu' else zwin_conv_cuda
     return fn(feats, mask_out, nbr_idx, weight, f_in, f_out, stride)
+
+
+def zwin_conv_epi(feats: torch.Tensor, mask_out: torch.Tensor,
+                  nbr_idx: torch.Tensor, weight: torch.Tensor,
+                  f_in: int, f_out: int, stride: int, inv: torch.Tensor,
+                  shift: torch.Tensor, lane_mask: torch.Tensor
+                  ) -> torch.Tensor:
+    """The fused conv: plain version for CPU tensors, the CUDA kernel
+    otherwise; never the unfused chain."""
+    fn = (zwin_conv_epi_plain if feats.device.type == 'cpu'
+          else zwin_conv_epi_cuda)
+    return fn(feats, mask_out, nbr_idx, weight, f_in, f_out, stride, inv,
+              shift, lane_mask)

@@ -77,12 +77,18 @@ def test_unported_lidar_paths_are_refused(field, value):
 
 @pytest.mark.parametrize('overrides', [
     {}, dict(zconv='zband'), dict(dense_from=4), dict(dense_mode='xla3d'),
-    dict(zwin_fuse=True, zwin_merged=True, zwin_block=16)])
+    dict(zwin_fuse=True), dict(zwin_merged=True, zwin_block=16)])
 def test_default_lidar_config_is_supported(overrides):
+    """Supported settings; ``zwin_fuse`` is honoured (every sparse conv of
+    the encoder runs fused or none does), the tiling knobs are ignored."""
+    from fusionocc_tpu_torch.models.lidar_encoder import SparseEncoder
     lidar = dataclasses.replace(tcfg.SparseEncoderConfig(), **overrides)
     cfg = tcfg.full_model_config(lidar=lidar)
     assert cfg.use_lidar
     tcfg.check_supported(cfg)
+    enc = SparseEncoder(lidar, cfg.grid, device='meta')
+    fuse = {c.fuse for c in enc.modules() if hasattr(c, 'fuse')}
+    assert fuse == {overrides.get('zwin_fuse', False)}
 
 
 def test_entry_points_default_to_the_card():

@@ -357,4 +357,5 @@ def test_build_without_nvcc_raises_naming_the_command(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match='nvcc .*sm_90a'):
         lib.build()
     assert lib.launches == {'bev_pool_fwd': 0, 'window_attn_fwd': 0,
-                            'zwin_conv_fwd': 0, 'zwin_conv_null': 0}
+                            'zwin_conv_fwd': 0, 'zwin_conv_null': 0,
+                            'zwin_conv_fwd_epi': 0}

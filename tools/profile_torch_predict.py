@@ -3,6 +3,7 @@
 spends its time on the GPU.
 
     python3 tools/profile_torch_predict.py [--iters 3] [--top 25] [--streaming]
+        [--zwin-fuse]
 
 Builds the model as ``chip_smoke.py`` does (bf16, seeded random weights,
 synthetic batch, cached pooling indices), warms up, then over ``--iters``
@@ -19,7 +20,10 @@ the motion):
 - the LiDAR encoder's steps the same way: its functions (voxelization,
   regroup, index builds, the zwin convs, the dense tail) wrapped in CUDA
   events for the run, and its masked BatchNorms hooked; with
-  ``--streaming`` also the cache warp (``_shift_bev``);
+  ``--streaming`` also the cache warp (``_shift_bev``); with
+  ``--zwin-fuse`` the encoder runs K3 with its fused epilogue
+  (``zwin_conv_epi``: the sparse stages' BatchNorms and ReLUs are in it,
+  so only the dense tail's two BatchNorms are hooked);
 - then, over as many steps under ``torch.profiler``, the kernels with the
   most device time and the summed kernel time per step;
 - the device idle share: 1 - kernel time / unprofiled wall time.
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import subprocess
 import sys
 import time
@@ -57,7 +62,8 @@ MODULES = ('img_backbone', 'img_neck', 'img_view_transformer',
 # functions the LiDAR encoder calls, by their names in its module
 ENCODER_STEPS = ('voxelize_mean', 'sparse_conv1x1_apply', 'zfold_regroup',
                  'stage_indices_table', 'strided_lane_mask', 'zwin_conv',
-                 'dense_from_zfold', 'strided_out_mask', 'dense_conv3d')
+                 'zwin_conv_epi', 'dense_from_zfold', 'strided_out_mask',
+                 'dense_conv3d')
 
 
 def _record(events, name):
@@ -118,6 +124,9 @@ def main() -> None:
     ap.add_argument('--top', type=int, default=25)
     ap.add_argument('--streaming', action='store_true',
                     help='profile predict_streaming frames, not predict')
+    ap.add_argument('--zwin-fuse', action='store_true',
+                    help="the LiDAR encoder with K3's fused epilogue "
+                    '(zwin_fuse=True)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('profile_torch_predict: needs a CUDA GPU')
@@ -130,6 +139,10 @@ def main() -> None:
     print(f'card: {card}')
 
     cfg = full_model_config()
+    if args.zwin_fuse:
+        cfg = dataclasses.replace(cfg, lidar=dataclasses.replace(
+            cfg.lidar, zwin_fuse=True))
+    print(f'zwin_fuse={cfg.lidar.zwin_fuse}')
     model = init_weights(FusionOcc(cfg, device=dev),
                          torch.Generator().manual_seed(0))
     batch = synthetic_batch(cfg, 1, 0, device=dev)
