@@ -76,17 +76,36 @@ Phases, each printing its own lines; any failure exits non-zero:
    once with every launch held against its plain version, once timed, and
    its agreement with the unfused path on the same weights.
 
+7. training: (a) each kernel's autograd ``Function`` at the main-path
+   shapes (K2 at the 8 stage/shift shapes, bf16; K1 on the full-size
+   index, bf16 and fp32 out; K3 at the encoder's 9 launches, bf16): its
+   gradients against autograd through the plain version, and its
+   backward's ms; (b) one midsize multi-modal fp32 ``train_step`` on the
+   card and on the CPU from the same weights, the random parts off: the
+   loss and its terms, ``grad_norm``, every gradient (within 3x the CPU's
+   own change when the images move by 1e-6, plus 1e-3 of its norm), the
+   running statistics and the updated parameters; (c) the default
+   full-size config in bf16 with fp32 parameters: 2 warm-up and 5 timed
+   ``train_step``s on the batches of seeds 0-2, each step's launches gated
+   against the counts from the code, its losses and ``grad_norm`` finite;
+   s/iter (CUDA events and wall), the forward / backward / optimizer
+   split, the peak memory above what was held before, and the device idle
+   share and kernel table of one profiled step.
+
 A kernel's bound is the least time the card could take for the same work:
 the larger of its operations over the peak rate of their type and its bytes
 (each input read once, each output written once) over the memory rate,
 from NVIDIA's H100 SXM data sheet.
 
-The last two lines are the kernels' JSON summary and the result JSON.
+The last two lines are the kernels' JSON summary (with each kernel's
+launches per full-size train step and its backward's ms) and the result
+JSON.
 Needs a CUDA GPU; on a machine without one it exits 1 before doing anything.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -219,7 +238,7 @@ def phase_device() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ''
-    print('[1/6] device: nvidia-smi name, power.limit:')
+    print('[1/7] device: nvidia-smi name, power.limit:')
     print(card)
     from fusionocc_tpu_torch.ops.kernels import find_nvcc
     nvcc = subprocess.run([find_nvcc(), '--version'], capture_output=True,
@@ -263,7 +282,7 @@ def phase_build() -> None:
     took = time.perf_counter() - t0
     how = ('compiled' if KERNELS.build_seconds is not None
            else 'found built')
-    print(f'[2/6] build: {how} {path.name} in {took:.1f} s')
+    print(f'[2/7] build: {how} {path.name} in {took:.1f} s')
     for line in KERNELS.build_log.splitlines():
         if 'Used' in line or 'Compiling entry' in line or 'spill' in line:
             print('  ptxas' + line.split('ptxas', 1)[-1])
@@ -685,7 +704,7 @@ def check_edge_shapes(g) -> None:
 
 @torch.inference_mode()
 def phase_kernels(cfg, batch0) -> dict:
-    print('[3/6] kernels vs plain versions at main-path shapes')
+    print('[3/7] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
     measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
                 'zwin_conv_fwd_epi': check_zwin_fused(cfg, batch0),
@@ -703,7 +722,7 @@ def phase_reference() -> None:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
     from fusionocc_tpu_torch.ops.kernels import KERNELS
-    print('[4/6] reference: midsize multi-modal fp32, card vs CPU plain '
+    print('[4/7] reference: midsize multi-modal fp32, card vs CPU plain '
           'versions')
     cfg = midsize_model_config(use_lidar=True)
     g = torch.Generator().manual_seed(7)
@@ -1045,7 +1064,7 @@ def phase_slice(batches) -> dict:
     kernel's launches on the path that runs it."""
     from fusionocc_tpu_torch.config import (full_model_config,
                                             image_only_model_config)
-    print('[5/6] slice: full-size predict, bf16')
+    print('[5/7] slice: full-size predict, bf16')
     paths = []
     for label, cfg in (('image-only', image_only_model_config()),
                        ('default multi-modal', full_model_config()),
@@ -1427,7 +1446,7 @@ def phase_streaming(batches) -> None:
     from fusionocc_tpu_torch.config import full_model_config
     from fusionocc_tpu_torch.models.fusion_occ import map_batch, stack_batches
     from tools.eval_torch_streaming_delta import clip_frames
-    print('[6/6] streaming: full-size default config, a clip of '
+    print('[6/7] streaming: full-size default config, a clip of '
           f'{CLIP_FRAMES} frames, a reset at frame {CLIP_RESET}')
     t0 = time.perf_counter()
     clip = stack_batches(clip_frames(full_model_config(), 0, CLIP_FRAMES,
@@ -1441,6 +1460,360 @@ def phase_streaming(batches) -> None:
         cfg = full_model_config(compute_dtype=dtype)
         streaming_modes(cfg, clip, frames, batches, timed)
     fused_streaming(full_model_config(), frames)
+
+
+# phase 7: training
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5        # full-size train steps
+GRAD_TOL = dict(atol=1e-3, rtol=1e-3)   # fp32 gradient sums in another order
+TRAIN_NOISE = 1e-6      # relative image perturbation that measures the spread
+TRAIN_SPREAD, TRAIN_RTOL = 3.0, 1e-3    # card vs CPU, per gradient tensor
+SIGN_MIN = 1e-4         # |g| above which Adam's first update is sign(g)
+TRAIN_LR = 3e-3         # card vs CPU: updates well above rounding
+
+
+def train_launches(cfg) -> dict:
+    """Main-path launches of one ``train_step``, from the code: a window
+    attention per Swin block and frame (the adjacent frames' under
+    ``no_grad``), and per block again in the backward's recompute with
+    ``with_cp``; a pooling per frame; a zwin launch per sparse-stage conv,
+    unfused (training never fuses)."""
+    lc = cfg.lidar
+    sparse = lc.encoder_channels[:min(lc.dense_from,
+                                      len(lc.encoder_channels) - 1)]
+    return {'window_attn_fwd': sum(cfg.swin.depths)
+            * (cfg.num_frame + int(cfg.swin.with_cp)),
+            'bev_pool_fwd': cfg.num_frame,
+            'zwin_conv_fwd': sum(map(len, sparse)) * cfg.use_lidar,
+            'zwin_conv_fwd_epi': 0}
+
+
+def function_grads(fn, inputs, cot):
+    """Gradients of fn(*inputs) for the cotangent cot, each input a fresh
+    leaf."""
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    fn(*leaves).backward(cot)
+    return [x.grad for x in leaves]
+
+
+def held(name, got, want, tols):
+    """check_close for each gradient, its tolerance by input name."""
+    for (label, tol), g, w in zip(tols.items(), got, want):
+        check_close(f'{name} d{label}', g, w, **tol)
+
+
+def window_attn_grads(cfg, g) -> float:
+    """K2's Function at the 8 stage/shift shapes, bf16 inputs: its
+    gradients against autograd through the plain version; its backward
+    timed."""
+    from fusionocc_tpu_torch.ops import window_attn as wa
+    w = cfg.swin.window_size
+    n = w * w
+    total = 0.0
+    for nWh, nWw, c, heads in stage_shapes(cfg):
+        bn = cfg.num_cams * nWh * nWw
+        qkv = torch.randn(bn, n, 3 * c, device=DEV, generator=g
+                          ).to(torch.bfloat16)
+        bias = torch.randn(heads, n, n, device=DEV, generator=g)
+        cot = torch.randn(bn, n, c, device=DEV, generator=g
+                          ).to(torch.bfloat16)
+        for shift in (0, w // 2):
+            geom = (nWh, nWw, w, shift, heads)
+
+            def split(fn):
+                return lambda x, b: fn(x[..., :c], x[..., c:2 * c],
+                                       x[..., 2 * c:], b, *geom)
+            got = function_grads(split(wa.window_attention), (qkv, bias), cot)
+            want = function_grads(split(wa.window_attention_plain),
+                                  (qkv, bias), cot)
+            held(f'window_attn backward Bn={bn} C={c} shift={shift}', got,
+                 want, {'qkv': WA_TOL, 'bias': GRAD_TOL})
+            args = (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], bias,
+                    *geom, cot)
+            t = cuda_ms(lambda: wa.window_attention_bwd(*args), reps=3)
+            total += t
+            print(f'    backward {t:.4f} ms', flush=True)
+    print(f'  window_attn backward summed over the 8 shapes: {total:.4f} ms',
+          flush=True)
+    return total
+
+
+def bev_pool_grads(cfg, batch0, g) -> float:
+    """K1's Function on the full-size index, bf16 and fp32 out: its
+    gradients against autograd through the plain version (and the cast);
+    its backward timed (bf16, the main path's)."""
+    from fusionocc_tpu_torch.models.fusion_occ import frame_pooling_index
+    from fusionocc_tpu_torch.ops import bev_pool as bp
+    idx = frame_pooling_index(cfg, batch0.sensor2keyego[:, 0],
+                              batch0.intrins[:, 0], batch0.post_rots[:, 0],
+                              batch0.post_trans[:, 0], batch0.bda)
+    N, D, (h, wf) = cfg.num_cams, cfg.grid.num_depth_bins, cfg.feat_size
+    C = cfg.vt.feature_channels
+    gx, gy, gz = cfg.grid.grid_size
+    nvox = gz * gy * gx
+    depth = torch.softmax(torch.randn(N, D, h, wf, device=DEV, generator=g),
+                          dim=1).reshape(-1)
+    feat = torch.randn(N * h * wf, C, device=DEV, generator=g)
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        f_in = feat.to(dtype)
+        cot = torch.randn(nvox, C, device=DEV, generator=g).to(dtype)
+        got = function_grads(
+            lambda d, f: bp.bev_pool_flat(d, f, idx, nvox, dtype),
+            (depth, f_in), cot)
+        want = function_grads(
+            lambda d, f: bp.bev_pool_plain(d, f, idx, nvox).to(dtype),
+            (depth, f_in), cot)
+        held(f'bev_pool backward {dtype} feat and out', got, want,
+             {'depth': POOL_TOL,
+              'feat': POOL_BF16_TOL if dtype == torch.bfloat16
+              else POOL_TOL})
+        times[dtype] = cuda_ms(lambda: bp.bev_pool_bwd(depth, f_in, idx, cot),
+                               reps=3)
+    print(f'  bev_pool backward per launch: bf16 '
+          f'{times[torch.bfloat16]:.4f} ms, fp32 {times[torch.float32]:.4f}'
+          ' ms', flush=True)
+    return times[torch.bfloat16]
+
+
+def zwin_grads(cfg, batch0, g) -> float:
+    """K3's Function at the full-size encoder's 9 launches, bf16: its
+    gradients against autograd through the plain version; its backward
+    timed."""
+    from fusionocc_tpu_torch.ops import zwin_conv as zw
+    from tools import profile_torch_zwin_micro as micro
+    total = 0.0
+    for k, (feats, mask_out, nbr, weight, f_in, f_out, stride) in enumerate(
+            micro.record_zwin_launches(cfg, batch0, DEV)):
+        feats, mask_out, nbr = feats.clone(), mask_out.clone(), nbr.clone()
+        weight = weight.clone()
+        geom = (f_in, f_out, stride)
+        cot = torch.randn(*nbr.shape[:2], f_out * weight.shape[2],
+                          device=DEV, generator=g).to(feats.dtype)
+        got = function_grads(
+            lambda f, w: zw.zwin_conv(f, mask_out, nbr, w, *geom),
+            (feats, weight), cot)
+        want = function_grads(
+            lambda f, w: zw.zwin_conv_plain(f, mask_out, nbr, w, *geom),
+            (feats, weight), cot)
+        held(f'zwin backward launch {k} stride {stride} rows '
+             f'{feats.shape[1]}->{nbr.shape[1]}', got, want,
+             {'feats': ZWIN_TOL, 'weight': ZWIN_TOL})
+        t = cuda_ms(lambda: zw.zwin_conv_bwd(feats, mask_out, nbr, weight,
+                                             *geom, cot), reps=3)
+        total += t
+        print(f'    backward {t:.4f} ms', flush=True)
+    print(f'  zwin backward summed over the 9 launches: {total:.4f} ms',
+          flush=True)
+    return total
+
+
+def train_functions(cfg, batch0) -> dict:
+    """(a) each kernel Function's gradients on the card at main-path
+    shapes; backward ms by kernel."""
+    g = torch.Generator(device=DEV).manual_seed(4321)
+    return {'window_attn_fwd': window_attn_grads(cfg, g),
+            'bev_pool_fwd': bev_pool_grads(cfg, batch0, g),
+            'zwin_conv_fwd': zwin_grads(cfg, batch0, g)}
+
+
+def no_dropout(x, rate):
+    return x
+
+
+def train_reference() -> None:
+    """(b) One midsize multi-modal fp32 train_step on the card and on the
+    CPU from the same weights, the random parts off (the two devices' draws
+    differ): the loss and its terms, grad_norm, every gradient, the running
+    statistics and the updated parameters.  A gradient tensor may differ by
+    TRAIN_SPREAD times the CPU's own change when the images move by
+    TRAIN_NOISE, plus TRAIN_RTOL of its norm (in training a ReLU of the
+    camera branch sits at its kink: tests/test_torch_train_step.py)."""
+    import copy
+    import dataclasses
+    from fusionocc_tpu_torch.config import (OptimConfig, TrainConfig,
+                                            midsize_model_config)
+    from fusionocc_tpu_torch.data.synthetic import synthetic_batch
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
+    from fusionocc_tpu_torch.nn import layers
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    from fusionocc_tpu_torch.train import loop
+    cfg = midsize_model_config(use_lidar=True)
+    cfg = dataclasses.replace(cfg, vt=dataclasses.replace(
+        cfg.vt, depth_drop_rate=0.0))
+    tc = TrainConfig(model=cfg, optim=OptimConfig(lr=TRAIN_LR))
+    g = torch.Generator().manual_seed(7)
+    model = init_weights(FusionOcc(cfg, device='cpu'), g)
+    bn_away_from_identity(model.lidar_encoder, g)
+    batch = synthetic_batch(cfg, 1, 0, device='cpu')
+    real_dropout, layers.dropout = layers.dropout, no_dropout
+    try:
+        t0 = time.perf_counter()
+        twin = copy.deepcopy(model)
+        noise = torch.randn(batch.imgs.shape, generator=g)
+        loop.compute_loss(twin, tc, batch._replace(
+            imgs=batch.imgs * (1 + TRAIN_NOISE * noise)), None)[0].backward()
+        cpu = copy.deepcopy(model)
+        cpu_state = loop.create_train_state(cpu, tc)
+        cpu_logs = loop.train_step(cpu, tc, cpu_state, batch)
+        print(f'  CPU: two midsize forwards and backwards in '
+              f'{time.perf_counter() - t0:.1f} s', flush=True)
+        card = copy.deepcopy(model).to(DEV)
+        state = loop.create_train_state(card, tc)
+        KERNELS.reset_counts()
+        logs = loop.train_step(card, tc, state,
+                               synthetic_batch(cfg, 1, 0, device=DEV))
+        torch.cuda.synchronize()
+    finally:
+        layers.dropout = real_dropout
+    print(f'  launches on the card: {dict(KERNELS.launches)}', flush=True)
+    if min(KERNELS.launches[k] for k in MAIN_KERNELS[:3]) == 0:
+        fail('a kernel was not launched by the midsize train step')
+    for key in ('loss', 'depth_loss', 'seg_loss', 'loss_occ'):
+        check_close(f'midsize train {key}', logs[key].cpu(), cpu_logs[key],
+                    atol=0.0, rtol=1e-4)
+    names = [n for n, _ in model.named_parameters()]
+    grads = {n: p.grad.cpu() for n, p in card.named_parameters()}
+    want = {n: p.grad for n, p in cpu.named_parameters()}
+    spread = {n: (p.grad - want[n]).norm() for n, p in twin.named_parameters()}
+    worst, tight = 0.0, 0
+    for n in names:
+        err, ref = (grads[n] - want[n]).norm(), want[n].norm()
+        bound = TRAIN_SPREAD * spread[n] + TRAIN_RTOL * ref
+        worst = max(worst, float(err / ref.clamp_min(1e-30)))
+        tight += bool(spread[n] <= TRAIN_RTOL * ref)
+        if err > bound:
+            fail(f'midsize train gradient {n}: card vs CPU {float(err):.3e} '
+                 f'beyond {float(bound):.3e}')
+    total_spread = float(loop.global_norm(list(spread.values())))
+    gn, gn_cpu = float(logs['grad_norm']), float(cpu_logs['grad_norm'])
+    if abs(gn - gn_cpu) > TRAIN_SPREAD * total_spread + TRAIN_RTOL * gn_cpu:
+        fail(f'midsize grad_norm {gn} on the card, {gn_cpu} on the CPU')
+    rel = sorted(float(spread[n] / want[n].norm().clamp_min(1e-30))
+                 for n in names)
+    print(f'  midsize gradients, card vs CPU: {len(names)} tensors, largest '
+          f'relative L2 difference {worst:.3e}; {tight} tensors held to '
+          f'{TRAIN_RTOL:g} alone, the rest to {TRAIN_SPREAD:g}x the CPU\'s '
+          f'change under a {TRAIN_NOISE:g} image perturbation (relative, '
+          f'median {rel[len(rel) // 2]:.3e}, largest {rel[-1]:.3e}); '
+          f'grad_norm {gn:.6f} / {gn_cpu:.6f}', flush=True)
+    sd, sd_cpu = card.state_dict(), cpu.state_dict()
+    stats = [k for k in sd if k.endswith(('running_mean', 'running_var'))]
+    for k in stats:
+        ok, err, _ = within(sd[k].cpu(), sd_cpu[k], **REF_TOL)
+        if not ok:
+            fail(f'midsize running statistics {k} differ by {err:.3e}')
+    lr0 = TRAIN_LR * tc.optim.warmup_start_factor
+    n_held = n_all = 0
+    for n in names:
+        got, ref = sd[n].cpu(), sd_cpu[n]
+        same = ((torch.sign(grads[n]) == torch.sign(want[n]))
+                & (want[n].abs() > SIGN_MIN) & (grads[n].abs() > SIGN_MIN))
+        close = (got - ref).abs() <= 1e-6 + 1e-5 * ref.abs()
+        n_held, n_all = n_held + int(same.sum()), n_all + same.numel()
+        if not bool((close | ~same).all()) or float(
+                (got - ref).abs().max()) > 2.1 * lr0:
+            fail(f'midsize updated parameter {n} differs')
+    print(f'  midsize running statistics ({len(stats)} tensors) within '
+          f'{REF_TOL}; updated parameters: within 2.1 lr everywhere, within '
+          f'1e-6 + 1e-5|p| at the {n_held} of {n_all} entries whose two '
+          'gradients agree in sign above 1e-4', flush=True)
+
+
+def train_fullsize(batches) -> dict:
+    """(c) The default full-size config in bf16, fp32 parameters:
+    TRAIN_WARMUP + TRAIN_TIMED train_steps on the synthetic batches of
+    seeds 0-2 in turn, each with its launches counted and gated; s/iter,
+    the forward / backward / optimizer split, peak memory above what was
+    held before, the losses and grad_norm per step (finite), and the device
+    idle share of one profiled step.  Returns the launches per step."""
+    from fusionocc_tpu_torch.config import TrainConfig, full_model_config
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    from fusionocc_tpu_torch.train import loop
+    cfg = full_model_config()
+    tc = TrainConfig(model=cfg)
+    t0 = time.perf_counter()
+    model = init_weights(FusionOcc(cfg, device=DEV),
+                         torch.Generator().manual_seed(0))
+    state = loop.create_train_state(model, tc)
+    expect = train_launches(cfg)
+    print(f'  full-size model and train state ready in '
+          f'{time.perf_counter() - t0:.1f} s '
+          f'({sum(p.numel() for p in model.parameters())} parameters); '
+          f'launches per step from the code: {expect}', flush=True)
+    base = reset_peak()
+    rows = []
+    for i in range(TRAIN_WARMUP + TRAIN_TIMED):
+        events = {'start': torch.cuda.Event(enable_timing=True)}
+
+        def mark(part):
+            events[part] = torch.cuda.Event(enable_timing=True)
+            events[part].record()
+        torch.cuda.synchronize()
+        KERNELS.reset_counts()
+        t = time.perf_counter()
+        events['start'].record()
+        logs = loop.train_step(model, tc, state, batches[i % len(batches)],
+                               mark)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+        got = {k: KERNELS.launches[k] for k in MAIN_KERNELS}
+        if got != expect:
+            fail(f'train step {i}: launches {got}, expected {expect}')
+        vals = {k: float(v) for k, v in logs.items()}
+        if not all(map(math.isfinite, vals.values())):
+            fail(f'train step {i}: a loss or grad_norm is not finite: {vals}')
+        ms = {p: events[a].elapsed_time(events[p]) for a, p in
+              (('start', 'forward'), ('forward', 'backward'),
+               ('backward', 'optimizer'))}
+        ms['step'] = events['start'].elapsed_time(events['optimizer'])
+        ms['wall'] = wall
+        print(f'  train step {i} ({"warm-up" if i < TRAIN_WARMUP else "timed"}'
+              f', seed {SLICE_SEEDS[i % len(batches)]}): '
+              + ' '.join(f'{k} {v:.4f}' for k, v in vals.items())
+              + '; ms: ' + ', '.join(f'{k} {v:.1f}' for k, v in ms.items()),
+              flush=True)
+        if i >= TRAIN_WARMUP:
+            rows.append(ms)
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    print(f'  full-size train step, median of {TRAIN_TIMED}: s/iter '
+          f'{med["step"] / 1e3:.4f} (CUDA events), {med["wall"] / 1e3:.4f} '
+          f'(wall); forward {med["forward"]:.1f} ms, backward '
+          f'{med["backward"]:.1f} ms, optimizer {med["optimizer"]:.1f} ms; '
+          f'{peak_above(base)}; launches per step {expect}', flush=True)
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=act) as prof:
+        t = time.perf_counter()
+        loop.train_step(model, tc, state, batches[0])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kernel_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    print(f'  one profiled step: kernel time {kernel_ms:.1f} ms; device '
+          f'idle share {1 - kernel_ms / med["wall"]:.3f} against the median '
+          f'unprofiled wall time, {1 - kernel_ms / wall:.3f} against the '
+          f'profiled step\'s own wall time ({wall:.1f} ms, the profiler\'s '
+          'host overhead included); its kernels by device time:', flush=True)
+    print(prof.key_averages().table(sort_by='self_device_time_total',
+                                    row_limit=12, max_name_column_width=50),
+          flush=True)
+    del model, state
+    torch.cuda.empty_cache()
+    return expect
+
+
+def phase_training(batches) -> tuple:
+    """Phase 7: (a) the kernel Functions' gradients, (b) the midsize
+    train step card vs CPU, (c) the full-size train steps.  Returns (the
+    launches per full-size step, backward ms by kernel)."""
+    from fusionocc_tpu_torch.config import full_model_config
+    print('[7/7] training: kernel Functions, midsize card vs CPU, '
+          'full-size train steps (bf16)')
+    bwd_ms = train_functions(full_model_config(), batches[0])
+    torch.cuda.empty_cache()
+    train_reference()
+    return train_fullsize(batches), bwd_ms
 
 
 def main() -> None:
@@ -1457,6 +1830,7 @@ def main() -> None:
     phase_reference()
     launches = phase_slice(batches)
     phase_streaming(batches)
+    train, bwd_ms = phase_training(batches)
     sources = {
         'window_attn_fwd': ('fusionocc_tpu_torch/csrc/window_attn.cu',
                             'fusionocc_tpu/ops/pallas/window_attn.py:79'),
@@ -1474,7 +1848,9 @@ def main() -> None:
         kernels.append({'name': name, 'route': 'cuda',
                         'source': sources[name][0],
                         'replaces': sources[name][1],
-                        'launches': launches[name], **m})
+                        'launches': launches[name], **m,
+                        'train_launches': train[name],
+                        'backward_ms': bwd_ms.get(name)})
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -6,10 +6,12 @@ here equals the reference package's field by field.  Derived sizes are
 properties; ``GridConfig.lower_bound`` / ``interval`` return plain tuples and
 ``ModelConfig.dtype`` a ``torch.dtype``.
 
-Fields that only the JAX package acts on (the TPU tiling knobs, remat and
-fusion switches) are kept so that configurations compare equal.
-``check_supported`` rejects the values that would select a path the port
-does not have.
+Fields that only the JAX package acts on (the TPU tiling knobs and
+formulation switches) are kept so that configurations compare equal.
+``OptimConfig``, ``EvalConfig`` and ``TrainConfig`` mirror the training
+configuration the same way.  ``check_supported`` and
+``check_train_supported`` reject the values that would select a path the
+port does not have.
 """
 from __future__ import annotations
 
@@ -69,7 +71,11 @@ class SwinConfig:
     The port runs every stage through the window-attention op
     (``ops/window_attn.py``) whatever ``fused_attn`` says: the JAX package's
     unfused path differs from it only in storing scores in the compute dtype.
-    ``with_cp`` and ``drop_path_rate`` act in training only.
+    ``drop_path_rate`` and ``with_cp`` act in training only: each block
+    draws its stochastic-depth masks from ``linspace(0, drop_path_rate,
+    24)`` (JAX's rates), and ``with_cp`` runs each block under
+    ``torch.utils.checkpoint`` with those masks drawn before it, so the
+    recompute sees the same masks.
     """
     embed_dims: int = 128
     depths: Tuple[int, ...] = (2, 2, 18, 2)
@@ -111,7 +117,11 @@ class SparseEncoderConfig:
     ``zwin_bad_frac``, ``zwin_merged``, ``tap_chunk`` and ``col_chunk``
     change nothing in the result and are ignored, as are the other
     backends' fields (``gather``, ``index``, ``tile_*``,
-    ``voxel_capacity[1:]``) and the training switch ``remat_conv``.
+    ``voxel_capacity[1:]``).  The training switch ``remat_conv`` is taken
+    and changes nothing: in JAX it checkpoints each conv so that its
+    backward recomputes the gather, and in the port every conv it covers
+    (the zwin ``Function``, the dense tail's cuDNN conv) already saves its
+    inputs only and recomputes the rest in its backward.
     """
     in_channels: int = 5
     base_channels: int = 16
@@ -167,7 +177,8 @@ class ViewTransformerConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Full FusionOcc model."""
+    """Full FusionOcc model.  ``remat_bev`` checkpoints the BEV trunk
+    (backbone and neck) in training, as JAX's ``nn.remat`` does."""
     num_cams: int = 6
     num_adj: int = 1
     input_size: Tuple[int, int] = (512, 1408)
@@ -221,6 +232,41 @@ class ModelConfig:
         return getattr(torch, self.compute_dtype)
 
 
+@dataclass(frozen=True)
+class OptimConfig:
+    """AdamW with warmup and cosine decay, clipping, EMA and accumulation
+    (``train/loop.py``).  The same fields and defaults as JAX's."""
+    lr: float = 5e-5
+    weight_decay: float = 1e-2
+    clip_norm: float = 5.0
+    warmup_iters: int = 500
+    warmup_start_factor: float = 1.0 / 3.0
+    max_epochs: int = 24
+    iters_per_epoch: int = 28130
+    eta_min_factor: float = 1e-3
+    ema_momentum: float = 0.001
+    accumulate_steps: int = 1
+    backbone_lr_mult: float = 1.0
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """The evaluation protocol: ``metric`` 'miou' (masked Occ3D mIoU, ported)
+    or 'rayiou'; ``use_image_mask``; ``split`` of the infos file."""
+    metric: str = 'miou'
+    use_image_mask: bool = True
+    split: str = 'val'
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+    batch_size: int = 1
+    seed: int = 0
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a configuration that selects a path the
     port does not have yet, naming the ROADMAP item that brings it."""
@@ -250,6 +296,16 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f'param_dtype={cfg.param_dtype!r}: the port keeps parameters in '
             'float32, as the JAX package does')
+
+
+def check_train_supported(cfg: TrainConfig) -> None:
+    """``check_supported`` on the model, and refuse what training with the
+    port cannot do yet, naming the ROADMAP item that brings it."""
+    check_supported(cfg.model)
+    if cfg.eval.metric != 'miou':
+        raise NotImplementedError(
+            f'eval.metric={cfg.eval.metric!r}: RayIoU is not ported yet '
+            '(ROADMAP Queue A item 10)')
 
 
 def tiny_model_config(**overrides) -> ModelConfig:

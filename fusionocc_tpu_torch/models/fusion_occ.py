@@ -1,7 +1,16 @@
-"""FusionOcc inference, reference module names.
+"""FusionOcc, reference module names.
 
 Port of ``FusionOcc.__call__`` / ``predict`` and the streaming entry points
 of ``fusionocc_tpu/models/fusion_occ.py``.
+
+The model is built in eval mode, and every ``predict*`` runs with eval
+semantics whatever mode it is in (JAX passes ``train=False``); only the
+trainer (``train/loop.py``) calls ``train()``.  In training, ``forward``
+runs the frames one by one, the adjacent frames under ``torch.no_grad``
+(JAX's ``stop_gradient``: their BatchNorms still take batch statistics and
+update, frame F-1 first and the key frame last), and with ``remat_bev`` the
+BEV trunk under ``nn.layers.checkpoint``; its random draws come from the
+caller's ``nn.layers.random_scope``.
 
 Two-pass inference (``forward`` / ``predict``): each temporal frame, oldest
 first, goes through the camera branch (Swin -> FPN_LSS -> CrossModalLSS ->
@@ -22,6 +31,8 @@ frame's camera voxel feature, warped into the new ego frame (``_shift_bev``).
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
@@ -30,7 +41,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig, check_supported
 from ..geometry import frustum_to_ego, get_mlp_input, make_frustum
-from ..nn.layers import BatchNorm, Conv3d, LayerNorm, Linear
+from ..nn.layers import BatchNorm, Conv3d, LayerNorm, Linear, checkpoint
 from ..nn.swin import SwinTransformer
 from ..ops.bev_pool import PoolingIndex, prepare_pooling_index
 from ..ops.grid_sample import grid_sample_2d
@@ -139,9 +150,20 @@ class FinalConv(nn.Module):
         return F.relu(self.conv(x))
 
 
+def _inference(fn):
+    """Run a ``predict*`` method under ``torch.inference_mode`` with eval
+    semantics, whatever mode the model is in."""
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with torch.inference_mode(), self.eval_semantics():
+            return fn(self, *args, **kwargs)
+    return run
+
+
 class FusionOcc(nn.Module):
     """FusionOcc.  Parameters are float32 on ``device`` (the card unless
     the caller asks for another); ``cfg.dtype`` is the compute dtype.
+    Built in eval mode.
     """
 
     def __init__(self, cfg: ModelConfig, device='cuda'):
@@ -172,6 +194,18 @@ class FusionOcc(nn.Module):
                 Linear(occ, occ * 2), nn.Softplus(),
                 Linear(occ * 2, cfg.num_classes))
         self.to(device)     # buffers built from numpy start on the CPU
+        self.eval()
+
+    @contextlib.contextmanager
+    def eval_semantics(self):
+        """Every module in eval mode inside; the modes restored after."""
+        modes = [(m, m.training) for m in self.modules()]
+        self.eval()
+        try:
+            yield
+        finally:
+            for m, mode in modes:
+                m.training = mode
 
     def image_encoder(self, imgs: torch.Tensor) -> torch.Tensor:
         """(B, N, H, W, 3) -> (B, N, h, w, C_neck)."""
@@ -233,10 +267,18 @@ class FusionOcc(nn.Module):
         return self.lidar_encoder(batch.points,
                                   batch.points_mask).to(cfg.dtype)
 
+    def _trunk(self, fusion: torch.Tensor) -> torch.Tensor:
+        return self.img_bev_encoder_neck(self.img_bev_encoder_backbone(fusion))
+
     def _head(self, fusion: torch.Tensor) -> torch.Tensor:
-        """The fused (B, Z, Y, X, C) volume through the BEV trunk, the final
-        conv and the predicter: (B, X, Y, Z, ncls) float32 logits."""
-        x = self.img_bev_encoder_neck(self.img_bev_encoder_backbone(fusion))
+        """The fused (B, Z, Y, X, C) volume through the BEV trunk (in
+        training with ``remat_bev``, checkpointed), the final conv and the
+        predicter: (B, X, Y, Z, ncls) float32 logits."""
+        if (self.training and self.cfg.remat_bev
+                and torch.is_grad_enabled()):
+            x = checkpoint(self._trunk, fusion)
+        else:
+            x = self._trunk(fusion)
         x = self.final_conv(x.permute(0, 4, 1, 2, 3))     # (B, C, Z, Y, X)
         x = x.permute(0, 4, 3, 2, 1)                      # (B, X, Y, Z, C)
         h = F.softplus(self.predicter[0](x))
@@ -247,35 +289,37 @@ class FusionOcc(nn.Module):
                 batch_frames: bool = False,
                 pool_idx_folded: Optional[PoolingIndex] = None
                 ) -> Dict[str, torch.Tensor]:
-        """Two-pass inference.  pool_idxs: optional per-frame indices
-        (``batch_pooling_indices``), else each is built in the call.
-        batch_frames: all temporal frames in one camera pass, with the
-        optional index ``pool_idx_folded``
-        (``batched_frames_pooling_index``).
+        """Two-pass inference, or in training mode the training forward.
+        pool_idxs: optional per-frame indices (``batch_pooling_indices``),
+        else each is built in the call.  batch_frames (eval only, as in
+        JAX): all temporal frames in one camera pass, with the optional
+        index ``pool_idx_folded`` (``batched_frames_pooling_index``).
 
         Returns occ_logits (B, X, Y, Z, ncls) float32, the key frame's depth
         softmax (B, N, h, w, D) and seg logits (B, N, h, w, num_seg).
         """
         cfg = self.cfg
-        if batch_frames and cfg.num_frame > 1:
+        if batch_frames and cfg.num_frame > 1 and not self.training:
             voxel_feats, depth_key, seg_key = self._batched_frame_feats(
                 batch, pool_idx_folded)
         else:
             voxel_feats = []        # order: [frame F-1 (oldest) ... frame 0]
             for fid in range(cfg.num_frame - 1, -1, -1):
-                voxel, depth_key, seg_key = self._frame_voxel_feat(
-                    batch.imgs[:, fid], batch.sensor2keyego[:, fid],
-                    batch.sensor2keyego[:, 0], batch.intrins[:, fid],
-                    batch.post_rots[:, fid], batch.post_trans[:, fid],
-                    batch.bda, batch.sparse_depth,
-                    None if pool_idxs is None else pool_idxs[fid])
+                # adjacent frames pass no gradient (JAX's stop_gradient)
+                with (torch.no_grad() if fid else contextlib.nullcontext()):
+                    voxel, depth_key, seg_key = self._frame_voxel_feat(
+                        batch.imgs[:, fid], batch.sensor2keyego[:, fid],
+                        batch.sensor2keyego[:, 0], batch.intrins[:, fid],
+                        batch.post_rots[:, fid], batch.post_trans[:, fid],
+                        batch.bda, batch.sparse_depth,
+                        None if pool_idxs is None else pool_idxs[fid])
                 voxel_feats.append(voxel)   # the loop ends on the key frame
         logits = self._head(
             torch.cat(voxel_feats + [self._lidar_feat(batch)], dim=-1))
         return {'occ_logits': logits, 'depth': depth_key,
                 'seg_logits': seg_key}
 
-    @torch.inference_mode()
+    @_inference
     def predict(self, batch: Batch,
                 pool_idxs: Optional[Sequence[PoolingIndex]] = None,
                 batch_frames: bool = False,
@@ -338,7 +382,7 @@ class FusionOcc(nn.Module):
         prev = torch.where(valid[:, None, None, None, None], warped, voxel)
         return self._head(torch.cat([prev, voxel, lidar], dim=-1))
 
-    @torch.inference_mode()
+    @_inference
     def predict_streaming(self, batch: Batch, state: StreamingState,
                           pool_idx: Optional[PoolingIndex] = None,
                           reset: Optional[torch.Tensor] = None):
@@ -372,7 +416,7 @@ class FusionOcc(nn.Module):
         return pred, {'occ_logits': logits, 'depth': depth,
                       'seg_logits': seg}, new_state
 
-    @torch.inference_mode()
+    @_inference
     def predict_streaming_scan(self, frames: Batch, state: StreamingState,
                                resets: Optional[torch.Tensor] = None,
                                pool_idx: Optional[PoolingIndex] = None):
@@ -390,7 +434,7 @@ class FusionOcc(nn.Module):
             preds.append(pred)
         return torch.stack(preds), state
 
-    @torch.inference_mode()
+    @_inference
     def predict_streaming_batch(self, frames: Batch, state: StreamingState,
                                 resets: Optional[torch.Tensor] = None,
                                 pool_idx: Optional[PoolingIndex] = None,

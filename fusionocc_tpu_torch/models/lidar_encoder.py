@@ -1,15 +1,18 @@
 """LiDAR branch: voxelization and the z-folded sparse 3D conv encoder.
 
-Port of ``fusionocc_tpu/models/lidar_encoder.py`` for inference, the
-``backend='zfold'`` path:
+Port of ``fusionocc_tpu/models/lidar_encoder.py``, the ``backend='zfold'``
+path:
 
     points -> voxelize_mean -> conv_input (1x1) -> zfold_regroup
     -> stages 0 .. dense_from-1: SubM convs, then a stride-2 conv, each
        conv (ops/zwin_conv.py, kernel K3) masked to its super rows, then
        MaskedBatchNorm on the cell lane mask, then ReLU; with
-       ``zwin_fuse`` the three are one launch (``zwin_conv_epi``: the
-       BatchNorm's affine, the ReLU and the lane mask in K3's epilogue), as
-       the JAX package's eval path with ``zwin_fuse=True`` runs them
+       ``zwin_fuse`` in eval mode the three are one launch
+       (``zwin_conv_epi``: the BatchNorm's affine, the ReLU and the lane
+       mask in K3's epilogue), as the JAX package's eval path with
+       ``zwin_fuse=True`` runs them; training always runs the chain, the
+       conv through the ``ZwinConv`` autograd Function and the BatchNorm
+       with batch statistics over the active cells
     -> stages dense_from ..: the masked dense tail (ops/dense_conv.py)
     -> conv_out (1x1) -> (B, Z, Y, X, C_out), the image voxel layout.
 
@@ -19,7 +22,7 @@ rows at most, as the JAX package does.  The index builds run on the whole
 batch at once; an encoder pass waits for the card five times, once for
 each padded width (the voxels, the super rows, each sparse stage's
 stride-2 output set), at any batch size.  The dense tail's BatchNorms stay
-unfused, as in JAX.
+unfused, as in JAX.  The encoder is built in eval mode.
 
 The last stage always runs in the dense tail.  It has no stride-2 conv, so
 its active set is the one the stage before it made, and a masked dense SubM
@@ -66,7 +69,7 @@ class SparseConvBN(nn.Sequential):
     """A 3x3x3 conv (key ``0``), masked BN (key ``1``) and ReLU: the JAX
     package's ``SubMConvBN`` (stride 1) and ``SparseConvBNStride2``, in
     their z-folded and dense modes.  ``fuse`` runs the z-folded mode as one
-    fused launch (``zwin_fuse``)."""
+    fused launch (``zwin_fuse``) in eval mode."""
 
     def __init__(self, cin: int, cout: int, stride: int, fuse: bool = False):
         super().__init__(SpConv(cin, cout, 3), MaskedBatchNorm(cout))
@@ -76,7 +79,7 @@ class SparseConvBN(nn.Sequential):
         """feats (B, S_in, f_in*Cin) -> (B, S_out, f_out*Cout); lane_mask
         is the output's cell lane mask (B, S_out, f_out)."""
         w = self[0].kernel()
-        if self.fuse:
+        if self.fuse and not self.training:
             inv, shift = self[1].scale_shift()
             return zwin_conv_epi(feats, mask_out, nbr, w, f_in, f_out,
                                  self.stride, inv.repeat(f_out),
@@ -117,6 +120,7 @@ class SparseEncoder(nn.Module):
             self.encoder_layers = nn.ModuleDict(layers)
             self.conv_out = nn.Sequential(
                 SpConv(cin, cfg.output_channels, 1))
+        self.eval()     # inference semantics until train() is called
 
     def forward(self, points: torch.Tensor,
                 points_mask: torch.Tensor) -> torch.Tensor:

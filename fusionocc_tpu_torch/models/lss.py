@@ -1,10 +1,13 @@
 """Cross-modal LSS view transformer (camera branch core), reference names.
 
-Port of ``fusionocc_tpu/models/lss.py`` for inference.  Per (frame, view):
-one-hot the min-pooled sparse LiDAR depth, encode it and the image feature,
-fuse them with channel and spatial cross attention, predict depth logits,
-2D segmentation and a context feature, then lift-splat the softmaxed depth
-times the context into the voxel grid with ``ops.bev_pool``.
+Port of ``fusionocc_tpu/models/lss.py``.  Per (frame, view): one-hot the
+min-pooled sparse LiDAR depth, encode it and the image feature, fuse them
+with channel and spatial cross attention, predict depth logits, 2D
+segmentation and a context feature, then lift-splat the softmaxed depth
+times the context into the voxel grid with ``ops.bev_pool``.  In training
+each view's depth input is zeroed with probability ``depth_drop_rate`` (a
+0/1 mask per view, not rescaled, as JAX's), and the BatchNorms take batch
+statistics.
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import torch.nn.functional as F
 
 from ..config import GridConfig, ViewTransformerConfig
 from ..nn.layers import (ASPP, BasicBlock2D, BatchNorm, Conv2d, Linear, Mlp,
-                         SELayer, conv_bn_relu)
+                         SELayer, conv_bn_relu, keep_mask)
 from ..ops.bev_pool import PoolingIndex, bev_pool
 
 
@@ -148,6 +151,9 @@ class CrossModalLSS(nn.Module):
         D = self.grid.num_depth_bins
         onehot, _ = downsample_depth_onehot(sparse_depth, cfg.downsample,
                                             self.grid, sid=cfg.sid)
+        if self.training and cfg.depth_drop_rate > 0:
+            keep = keep_mask((B * N,), cfg.depth_drop_rate, onehot.device)
+            onehot = onehot * keep.view(B, N, 1, 1, 1).float()
         di = onehot.to(x.dtype).reshape(B * N, h, w, D).permute(0, 3, 1, 2)
         img = x.reshape(B * N, h, w, -1).permute(0, 3, 1, 2)
         f_c = self.img_reduce_conv(img)

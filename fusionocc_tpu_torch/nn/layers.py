@@ -1,7 +1,7 @@
 """Core building blocks, named as the reference's mmdet3d modules.
 
-Port of ``fusionocc_tpu/nn/layers.py`` for inference.  Attribute names follow
-the reference checkpoint (mmcv ConvModule ``conv``/``bn``, mmdet BasicBlock
+Port of ``fusionocc_tpu/nn/layers.py``.  Attribute names follow the
+reference checkpoint (mmcv ConvModule ``conv``/``bn``, mmdet BasicBlock
 ``conv1``/``bn1``/``conv2``/``bn2``, Sequential indices), so a reference
 ``state_dict`` loads directly.
 
@@ -9,12 +9,89 @@ Precision follows the JAX package: parameters stay float32; ``Linear`` and
 ``Conv*`` cast them to the input's dtype and compute in it (bfloat16 at full
 size); ``LayerNorm`` and ``BatchNorm`` compute in float32 and return the
 input's dtype.  Tensors are NCHW / NCDHW inside these modules.
+
+Training follows the module's ``training`` flag.  The BatchNorms then
+normalise with batch statistics and update their running statistics with
+flax's rule (the biased batch variance; torch's ``momentum`` is 1 - flax's).
+Random draws (``dropout``, ``drop_path`` masks, the depth-input drop) come
+from the generator of the enclosing ``random_scope``; ``checkpoint`` runs a
+function under ``torch.utils.checkpoint`` without updating running
+statistics again in the recompute.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
+
+# the generator of the enclosing random_scope, and whether BatchNorms leave
+# their running statistics alone (a checkpoint's recompute, which runs in
+# the autograd engine's thread)
+_GENERATOR = contextvars.ContextVar('generator', default=None)
+_FREEZE_STATS = contextvars.ContextVar('freeze_stats', default=False)
+
+
+@contextlib.contextmanager
+def _setting(var: contextvars.ContextVar, value):
+    token = var.set(value)
+    try:
+        yield
+    finally:
+        var.reset(token)
+
+
+def random_scope(generator: torch.Generator):
+    """Training draws inside the ``with`` block come from ``generator``."""
+    return _setting(_GENERATOR, generator)
+
+
+def keep_mask(shape, rate: float, device) -> torch.Tensor:
+    """A bool mask, each entry True with probability 1 - rate, drawn from
+    the scope's generator (which must live on ``device``)."""
+    g = _GENERATOR.get()
+    if g is None:
+        raise RuntimeError('a random draw in training needs a generator: '
+                           'run the forward inside random_scope(generator)')
+    if g.device.type != torch.device(device).type:
+        raise ValueError(f'the generator is on {g.device}, the tensor on '
+                         f'{device}')
+    return torch.rand(shape, generator=g, device=device) < 1.0 - rate
+
+
+def dropout(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """Elementwise dropout: x / (1 - rate) where kept, else 0 (flax's
+    ``nn.Dropout``)."""
+    return torch.where(keep_mask(x.shape, rate, x.device), x / (1.0 - rate),
+                       0)
+
+
+def drop_path(x: torch.Tensor, keep: torch.Tensor, rate: float
+              ) -> torch.Tensor:
+    """Stochastic depth with a per-sample mask ``keep`` (B,) drawn
+    beforehand (``keep_mask((B,), rate, ...)``): x / (1 - rate) for kept
+    samples, else 0."""
+    keep = keep.view((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(keep, x / (1.0 - rate), 0)
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant).  The
+    recompute in the backward leaves the BatchNorms' running statistics
+    alone, as JAX's ``remat`` does (flax's mutable state is written once);
+    it draws nothing, so ``fn``'s random masks must come in ``args``."""
+    calls = []
+
+    def run(*a):
+        if calls:
+            with _setting(_FREEZE_STATS, True):
+                return fn(*a)
+        calls.append(1)
+        return fn(*a)
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def _cast(t, dtype):
@@ -57,11 +134,20 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):
-    """Inference BatchNorm over axis 1 (any rank), eps 1e-5, in float32.
+    """BatchNorm over axis 1 (any rank), eps 1e-5, in float32.
 
-    Normalises with the running statistics; training statistics are not
-    ported.  Keeps ``num_batches_tracked`` so reference checkpoints load.
+    In eval mode it normalises with the running statistics.  In training
+    it normalises with the batch's and then updates the running ones as
+    flax does: ``r = (1 - momentum) * r + momentum * batch`` with the
+    *biased* batch variance (torch would take the unbiased one); momentum
+    0.1 is flax's 0.9.  Keeps ``num_batches_tracked`` so reference
+    checkpoints load.  Built in eval mode, as the port's entry points are;
+    ``train()`` switches it.
     """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.eval()
 
     def _check_input_dim(self, x):
         if x.dim() < 2:
@@ -69,24 +155,51 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
 
     def forward(self, x):
         self._check_input_dim(x)
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0,
-                            self.eps).to(x.dtype)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.eps).to(x.dtype)
+        # JAX's normalisation, (x - mean) * (rsqrt(var + eps) * scale) +
+        # bias, differentiated by autograd: torch's fused training
+        # backward rounds differently where the input gradient is a small
+        # difference of large sums
+        dims = [0] + list(range(2, x.dim()))
+        var, mean = torch.var_mean(xf, dim=dims, correction=0, keepdim=True)
+        self.update_stats(mean.detach().flatten(), var.detach().flatten())
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        inv = torch.rsqrt(var + self.eps) * self.weight.view(shape)
+        return ((xf - mean) * inv + self.bias.view(shape)).to(x.dtype)
+
+    @torch.no_grad()
+    def update_stats(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """Fold a batch's mean and biased variance into the running
+        statistics, except in a checkpoint's recompute."""
+        if _FREEZE_STATS.get():
+            return
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        self.num_batches_tracked.add_(1)
 
 
 class MaskedBatchNorm(BatchNorm):
-    """Inference BatchNorm of sparse voxel features, eps 1e-3 (spconv's BN1d
-    in the reference's LiDAR encoder; not torch's 1e-5).
+    """BatchNorm of sparse voxel features, eps 1e-3 (spconv's BN1d in the
+    reference's LiDAR encoder; not torch's 1e-5).
 
-    y = (x * inv + shift) * mask in float32, then cast to x's dtype, with
-    the per-channel affine of ``scale_shift()`` (``affine`` is torch's
-    bool attribute of a BatchNorm).  Two layouts share the (C,)
-    parameters: z-folded lanes, x (..., F*C) with the cell lane mask
-    (..., F); and cells, x (..., C) with the cell mask (...).
+    Two layouts share the (C,) parameters: z-folded lanes, x (..., F*C)
+    with the cell lane mask (..., F); and cells, x (..., C) with the cell
+    mask (...).  In eval mode y = (x * inv + shift) * mask in float32, then
+    cast to x's dtype, with the per-channel affine of ``scale_shift()``
+    (``affine`` is torch's bool attribute of a BatchNorm).  In training the
+    mean and biased variance are taken over the active cells only (the F*C
+    lanes collapse to C channels; the count is the number of active cells),
+    y = ((x - mean) * inv + bias) * mask, and the running statistics move
+    with flax's momentum 0.99 (torch's 0.01).
     """
 
     def __init__(self, c: int):
-        super().__init__(c, eps=1e-3)
+        super().__init__(c, eps=1e-3, momentum=0.01)
 
     def scale_shift(self):
         """(inv, shift), (C,) float32, with eval BN(x) = x * inv + shift:
@@ -103,8 +216,21 @@ class MaskedBatchNorm(BatchNorm):
             m = mask.float().repeat_interleave(C, dim=-1)
         else:
             fold, m = 1, mask.float()[..., None]
-        inv, shift = self.scale_shift()
-        y = (x.float() * inv.repeat(fold) + shift.repeat(fold)) * m
+        if not self.training:
+            inv, shift = self.scale_shift()
+            y = (x.float() * inv.repeat(fold) + shift.repeat(fold)) * m
+            return y.to(x.dtype)
+
+        def channel_sum(v):             # (..., fold*C) -> (C,)
+            return v.reshape(-1, fold, C).sum(dim=(0, 1))
+        xf = x.float()
+        cnt = mask.float().sum().clamp_min(1.0)
+        mean = channel_sum(xf * m) / cnt
+        centred = xf - mean.repeat(fold)
+        var = channel_sum(centred.square() * m) / cnt
+        self.update_stats(mean.detach(), var.detach())
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        y = (centred * inv.repeat(fold) + self.bias.repeat(fold)) * m
         return y.to(x.dtype)
 
 
@@ -203,8 +329,8 @@ class _AsppModule(nn.Module):
 
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling: dilations 1/6/12/18 and a global
-    average branch, concatenated, then 1x1 conv + BN + ReLU (the training
-    dropout is not ported)."""
+    average branch, concatenated, then 1x1 conv + BN + ReLU, and in
+    training ``dropout(0.5)``."""
 
     def __init__(self, cin: int, mid: int):
         super().__init__()
@@ -222,4 +348,5 @@ class ASPP(nn.Module):
         x4 = self.aspp4(x)
         g = self.global_avg_pool(x).expand(-1, -1, *x4.shape[2:])
         y = torch.cat([self.aspp1(x), self.aspp2(x), self.aspp3(x), x4, g], 1)
-        return F.relu(self.bn1(self.conv1(y)))
+        y = F.relu(self.bn1(self.conv1(y)))
+        return dropout(y, 0.5) if self.training else y

@@ -1,11 +1,18 @@
 """Swin Transformer backbone, named as mmcv's (reference checkpoint keys).
 
-Port of ``fusionocc_tpu/nn/swin.py`` for inference: patch embed (4x4 conv) +
-LayerNorm, four stages of shifted-window blocks, mmcv unfold-order
-PatchMerging between stages, per-out-index LayerNorms, and
-``return_stereo_feat`` (stage 0's output first).  Every block's attention
-goes through ``ops.window_attn.window_attention`` (the CUDA kernel for CUDA
-tensors).  Public layout is NHWC; tokens are (B, L, C).
+Port of ``fusionocc_tpu/nn/swin.py``: patch embed (4x4 conv) + LayerNorm,
+four stages of shifted-window blocks, mmcv unfold-order PatchMerging between
+stages, per-out-index LayerNorms, and ``return_stereo_feat`` (stage 0's
+output first).  Every block's attention goes through
+``ops.window_attn.window_attention`` (the CUDA kernel for CUDA tensors, in
+an autograd ``Function``).  Public layout is NHWC; tokens are (B, L, C).
+
+In training, block i drops its two residual branches per sample with rate
+``linspace(0, drop_path_rate, sum(depths))[i]`` (JAX's rates), and
+``with_cp`` runs each block under ``nn.layers.checkpoint``.  The masks are
+drawn before the checkpointed call and passed in: the checkpoint restores
+the RNG state of torch's default generators only, not of the generator the
+draws come from, so a mask drawn inside would differ in the recompute.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ import torch.nn.functional as F
 
 from ..config import SwinConfig
 from ..ops.window_attn import window_attention
-from .layers import Conv2d, LayerNorm, Linear
+from .layers import (Conv2d, LayerNorm, Linear, checkpoint, drop_path,
+                     keep_mask)
 
 
 def relative_position_index(w: int) -> torch.Tensor:
@@ -99,8 +107,9 @@ class ShiftWindowMSA(nn.Module):
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, w: int, shift: bool,
-                 mlp_ratio: int, qkv_bias: bool):
+                 mlp_ratio: int, qkv_bias: bool, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim)
         self.attn = ShiftWindowMSA(dim, num_heads, w, w // 2 if shift else 0,
                                    qkv_bias)
@@ -111,9 +120,16 @@ class SwinBlock(nn.Module):
             nn.Sequential(Linear(dim, hidden), nn.GELU()),
             Linear(hidden, dim)])
 
-    def forward(self, x, hw):
-        x = x + self.attn(self.norm1(x), hw)
+    def forward(self, x, hw, keep=None):
+        """keep: None, or (2, B) bool masks of the attention and MLP
+        branches (stochastic depth)."""
+        y = self.attn(self.norm1(x), hw)
+        if keep is not None:
+            y = drop_path(y, keep[0], self.drop_path_rate)
+        x = x + y
         y = self.ffn.layers[1](self.ffn.layers[0](self.norm2(x)))
+        if keep is not None:
+            y = drop_path(y, keep[1], self.drop_path_rate)
         return x + y
 
 
@@ -148,7 +164,7 @@ class SwinStage(nn.Module):
 
 class SwinTransformer(nn.Module):
     """(B, H, W, 3) -> [stage-0 feature if return_stereo_feat] + normed
-    ``out_indices`` features, each (B, h, w, C)."""
+    ``out_indices`` features, each (B, h, w, C).  Built in eval mode."""
 
     def __init__(self, cfg: SwinConfig):
         super().__init__()
@@ -159,15 +175,19 @@ class SwinTransformer(nn.Module):
         self.patch_embed.projection = Conv2d(3, cfg.embed_dims, p, p)
         self.patch_embed.norm = LayerNorm(cfg.embed_dims)
         n = len(cfg.depths)
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths))
+        first = np.cumsum((0,) + tuple(cfg.depths))
         self.stages = nn.ModuleList([
             SwinStage([SwinBlock(dims[i], cfg.num_heads[i], cfg.window_size,
-                                 j % 2 == 1, cfg.mlp_ratio, cfg.qkv_bias)
+                                 j % 2 == 1, cfg.mlp_ratio, cfg.qkv_bias,
+                                 float(dpr[first[i] + j]))
                        for j in range(cfg.depths[i])],
                       PatchMerging(dims[i], dims[i + 1]) if i < n - 1
                       else None)
             for i in range(n)])
         for i in cfg.out_indices:
             self.add_module(f'norm{i}', LayerNorm(dims[i]))
+        self.eval()     # inference semantics until train() is called
 
     def forward(self, x) -> List[torch.Tensor]:
         cfg = self.cfg
@@ -176,9 +196,16 @@ class SwinTransformer(nn.Module):
         hw = (x.shape[2], x.shape[3])
         x = self.patch_embed.norm(x.flatten(2).transpose(1, 2))
         outs = []
+        recompute = self.training and cfg.with_cp and torch.is_grad_enabled()
         for i, stage in enumerate(self.stages):
             for blk in stage.blocks:
-                x = blk(x, hw)
+                keep = None
+                if self.training and blk.drop_path_rate > 0:
+                    keep = keep_mask((2, B), blk.drop_path_rate, x.device)
+                if recompute:
+                    x = checkpoint(blk, x, hw, keep)
+                else:
+                    x = blk(x, hw, keep)
             if i == 0 and cfg.return_stereo_feat:
                 outs.append(x.view(B, *hw, -1))
             if i in cfg.out_indices:

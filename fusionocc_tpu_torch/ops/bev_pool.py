@@ -1,6 +1,6 @@
-"""Frustum-to-voxel pooling (bev_pool_v2 forward).
+"""Frustum-to-voxel pooling (bev_pool_v2).
 
-Port of ``fusionocc_tpu/ops/bev_pool.py`` (forward only):
+Port of ``fusionocc_tpu/ops/bev_pool.py``:
 
     out[b, z, y, x, c] = sum over frustum points p falling in that voxel of
                          depth[p] * feat[pixel(p), c]
@@ -9,18 +9,26 @@ summed in fp32 and cast to the caller's ``out_dtype``.
 
 ``prepare_pooling_index`` quantises the frustum points, gives out-of-grid
 points a sentinel rank one past the last voxel, sorts stably by rank, finds
-each voxel's run of sorted points (``bounds``) and builds the kernel's work
-table (``long_runs``): the voxels whose run is longer than ``max_short``
-points, longest first.  ``bev_pool`` then sums the runs: the plain version by
+each voxel's run of sorted points (``bounds``), the permutation that sorts
+the points by feature row (``order_by_feat``, for the backward) and builds
+the kernel's work table (``long_runs``): the voxels whose run is longer
+than ``max_short`` points, longest first.  ``bev_pool`` then sums the runs
+in the autograd ``Function`` ``BevPool``: the plain version by
 ``index_add_`` over the sorted points, the CUDA kernel (``csrc/bev_pool.cu``)
 by a group of C/8 lanes per short run and a warp per long one.  The JAX
 package's cumulative-sum formulation and trimmed index are TPU devices the
-kernel does not need; the backward's ``order_by_feat`` is left for the
-training port.
+kernel does not need.
+
+The backward is JAX's ``_bev_pool_bwd``, the same code on both devices: the
+cotangent in fp32, gathered per sorted point; the depth gradient put back in
+natural order through the inverse of the ``ranks_depth`` permutation; the
+feature gradient a reshape-sum over the D bins of each row in
+``order_by_feat`` order (every row owns exactly D points of the untrimmed
+index).  With a bf16 ``out_dtype`` the backward sees the cast's cotangent.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -41,7 +49,9 @@ class PoolingIndex(NamedTuple):
     the first sorted position with ``ranks_bev >= v``, so voxel v's points
     are ``bounds[v]:bounds[v+1]`` and ``bounds[-1]`` counts in-grid points.
     ``long_voxels`` lists the voxels whose run is longer than ``max_short``,
-    longest first (``long_runs``).
+    longest first (``long_runs``).  ``order_by_feat`` sorts the points by
+    ``ranks_feat`` (the backward's; an index made by hand may leave it out
+    and is then forward-only).
     """
     ranks_depth: torch.Tensor   # into the flattened (B, N, D, Hf, Wf) depth
     ranks_feat: torch.Tensor    # into the flattened (B, N, Hf, Wf) feat rows
@@ -49,6 +59,7 @@ class PoolingIndex(NamedTuple):
     bounds: torch.Tensor
     long_voxels: torch.Tensor
     max_short: int
+    order_by_feat: Optional[torch.Tensor] = None
 
 
 def long_runs(bounds: torch.Tensor, max_short: int) -> torch.Tensor:
@@ -93,8 +104,10 @@ def prepare_pooling_index(coor: torch.Tensor, grid: GridConfig
     bounds = torch.searchsorted(
         rank_s, torch.arange(num_voxels + 1, dtype=torch.int32, device=dev),
         out_int32=True)
+    order_by_feat = torch.argsort(rf_s, stable=True).to(torch.int32)
     return PoolingIndex(order.to(torch.int32), rf_s, rank_s, bounds,
-                        long_runs(bounds, MAX_SHORT_RUN), MAX_SHORT_RUN)
+                        long_runs(bounds, MAX_SHORT_RUN), MAX_SHORT_RUN,
+                        order_by_feat)
 
 
 def bev_pool_plain(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
@@ -151,6 +164,55 @@ def bev_pool_cuda(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
     return out
 
 
+def bev_pool_bwd(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
+                 idx: PoolingIndex, g: torch.Tensor):
+    """JAX's ``_bev_pool_bwd``: (d_depth, d_feat) in depth's and feat's
+    dtypes for the cotangent g (num_voxels, C) of the pooled sums."""
+    if idx.order_by_feat is None:
+        raise ValueError('the backward needs the index\'s order_by_feat '
+                         '(prepare_pooling_index builds it)')
+    g = g.float()
+    g_pts = torch.cat([g, g.new_zeros(1, g.shape[1])])[idx.ranks_bev.long()]
+    rd = idx.ranks_depth.long()
+    feat_pts = feat_flat[idx.ranks_feat.long()].float()
+    depth_pts = depth_flat[rd].float()
+    # ranks_depth is a permutation: scattering by it applies its inverse
+    d_sorted = (g_pts * feat_pts).sum(dim=-1)
+    d_depth = torch.empty_like(d_sorted).index_put_((rd,), d_sorted)
+    rows = feat_flat.shape[0]
+    contrib = (depth_pts[:, None] * g_pts)[idx.order_by_feat.long()]
+    d_feat = contrib.reshape(rows, rd.numel() // rows, -1).sum(dim=1)
+    return d_depth.to(depth_flat.dtype), d_feat.to(feat_flat.dtype)
+
+
+class BevPool(torch.autograd.Function):
+    """Forward: the plain version for CPU tensors, K1 otherwise; backward:
+    ``bev_pool_bwd`` on both."""
+
+    @staticmethod
+    def forward(ctx, depth_flat, feat_flat, idx, num_voxels, out_dtype):
+        ctx.save_for_backward(depth_flat, feat_flat)
+        ctx.idx = idx
+        if feat_flat.device.type == 'cpu':
+            return bev_pool_plain(depth_flat, feat_flat, idx, num_voxels
+                                  ).to(out_dtype)
+        return bev_pool_cuda(depth_flat, feat_flat, idx, num_voxels,
+                             out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*bev_pool_bwd(*ctx.saved_tensors, ctx.idx, g), None, None,
+                None)
+
+
+def bev_pool_flat(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
+                  idx: PoolingIndex, num_voxels: int,
+                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(num_voxels, C) pooled sums of flat depth (P,) and feat (rows, C),
+    cast once to ``out_dtype``; differentiable in depth and feat."""
+    return BevPool.apply(depth_flat, feat_flat, idx, num_voxels, out_dtype)
+
+
 def bev_pool(depth: torch.Tensor, feat: torch.Tensor, idx: PoolingIndex,
              grid: GridConfig, out_dtype: torch.dtype = torch.float32
              ) -> torch.Tensor:
@@ -165,12 +227,6 @@ def bev_pool(depth: torch.Tensor, feat: torch.Tensor, idx: PoolingIndex,
     C = feat.shape[-1]
     gx, gy, gz = grid.grid_size
     num_voxels = B * gz * gy * gx
-    depth_flat = depth.reshape(-1)
-    feat_flat = feat.reshape(-1, C)
-    if feat.device.type == 'cpu':
-        out = bev_pool_plain(depth_flat, feat_flat, idx, num_voxels
-                             ).to(out_dtype)
-    else:
-        out = bev_pool_cuda(depth_flat, feat_flat, idx, num_voxels,
-                            out_dtype)
+    out = bev_pool_flat(depth.reshape(-1), feat.reshape(-1, C), idx,
+                        num_voxels, out_dtype)
     return out.reshape(B, gz, gy, gx, C)

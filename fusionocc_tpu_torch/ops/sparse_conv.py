@@ -154,11 +154,15 @@ def stage_indices_table(sp: SparseVoxels, shape: Tuple[int, int, int],
 
 def gather_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """feats (B, V, C), idx (B, ...) int rows in [0, V]; row V reads zeros.
-    Returns (B, ..., C)."""
+    Returns (B, ..., C).  One ``index_select`` over the batch's rows, whose
+    backward is an ``index_add_`` (a row read by many taps sums their
+    gradients there)."""
     B, V, C = feats.shape
     pad = torch.cat([feats, feats.new_zeros(B, 1, C)], dim=1)
-    bi = torch.arange(B, device=feats.device).view((B,) + (1,) * (idx.dim() - 1))
-    return pad[bi, idx.long()]
+    base = torch.arange(B, device=feats.device) * (V + 1)
+    rows = idx.long() + base.view((B,) + (1,) * (idx.dim() - 1))
+    return pad.reshape(B * (V + 1), C).index_select(0, rows.reshape(-1)
+                                                    ).view(*idx.shape, C)
 
 
 def sparse_conv_apply(feats: torch.Tensor, mask_out: torch.Tensor,

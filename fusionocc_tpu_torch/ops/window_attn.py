@@ -1,7 +1,7 @@
 """Shifted-window attention: the plain version and the CUDA kernel wrapper.
 
-Port of ``fusionocc_tpu/ops/pallas/window_attn.py`` (forward only).  Both
-versions compute, per window and head,
+Port of ``fusionocc_tpu/ops/pallas/window_attn.py``.  Both versions
+compute, per window and head,
 
     softmax_fp32(q * scale @ k^T + bias[h] + shift_mask) @ v
 
@@ -11,11 +11,15 @@ kernel's contract); the output has q's dtype.  The shift mask is mmcv's:
 -100 between tokens of different regions, which only the last window row and
 column have.
 
-``window_attention`` takes the plain version for CPU tensors and launches
+``window_attention`` is the autograd ``Function`` ``WindowAttention``: its
+forward takes the plain version for CPU tensors and launches
 ``csrc/window_attn.cu`` for CUDA tensors; it never falls back.  The kernel
 has two bodies, chosen by dtype: bf16 runs on the tensor cores (N <= 144,
 16-byte aligned q, k, v rows), fp32 on the CUDA cores (N <= 1024).  A bf16
-input that the tensor-core body does not take raises.
+input that the tensor-core body does not take raises.  Its backward is JAX's
+``_bwd``, the same code on both devices: it saves (q, k, v, bias), recomputes
+the fp32 probabilities P with the shift mask and returns dq, dk, dv in the
+inputs' dtype and dbias summed over windows.
 """
 from __future__ import annotations
 
@@ -46,23 +50,29 @@ def shift_masks(nWh: int, nWw: int, w: int, shift: int,
     return torch.where(same, 0.0, MASK_VALUE).float()
 
 
-def window_attention_plain(q, k, v, bias, nWh: int, nWw: int, w: int,
-                           shift: int, heads: int) -> torch.Tensor:
-    """einsum + fp32 softmax version of the kernel."""
+def attention_probs(q, k, bias, nWh: int, nWw: int, w: int, shift: int,
+                    heads: int) -> torch.Tensor:
+    """(Bn, heads, N, N) fp32 softmax(q * scale @ k^T + bias + mask)."""
     bn, n, c = q.shape
     d = c // heads
-    scale = d ** -0.5
     qh = q.float().reshape(bn, n, heads, d)
     kh = k.float().reshape(bn, n, heads, d)
-    vh = v.float().reshape(bn, n, heads, d)
-    s = torch.einsum('bnhd,bmhd->bhnm', qh * scale, kh)
+    s = torch.einsum('bnhd,bmhd->bhnm', qh * d ** -0.5, kh)
     s = s + bias.float()[None]
     if shift > 0:
         nw = nWh * nWw
         m = shift_masks(nWh, nWw, w, shift, q.device)
         s = (s.view(bn // nw, nw, heads, n, n) + m[None, :, None]
              ).view(bn, heads, n, n)
-    p = torch.softmax(s, dim=-1)
+    return torch.softmax(s, dim=-1)
+
+
+def window_attention_plain(q, k, v, bias, nWh: int, nWw: int, w: int,
+                           shift: int, heads: int) -> torch.Tensor:
+    """einsum + fp32 softmax version of the kernel."""
+    bn, n, c = q.shape
+    p = attention_probs(q, k, bias, nWh, nWw, w, shift, heads)
+    vh = v.float().reshape(bn, n, heads, c // heads)
     out = torch.einsum('bhnm,bmhd->bnhd', p, vh)
     return out.reshape(bn, n, c).to(q.dtype)
 
@@ -114,10 +124,47 @@ def window_attention_cuda(q, k, v, bias, nWh: int, nWw: int, w: int,
     return out
 
 
+def window_attention_bwd(q, k, v, bias, nWh: int, nWw: int, w: int,
+                         shift: int, heads: int, g: torch.Tensor):
+    """JAX's ``_bwd``: (dq, dk, dv) in the inputs' dtype and dbias (heads,
+    N, N) in bias's, from the recomputed fp32 probabilities."""
+    bn, n, c = q.shape
+    d = c // heads
+    scale = d ** -0.5
+    p = attention_probs(q, k, bias, nWh, nWw, w, shift, heads)
+    gf = g.float().reshape(bn, n, heads, d)
+    vh = v.float().reshape(bn, n, heads, d)
+    qh = q.float().reshape(bn, n, heads, d)
+    kh = k.float().reshape(bn, n, heads, d)
+    dv = torch.einsum('bhnm,bnhd->bmhd', p, gf)
+    dp = torch.einsum('bnhd,bmhd->bhnm', gf, vh)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.einsum('bhnm,bmhd->bnhd', ds, kh) * scale
+    dk = torch.einsum('bhnm,bnhd->bmhd', ds, qh * scale)
+    return (dq.reshape(bn, n, c).to(q.dtype), dk.reshape(bn, n, c).to(k.dtype),
+            dv.reshape(bn, n, c).to(v.dtype), ds.sum(dim=0).to(bias.dtype))
+
+
+class WindowAttention(torch.autograd.Function):
+    """Forward: the plain version for CPU tensors, K2 otherwise; backward:
+    ``window_attention_bwd`` on both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, nWh, nWw, w, shift, heads):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.geom = (nWh, nWw, w, shift, heads)
+        fn = (window_attention_plain if q.device.type == 'cpu'
+              else window_attention_cuda)
+        return fn(q, k, v, bias, nWh, nWw, w, shift, heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = window_attention_bwd(*ctx.saved_tensors, *ctx.geom, g)
+        return grads + (None,) * 5
+
+
 def window_attention(q, k, v, bias, nWh: int, nWw: int, w: int, shift: int,
                      heads: int) -> torch.Tensor:
-    """Plain version for CPU tensors, the CUDA kernel otherwise."""
-    if q.device.type == 'cpu':
-        return window_attention_plain(q, k, v, bias, nWh, nWw, w, shift,
-                                      heads)
-    return window_attention_cuda(q, k, v, bias, nWh, nWw, w, shift, heads)
+    """``WindowAttention``: the plain version for CPU tensors, the CUDA
+    kernel otherwise, differentiable in q, k, v and bias."""
+    return WindowAttention.apply(q, k, v, bias, nWh, nWw, w, shift, heads)

@@ -1,7 +1,7 @@
 """The z-folded 3x3x3 sparse conv: the plain version and the CUDA kernel.
 
-Port of ``fusionocc_tpu/ops/pallas/zwin_conv.py`` (forward).  Both versions
-compute the JAX contract ``ops/zfold.py::zband_conv_apply``:
+Port of ``fusionocc_tpu/ops/pallas/zwin_conv.py``.  Both versions compute
+the JAX contract ``ops/zfold.py::zband_conv_apply``:
 
     out[b, s, zo*Cout + co] = mask_out[b, s] *
         sum over taps t with nbr[b, s, t] < S_in, over the in cells
@@ -23,8 +23,11 @@ weight; the kernel reads the cell weight at tap t - ds + dz directly.
 The TPU kernel's window plan, one-hot row selection, overflow patch and
 ``lax.cond`` fallback exist only because Mosaic had no dynamic gather; the
 CUDA kernel gathers rows by index, so it is exact and has none of them.
-``zwin_conv`` takes the plain version for CPU tensors and launches
-``csrc/zwin_conv.cu`` for CUDA tensors; it never falls back.  The kernel
+``zwin_conv`` is the autograd ``Function`` ``ZwinConv``: its forward takes
+the plain version for CPU tensors and launches ``csrc/zwin_conv.cu`` for
+CUDA tensors; it never falls back.  Its backward is JAX's ``_zwin_bwd``, the
+VJP of the plain contract recomputed from the saved (feats, weight), the
+same code on both devices.  The kernel
 has two bodies, chosen by dtype: bf16 runs on the tensor cores (Cin a
 multiple of 16 up to 64, Cout a multiple of 8 up to 64, f_out <= 8), fp32 on
 the CUDA cores (L_out <= 1024).  A bf16 input that the tensor-core body does
@@ -77,7 +80,10 @@ def _zwin_sums(feats: torch.Tensor, nbr_idx: torch.Tensor,
                stride: int) -> torch.Tensor:
     """``zband_conv_apply``'s fp32 sums, unmasked: per super shift ds,
     gather the band lanes of the 9 (dx, dy) taps and run one fp32 GEMM
-    against the band of the lifted weight."""
+    against the band of the lifted weight.  feats is widened to fp32
+    before the bands are cut and gathered, so the backward sums a row's
+    tap and band gradients in fp32 and rounds them to feats' dtype
+    once."""
     B, _, L = feats.shape
     cin, cout = weight.shape[1], weight.shape[2]
     assert L == f_in * cin, (L, f_in, cin)
@@ -87,6 +93,7 @@ def _zwin_sums(feats: torch.Tensor, nbr_idx: torch.Tensor,
     w_e = w_e.reshape(9, 3, f_in, cin, f_out, cout)
     nbr9 = nbr_idx.reshape(B, s_out, 9, 3)
     out = feats.new_zeros(B, s_out, f_out * cout, dtype=torch.float32)
+    feats = feats.float()
     for ds, (zi_lo, nzi) in enumerate(z_bands(f_in, f_out, stride)):
         if not nzi:
             continue
@@ -96,7 +103,7 @@ def _zwin_sums(feats: torch.Tensor, nbr_idx: torch.Tensor,
         gat = gather_rows(src, nbr9[..., ds]).reshape(B, s_out, 9 * nzi * cin)
         wk = w_e[:, ds, zi_lo:zi_lo + nzi, :, zo_lo:zo_hi + 1].reshape(
             9 * nzi * cin, (zo_hi - zo_lo + 1) * cout)
-        out[:, :, zo_lo * cout:(zo_hi + 1) * cout] += gat.float() @ wk
+        out[:, :, zo_lo * cout:(zo_hi + 1) * cout] += gat @ wk
     return out
 
 
@@ -222,12 +229,45 @@ def _launch(entry: str, feats, mask_out, nbr_idx, weight, f_in: int,
     return out
 
 
+def zwin_conv_bwd(feats: torch.Tensor, mask_out: torch.Tensor,
+                  nbr_idx: torch.Tensor, weight: torch.Tensor, f_in: int,
+                  f_out: int, stride: int, g: torch.Tensor):
+    """JAX's ``_zwin_bwd``: (d_feats, d_weight), the VJP of
+    ``zwin_conv_plain`` at (feats, weight) for the cotangent g."""
+    with torch.enable_grad():
+        f = feats.detach().requires_grad_()
+        w = weight.detach().requires_grad_()
+        y = zwin_conv_plain(f, mask_out, nbr_idx, w, f_in, f_out, stride)
+        return torch.autograd.grad(y, (f, w), g)
+
+
+class ZwinConv(torch.autograd.Function):
+    """Forward: the plain version for CPU tensors, K3 otherwise; backward:
+    ``zwin_conv_bwd`` on both.  The saved float tensors are the inputs
+    (feats, weight), as JAX's residuals."""
+
+    @staticmethod
+    def forward(ctx, feats, mask_out, nbr_idx, weight, f_in, f_out, stride):
+        ctx.save_for_backward(feats, mask_out, nbr_idx, weight)
+        ctx.geom = (f_in, f_out, stride)
+        fn = zwin_conv_plain if feats.device.type == 'cpu' else zwin_conv_cuda
+        return fn(feats, mask_out, nbr_idx, weight, f_in, f_out, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, mask_out, nbr_idx, weight = ctx.saved_tensors
+        d_feats, d_weight = zwin_conv_bwd(feats, mask_out, nbr_idx, weight,
+                                          *ctx.geom, g)
+        return d_feats, None, None, d_weight, None, None, None
+
+
 def zwin_conv(feats: torch.Tensor, mask_out: torch.Tensor,
               nbr_idx: torch.Tensor, weight: torch.Tensor,
               f_in: int, f_out: int, stride: int) -> torch.Tensor:
-    """Plain version for CPU tensors, the CUDA kernel otherwise."""
-    fn = zwin_conv_plain if feats.device.type == 'cpu' else zwin_conv_cuda
-    return fn(feats, mask_out, nbr_idx, weight, f_in, f_out, stride)
+    """``ZwinConv``: the plain version for CPU tensors, the CUDA kernel
+    otherwise, differentiable in feats and weight."""
+    return ZwinConv.apply(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                          stride)
 
 
 def zwin_conv_epi(feats: torch.Tensor, mask_out: torch.Tensor,

@@ -1,0 +1,54 @@
+"""Checkpoints of a training run: ``torch.save`` of {step, the model's
+parameters and buffers, the optimizer state, the EMA, the accumulation
+buffer} in ``<root>/step_<n>/state.pt``.
+
+Port of ``fusionocc_tpu/train/checkpoint.py``'s save, restore and
+``latest_checkpoint``; the JAX package's orbax files are not read.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from .loop import TrainState
+
+STATE_FILE = 'state.pt'
+
+
+def save_checkpoint(root: str, model: torch.nn.Module, state: TrainState
+                    ) -> str:
+    """Write ``<root>/step_<state.step>``; returns its path."""
+    path = os.path.join(os.path.abspath(root), f'step_{state.step}')
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, STATE_FILE + '.tmp')
+    torch.save({'step': state.step, 'model': model.state_dict(),
+                'train_state': state.state_dict()}, tmp)
+    os.replace(tmp, os.path.join(path, STATE_FILE))
+    return path
+
+
+def restore_checkpoint(path: str, model: torch.nn.Module,
+                       state: TrainState) -> None:
+    """Load ``path`` (a ``step_<n>`` directory) into ``model`` and
+    ``state`` in place."""
+    dev = next(model.parameters()).device
+    sd = torch.load(os.path.join(path, STATE_FILE), map_location=dev)
+    model.load_state_dict(sd['model'], strict=True)
+    state.load_state_dict(sd['train_state'])
+
+
+def latest_checkpoint(root: str) -> Optional[str]:
+    """The ``step_<n>`` directory of ``root`` with the largest n, or
+    None."""
+    if not os.path.isdir(root):
+        return None
+    steps = []
+    for name in os.listdir(root):
+        if name.startswith('step_'):
+            try:
+                steps.append((int(name.split('_')[1]), name))
+            except ValueError:
+                pass
+    return os.path.join(root, max(steps)[1]) if steps else None

@@ -130,6 +130,8 @@ def test_port_imports_no_jax():
         'fusionocc_tpu_torch.ops.dense_conv, '
         'fusionocc_tpu_torch.weights, fusionocc_tpu_torch.data.synthetic, '
         'fusionocc_tpu_torch.eval.metrics, '
+        'fusionocc_tpu_torch.train.loop, fusionocc_tpu_torch.train.losses, '
+        'fusionocc_tpu_torch.train.checkpoint, tools.train_torch, '
         'chip_smoke, tools.profile_torch_zwin_micro, '
         'tools.ab_bev_pool_split, tools.eval_torch_streaming_delta, '
         'tools.profile_torch_predict\n'
