@@ -92,14 +92,35 @@ Phases, each printing its own lines; any failure exits non-zero:
    split, the peak memory above what was held before, and the device idle
    share and kernel table of one profiled step.
 
+8. evaluation: writes one scene of 9 consecutive samples at full raw size
+   in a temporary directory, as the port's dataset reads it (six cameras
+   of 900x1600 JPEGs on the synthetic rig with nuScenes intrinsics, one
+   ray-cast LiDAR sweep per sample with the ego 2.5 m further each time,
+   ``labels.npz`` at 200x200x16, 1/8-resolution segmentation maps, the
+   infos pkl); times the loader (the first 3 samples alone, then all 9
+   through ``data_loader(num_workers=4)`` and ``prefetch``); asserts that
+   the native z-buffer library was built and used; prints each sample's
+   fused LiDAR cloud before ``pad_points`` and its distinct voxels against
+   the capacities (ROADMAP Queue C's C2); runs ``tools/test_torch.py``'s
+   loop in-process with ``spread_weights``, bf16, batch 1, two-pass with
+   ``--buckets --rayiou``, ``--streaming`` and ``--batch-frames``, each
+   run's launches counted ({48, 2, 9} per sample two-pass, {24, 1, 9}
+   streamed and folded) and every result finite; the device idle share of
+   one profiled two-pass ``--buckets`` run; the two-pass predictions equal
+   ``predict`` on the same loaded batches (timed by CUDA events); the
+   F-score of the first 3 on the host; ``fit_temperature`` on one sample's
+   logits on the card; and, inside ``KernelCheck``, every
+   K1, K2 and K3 launch of one loaded sample, two-pass and streamed,
+   against its plain version.
+
 A kernel's bound is the least time the card could take for the same work:
 the larger of its operations over the peak rate of their type and its bytes
 (each input read once, each output written once) over the memory rate,
 from NVIDIA's H100 SXM data sheet.
 
 The last two lines are the kernels' JSON summary (with each kernel's
-launches per full-size train step and its backward's ms) and the result
-JSON.
+launches per full-size train step, its backward's ms and its launches in
+phase 8's two-pass evaluation of 9 samples) and the result JSON.
 Needs a CUDA GPU; on a machine without one it exits 1 before doing anything.
 """
 from __future__ import annotations
@@ -238,7 +259,7 @@ def phase_device() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ''
-    print('[1/7] device: nvidia-smi name, power.limit:')
+    print('[1/8] device: nvidia-smi name, power.limit:')
     print(card)
     from fusionocc_tpu_torch.ops.kernels import find_nvcc
     nvcc = subprocess.run([find_nvcc(), '--version'], capture_output=True,
@@ -282,7 +303,7 @@ def phase_build() -> None:
     took = time.perf_counter() - t0
     how = ('compiled' if KERNELS.build_seconds is not None
            else 'found built')
-    print(f'[2/7] build: {how} {path.name} in {took:.1f} s')
+    print(f'[2/8] build: {how} {path.name} in {took:.1f} s')
     for line in KERNELS.build_log.splitlines():
         if 'Used' in line or 'Compiling entry' in line or 'spill' in line:
             print('  ptxas' + line.split('ptxas', 1)[-1])
@@ -704,7 +725,7 @@ def check_edge_shapes(g) -> None:
 
 @torch.inference_mode()
 def phase_kernels(cfg, batch0) -> dict:
-    print('[3/7] kernels vs plain versions at main-path shapes')
+    print('[3/8] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
     measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
                 'zwin_conv_fwd_epi': check_zwin_fused(cfg, batch0),
@@ -722,7 +743,7 @@ def phase_reference() -> None:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
     from fusionocc_tpu_torch.ops.kernels import KERNELS
-    print('[4/7] reference: midsize multi-modal fp32, card vs CPU plain '
+    print('[4/8] reference: midsize multi-modal fp32, card vs CPU plain '
           'versions')
     cfg = midsize_model_config(use_lidar=True)
     g = torch.Generator().manual_seed(7)
@@ -1064,7 +1085,7 @@ def phase_slice(batches) -> dict:
     kernel's launches on the path that runs it."""
     from fusionocc_tpu_torch.config import (full_model_config,
                                             image_only_model_config)
-    print('[5/7] slice: full-size predict, bf16')
+    print('[5/8] slice: full-size predict, bf16')
     paths = []
     for label, cfg in (('image-only', image_only_model_config()),
                        ('default multi-modal', full_model_config()),
@@ -1446,7 +1467,7 @@ def phase_streaming(batches) -> None:
     from fusionocc_tpu_torch.config import full_model_config
     from fusionocc_tpu_torch.models.fusion_occ import map_batch, stack_batches
     from tools.eval_torch_streaming_delta import clip_frames
-    print('[6/7] streaming: full-size default config, a clip of '
+    print('[6/8] streaming: full-size default config, a clip of '
           f'{CLIP_FRAMES} frames, a reset at frame {CLIP_RESET}')
     t0 = time.perf_counter()
     clip = stack_batches(clip_frames(full_model_config(), 0, CLIP_FRAMES,
@@ -1808,12 +1829,435 @@ def phase_training(batches) -> tuple:
     train step card vs CPU, (c) the full-size train steps.  Returns (the
     launches per full-size step, backward ms by kernel)."""
     from fusionocc_tpu_torch.config import full_model_config
-    print('[7/7] training: kernel Functions, midsize card vs CPU, '
+    print('[7/8] training: kernel Functions, midsize card vs CPU, '
           'full-size train steps (bf16)')
     bwd_ms = train_functions(full_model_config(), batches[0])
     torch.cuda.empty_cache()
     train_reference()
     return train_fullsize(batches), bwd_ms
+
+
+# phase 8: evaluation from an on-disk tree
+EVAL_SAMPLES = 9                        # one scene of consecutive samples
+RAW_HW = (900, 1600)                    # nuScenes camera images
+NUSC_INTRIN = ((1266.4, 0.0, 816.3), (0.0, 1266.4, 491.5), (0.0, 0.0, 1.0))
+LIDAR_T = (0.9, 0.0, 1.84)              # lidar2ego translation
+EGO_STEP = 2.5                          # ego metres per sample (2 Hz, 5 m/s)
+EVAL_LOADER_WORKERS = 4
+EVAL_SERIAL, EVAL_FSCORE = 3, 3         # samples timed alone; F-scored
+
+
+def mat_to_quat(m) -> list:
+    """3x3 rotation -> quaternion [w, x, y, z] (Shepperd's method)."""
+    import numpy as np
+    tr = np.trace(m)
+    if tr > 0:
+        s = 2.0 * math.sqrt(1.0 + tr)
+        q = [0.25 * s, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+             (m[1, 0] - m[0, 1]) / s]
+    else:
+        i = int(np.argmax(np.diag(m)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * math.sqrt(1.0 + m[i, i] - m[j, j] - m[k, k])
+        q = [0.0] * 4
+        q[0] = (m[k, j] - m[j, k]) / s
+        q[1 + i] = 0.25 * s
+        q[1 + j] = (m[j, i] + m[i, j]) / s
+        q[1 + k] = (m[k, i] + m[i, k]) / s
+    return [float(v) for v in q]
+
+
+def scene_boxes(rng) -> list:
+    """Static world of the scene, global frame: (min xyz, max xyz, class)
+    for cars, trucks and buses (4, 10, 3), building walls (manmade, 15)
+    and trees (vegetation, 16) along a straight road."""
+    import numpy as np
+    boxes = []
+    for _ in range(26):
+        cx, cy = rng.uniform(-30, 50), rng.uniform(-30, 30)
+        if abs(cy) < 2.5:
+            cy += 5.0 * np.sign(cy or 1)
+        cls = int(rng.choice([4, 4, 4, 10, 3]))
+        L, W, H = {4: (4.5, 2.0, 1.6), 10: (8.0, 2.6, 3.2),
+                   3: (11.0, 2.9, 3.4)}[cls]
+        if rng.rand() < 0.3:
+            L, W = W, L
+        boxes.append(((cx - L / 2, cy - W / 2, 0.0),
+                      (cx + L / 2, cy + W / 2, H), cls))
+    for _ in range(10):
+        cx, cy = rng.uniform(-40, 60), rng.choice([-1, 1]) * rng.uniform(
+            18, 38)
+        L, W = rng.uniform(8, 25), rng.uniform(0.5, 3.0)
+        boxes.append(((cx - L / 2, cy - W / 2, 0.0),
+                      (cx + L / 2, cy + W / 2, rng.uniform(4, 10)), 15))
+    for _ in range(12):
+        cx, cy = rng.uniform(-40, 60), rng.choice([-1, 1]) * rng.uniform(
+            10, 17)
+        r = rng.uniform(0.8, 2.0)
+        boxes.append(((cx - r, cy - r, 0.0), (cx + r, cy + r,
+                                              rng.uniform(3, 7)), 16))
+    return boxes
+
+
+def lidar_sweep(rng, boxes, origin):
+    """One 32-beam, 1100-azimuth sweep from ``origin`` (global), ray-cast
+    against the ground and the boxes: (P, 5) float32 x, y, z in the LiDAR
+    frame (axes along the global ones), intensity, ring."""
+    import numpy as np
+    n_beams, n_az = 32, 1100
+    elev = np.deg2rad(np.linspace(-30.67, 10.67, n_beams))
+    az = (np.arange(n_az) + rng.rand()) * (2 * np.pi / n_az)
+    d = np.stack([np.cos(az)[:, None] * np.cos(elev)[None],
+                  np.sin(az)[:, None] * np.cos(elev)[None],
+                  np.broadcast_to(np.sin(elev), (n_az, n_beams))],
+                 -1).reshape(-1, 3)
+    ring = np.tile(np.arange(n_beams), n_az)
+    o = np.asarray(origin, np.float64)
+    with np.errstate(divide='ignore', invalid='ignore'):
+        t = np.where(d[:, 2] < -1e-6, -o[2] / d[:, 2], np.inf)
+    bmin = np.asarray([b[0] for b in boxes])
+    bmax = np.asarray([b[1] for b in boxes])
+    inv = 1.0 / np.where(np.abs(d) > 1e-9, d, 1e-9)
+    t0 = (bmin[None] - o) * inv[:, None]
+    t1 = (bmax[None] - o) * inv[:, None]
+    tn, tf = np.minimum(t0, t1).max(-1), np.maximum(t0, t1).min(-1)
+    t = np.minimum(t, np.where((tn < tf) & (tn > 0.1), tn, np.inf).min(-1))
+    ok = np.isfinite(t) & (t < 70.0) & (rng.rand(len(t)) > 0.03)
+    pts = d[ok] * t[ok, None] + rng.randn(int(ok.sum()), 3) * 0.012
+    out = np.zeros((len(pts), 5), np.float32)
+    out[:, :3] = pts
+    out[:, 3] = rng.rand(len(pts)) * 100.0
+    out[:, 4] = ring[ok]
+    return out
+
+
+def occ_labels(rng, boxes, ego_x, grid):
+    """(semantics, mask_camera, mask_lidar) at the grid in the ego frame of
+    a sample whose ego stands at global x = ego_x: the ground layer
+    driveable surface (11), voxels whose centre lies in a box that box's
+    class, free (17) elsewhere; random visibility masks."""
+    import numpy as np
+    gx, gy, gz = grid.grid_size
+    xs = grid.x[0] + (np.arange(gx) + 0.5) * grid.x[2] + ego_x
+    ys = grid.y[0] + (np.arange(gy) + 0.5) * grid.y[2]
+    zs = grid.z[0] + (np.arange(gz) + 0.5) * grid.z[2]
+    sem = np.full((gx, gy, gz), 17, np.uint8)
+    sem[:, :, int(np.argmin(np.abs(zs)))] = 11
+    for lo, hi, cls in boxes:
+        ix = (xs >= lo[0]) & (xs < hi[0])
+        iy = (ys >= lo[1]) & (ys < hi[1])
+        iz = (zs >= lo[2]) & (zs < hi[2])
+        sem[np.ix_(ix, iy, iz)] = cls
+    shape = (gx, gy, gz)
+    return (sem, (rng.rand(*shape) > 0.25).astype(np.uint8),
+            (rng.rand(*shape) > 0.35).astype(np.uint8))
+
+
+def write_tree(root, cfg, seed: int = 0) -> tuple:
+    """One scene of EVAL_SAMPLES consecutive samples at full raw size,
+    written as the port's dataset reads it: six cameras of 900x1600 JPEGs
+    on the synthetic rig with nuScenes intrinsics, one LiDAR ``.bin``
+    sweep per sample with the ego EGO_STEP m further each sample,
+    ``labels.npz`` at the occupancy grid, 1/8-resolution ``.npy``
+    segmentation maps, and the infos pkl.  Returns (infos pkl, seg dir)."""
+    import os
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from fusionocc_tpu_torch.data.dataset import CAM_ORDER
+    from fusionocc_tpu_torch.data.synthetic import _camera_rig
+    rng = np.random.RandomState(seed)
+    rig = _camera_rig(len(CAM_ORDER)).astype(np.float64)
+    boxes = scene_boxes(rng)
+    H, W = RAW_HW
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    base = []                   # one image per camera, shifted per sample
+    for n in range(len(CAM_ORDER)):
+        low = rng.rand(H // 50 + 1, W // 50 + 1, 3).repeat(50, 0).repeat(
+            50, 1)[:H, :W] * 120
+        img = np.stack([xx * (255 / W), yy * (255 / H),
+                        (xx + yy + 40 * n) % 256], -1) * 0.5 + low
+        base.append(np.clip(img, 0, 255).astype(np.uint8))
+    seg_dir = os.path.join(root, 'img_seg')
+    infos = []
+    for i in range(EVAL_SAMPLES):
+        ego = [EGO_STEP * i, 0.0, 0.0]
+        ts = 1_000_000 + 500_000 * i
+        token = f'tok{i:02d}'
+        occ_dir = os.path.join(root, 'gts', 'scene-0001', token)
+        os.makedirs(occ_dir)
+        sem, mc, ml = occ_labels(rng, boxes, ego[0], cfg.grid)
+        np.savez(os.path.join(occ_dir, 'labels.npz'), semantics=sem,
+                 mask_camera=mc, mask_lidar=ml)
+        lidar_path = os.path.join(root, 'samples', 'LIDAR_TOP',
+                                  f'{i:04d}.bin')
+        os.makedirs(os.path.dirname(lidar_path), exist_ok=True)
+        lidar_sweep(rng, boxes, np.add(ego, LIDAR_T)).tofile(lidar_path)
+        cams = {}
+        for n, cam in enumerate(CAM_ORDER):
+            path = os.path.join(root, 'samples', cam, f'{i:04d}.jpg')
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            Image.fromarray(np.roll(base[n], -40 * i, axis=1)).save(
+                path, quality=90)
+            seg_path = os.path.join(seg_dir, cam, f'{i:04d}.npy')
+            os.makedirs(os.path.dirname(seg_path), exist_ok=True)
+            np.save(seg_path, rng.randint(0, 18, (H // 8, W // 8)).astype(
+                np.uint8))
+            cams[cam] = {
+                'data_path': path, 'sample_data_token': f'sd_{cam}_{i}',
+                'sensor2ego_rotation': mat_to_quat(rig[n, :3, :3]),
+                'sensor2ego_translation': [float(v) for v in rig[n, :3, 3]],
+                'ego2global_rotation': [1.0, 0.0, 0.0, 0.0],
+                'ego2global_translation': ego,
+                'cam_intrinsic': [list(r) for r in NUSC_INTRIN],
+                'timestamp': ts}
+        infos.append({
+            'token': token, 'scene_token': 'scene0',
+            'scene_name': 'scene-0001', 'timestamp': ts,
+            'lidar_path': lidar_path,
+            'lidar2ego_rotation': [1.0, 0.0, 0.0, 0.0],
+            'lidar2ego_translation': list(LIDAR_T),
+            'ego2global_rotation': [1.0, 0.0, 0.0, 0.0],
+            'ego2global_translation': ego, 'occ_path': occ_dir,
+            'cams': cams})
+    ann = os.path.join(root, 'fusionocc-nuscenes_infos_val.pkl')
+    with open(ann, 'wb') as f:
+        pickle.dump({'data_list': infos}, f)
+    return ann, seg_dir
+
+
+def lidar_density(ds, cfg) -> None:
+    """The fused cloud of each sample before ``pad_points`` (the dataset's
+    own loading, range filter in the ego frame), its point count against
+    ``point_capacity`` and its distinct LiDAR voxels (numpy, on the host)
+    against ``voxel_capacity[0]``: ROADMAP Queue C's C2."""
+    import numpy as np
+
+    from fusionocc_tpu_torch.data import pipeline as pl
+    lc = cfg.lidar
+    lo = np.float32(cfg.grid.point_cloud_range[:3])
+    vs = np.float32(lc.voxel_size)
+    dims = np.asarray(lc.sparse_shape(cfg.grid), np.int64)
+    rows = []
+    for i in range(len(ds)):
+        fused, _, l2e = ds._load_points(i, ds._sample_rng(i))
+        pts = pl.filter_points_range(pl.points_lidar_to_ego(fused, l2e),
+                                     cfg.grid.point_cloud_range)
+        cell = np.clip(np.floor((pts[:, :3] - lo) / vs).astype(np.int64), 0,
+                       dims - 1)
+        keys = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
+        rows.append((len(fused), len(pts), len(np.unique(keys))))
+    print('  LiDAR density per sample (fused cloud of up to 8 sweeps; '
+          'in range before pad_points; distinct voxels of 0.05 m): '
+          + '; '.join(f'{a} fused, {b} in range, {c} voxels'
+                      for a, b, c in rows), flush=True)
+    print(f'  LiDAR density, largest: {max(r[1] for r in rows)} points '
+          f'against point_capacity {lc.point_capacity} '
+          f'({max(r[1] for r in rows) / lc.point_capacity:.3f}); '
+          f'{max(r[2] for r in rows)} voxels against voxel_capacity[0] '
+          f'{lc.voxel_capacity[0]} '
+          f'({max(r[2] for r in rows) / lc.voxel_capacity[0]:.3f})',
+          flush=True)
+
+
+def eval_args(ann, seg, *extra):
+    import tools.test_torch as tt
+    return tt.parse_args(['--ann-file', ann, '--img-seg-dir', seg,
+                          '--device', DEV, '--warmup', '1', *extra])
+
+
+def eval_run(label, model, ann, seg, expect, *extra, keep=False):
+    """``tools/test_torch.evaluate`` in-process on the tree with ``model``;
+    launches counted over the run against ``expect`` per sample; every
+    result finite.  Returns (result, timings, launches, kept (host batch,
+    pred) when ``keep``)."""
+    import tools.test_torch as tt
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    kept = []
+    on_batch = ((lambda host, scenes, pred: kept.append((host, pred.clone())))
+                if keep else None)
+    torch.cuda.synchronize()
+    KERNELS.reset_counts()
+    t = time.perf_counter()
+    res, tm = tt.evaluate(eval_args(ann, seg, *extra), model=model,
+                          on_batch=on_batch)
+    wall = time.perf_counter() - t
+    got = {k: KERNELS.launches[k] for k in MAIN_KERNELS}
+    want = {k: v * EVAL_SAMPLES for k, v in expect.items()}
+    if got != want:
+        fail(f'eval {label}: launches {got}, expected {want}')
+    bad = [k for k, v in res.items() if not math.isfinite(v)]
+    if res['samples'] != EVAL_SAMPLES or bad:
+        fail(f'eval {label}: {res["samples"]} samples, not finite: {bad}')
+    def ms(xs):
+        return statistics.median(xs) * 1e3
+    print(f'  eval {label}: {EVAL_SAMPLES} samples in {wall:.2f} s '
+          f'({EVAL_SAMPLES / wall:.2f} samples/s); per sample median ms: '
+          f'loader wait {ms(tm.wait):.1f}, predict {ms(tm.predict):.1f}, '
+          f'mIoU update {ms(tm.metric):.2f}'
+          + (f', RayIoU update {ms(tm.rayiou):.1f}' if tm.rayiou else '')
+          + f'; launches {got} ({expect} per sample)', flush=True)
+    print(f'  eval {label} result: ' + json.dumps(res), flush=True)
+    return res, tm, got, kept
+
+
+def phase_eval() -> dict:
+    """Phase 8: the evaluation path of ``tools/test_torch.py`` from an
+    on-disk tree at full size.  Returns the two-pass run's launches."""
+    import tempfile
+
+    import numpy as np
+
+    from fusionocc_tpu_torch import native
+    from fusionocc_tpu_torch.config import full_model_config
+    from fusionocc_tpu_torch.data.dataset import (NuScenesOccDataset,
+                                                  data_loader, prefetch)
+    from fusionocc_tpu_torch.data.pipeline import to_device
+    from fusionocc_tpu_torch.eval.metrics import fscore
+    from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc,
+                                                       frame_pooling_index,
+                                                       spread_weights)
+    print(f'[8/8] evaluation: a written scene of {EVAL_SAMPLES} samples at '
+          'full raw size through tools/test_torch.py, bf16, batch 1')
+    cfg = full_model_config()
+    with tempfile.TemporaryDirectory(prefix='fusionocc_eval_') as root:
+        t = time.perf_counter()
+        ann, seg = write_tree(root, cfg)
+        print(f'  tree written in {time.perf_counter() - t:.1f} s', flush=True)
+        ds = NuScenesOccDataset(ann, cfg, img_seg_dir=seg, train=False)
+        serial = []
+        for i in range(EVAL_SERIAL):
+            t = time.perf_counter()
+            ds[i]
+            serial.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        n = sum(1 for _ in prefetch(data_loader(
+            ds, 1, shuffle=False, num_workers=EVAL_LOADER_WORKERS,
+            pin_memory=True)))
+        threaded = n / (time.perf_counter() - t)
+        print(f'  loader: ms per sample, serial (first {EVAL_SERIAL}), '
+              f'median {statistics.median(serial):.1f}, all '
+              f'{[round(x, 1) for x in serial]}; through data_loader('
+              f'num_workers={EVAL_LOADER_WORKERS}) and prefetch: '
+              f'{threaded:.2f} samples/s', flush=True)
+        if not native.STATS.built or min(
+                native.STATS.calls.get(k, 0)
+                for k in ('project_points', 'zbuffer_depth')) == 0:
+            fail(f'the native z-buffer library was not built and used: '
+                 f'built {native.STATS.built} ({native.STATS.error}), calls '
+                 f'{native.STATS.calls}')
+        print(f'  native library {native.STATS.path}: calls '
+              f'{native.STATS.calls}', flush=True)
+        lidar_density(ds, cfg)
+
+        model = spread_weights(FusionOcc(cfg, device=DEV),
+                               torch.Generator().manual_seed(0))
+        res, tm, launched, kept = eval_run(
+            'two-pass --buckets --rayiou', model, ann, seg,
+            launches_per(cfg, cfg.num_frame, 1), '--buckets', '--rayiou',
+            keep=True)
+        eval_run('--streaming', model, ann, seg, launches_per(cfg, 1, 1),
+                 '--streaming')
+        eval_run('--batch-frames', model, ann, seg, launches_per(cfg, 1, 1),
+                 '--batch-frames')
+        import tools.test_torch as tt
+        act = [torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=act) as prof:
+            t = time.perf_counter()
+            tt.evaluate(eval_args(ann, seg, '--buckets'), model=model)
+            wall = (time.perf_counter() - t) * 1e3
+        kernel_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        ) / 1e3
+        print(f'  profiled two-pass --buckets run: wall {wall:.1f} ms, '
+              f'kernel time {kernel_ms:.1f} ms, device idle share '
+              f'{1 - kernel_ms / wall:.3f}', flush=True)
+
+        # the loop's predictions against predict on the same loaded batches
+        batches = [to_device(host, DEV) for host, _ in kept]
+        key = frame_pooling_index(
+            cfg, batches[0].sensor2keyego[:, 0], batches[0].intrins[:, 0],
+            batches[0].post_rots[:, 0], batches[0].post_trans[:, 0],
+            batches[0].bda)
+        dev_ms, f_ms = [], []
+        for i, (b, (host, pred)) in enumerate(zip(batches, kept)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = model.predict(b, pool_idxs=[key, None])
+            end.record()
+            torch.cuda.synchronize()
+            dev_ms.append(start.elapsed_time(end))
+            if not torch.equal(pred, want):
+                fail(f'eval sample {i}: the loop predicted otherwise than '
+                     f'predict (agreement '
+                     f'{(pred == want).float().mean().item():.6f})')
+            if i >= EVAL_FSCORE:
+                continue
+            t = time.perf_counter()
+            fs = fscore(pred[0].cpu().numpy(), host.voxel_semantics[0].numpy(),
+                        host.mask_camera[0].numpy())
+            f_ms.append((time.perf_counter() - t) * 1e3)
+            if not all(map(math.isfinite, fs.values())):
+                fail(f'eval sample {i}: F-score not finite: {fs}')
+        print(f'  two-pass predictions equal predict on the same loaded '
+              f'batches ({EVAL_SAMPLES} samples); predict device ms per '
+              f'sample (CUDA events) median {statistics.median(dev_ms):.2f}, '
+              f'all {[round(x, 2) for x in dev_ms]}; F-score (host) ms per '
+              f'sample, first {EVAL_FSCORE}, median '
+              f'{statistics.median(f_ms):.1f}, last {fs}',
+              flush=True)
+        print(f'  where an evaluated sample\'s time goes (medians, ms): '
+              f'loader serial {statistics.median(serial):.1f} '
+              f'(threaded {1e3 / threaded:.1f} per sample); predict device '
+              f'{statistics.median(dev_ms):.2f}; mIoU update '
+              f'{statistics.median(tm.metric) * 1e3:.2f} (device); RayIoU '
+              f'{statistics.median(tm.rayiou) * 1e3:.1f}, F-score '
+              f'{statistics.median(f_ms):.1f} (host)', flush=True)
+
+        # calibration on the card: one sample's logits, the temperature fit
+        from fusionocc_tpu_torch.eval.calibration import (export_logits,
+                                                          fit_temperature,
+                                                          uncertainty_maps)
+        ex = export_logits(model, batches[0])
+        logits = torch.from_numpy(ex['logits']).to(DEV)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        temp = fit_temperature(logits,
+                               torch.from_numpy(ex['voxel_semantics']).to(DEV),
+                               torch.from_numpy(ex['mask_camera']).to(DEV))
+        fit_ms = (time.perf_counter() - t) * 1e3
+        unc = uncertainty_maps(logits, temp)
+        if not (math.isfinite(temp) and bool(torch.isfinite(
+                unc['entropy']).all())):
+            fail(f'calibration: temperature {temp} or entropy not finite')
+        print(f'  calibration on the card: fit_temperature over one sample\'s '
+              f'{logits.shape[1:4].numel()} voxels (60 golden-section steps) '
+              f'T = {temp:.4f} in {fit_ms:.1f} ms; mean MSP '
+              f'{unc["msp"].mean().item():.4f}, mean normalised entropy '
+              f'{unc["entropy"].mean().item():.4f}', flush=True)
+        del ex, logits, unc
+
+        # every kernel launch of one loaded sample against its plain version
+        with KernelCheck('eval two-pass, one loaded sample', cfg) as kc:
+            model.predict(batches[0], pool_idxs=[key, None])
+        with KernelCheck('eval streamed, one loaded sample', cfg) as ks:
+            model.predict_streaming(batches[0], model.init_streaming_state(1),
+                                    pool_idx=key)
+        for label, check, passes in (('two-pass', kc, cfg.num_frame),
+                                     ('streamed', ks, 1)):
+            want = {k: v for k, v in launches_per(cfg, passes, 1).items()
+                    if v}
+            got = {k: n for k, (n, _, _) in check.seen.items()}
+            if got != want:
+                fail(f'eval {label}: launches per sample {got}, expected '
+                     f'{want}')
+        del model, batches, kept
+    torch.cuda.empty_cache()
+    return launched
 
 
 def main() -> None:
@@ -1831,6 +2275,7 @@ def main() -> None:
     launches = phase_slice(batches)
     phase_streaming(batches)
     train, bwd_ms = phase_training(batches)
+    evaluated = phase_eval()
     sources = {
         'window_attn_fwd': ('fusionocc_tpu_torch/csrc/window_attn.cu',
                             'fusionocc_tpu/ops/pallas/window_attn.py:79'),
@@ -1850,7 +2295,8 @@ def main() -> None:
                         'replaces': sources[name][1],
                         'launches': launches[name], **m,
                         'train_launches': train[name],
-                        'backward_ms': bwd_ms.get(name)})
+                        'backward_ms': bwd_ms.get(name),
+                        'eval_launches': evaluated[name]})
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -9,9 +9,9 @@ properties; ``GridConfig.lower_bound`` / ``interval`` return plain tuples and
 Fields that only the JAX package acts on (the TPU tiling knobs and
 formulation switches) are kept so that configurations compare equal.
 ``OptimConfig``, ``EvalConfig`` and ``TrainConfig`` mirror the training
-configuration the same way.  ``check_supported`` and
-``check_train_supported`` reject the values that would select a path the
-port does not have.
+configuration the same way; the named presets are in ``configs.py``.
+``check_supported`` and ``check_train_supported`` reject the values that
+would select a path the port does not have.
 """
 from __future__ import annotations
 
@@ -251,8 +251,11 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class EvalConfig:
-    """The evaluation protocol: ``metric`` 'miou' (masked Occ3D mIoU, ported)
-    or 'rayiou'; ``use_image_mask``; ``split`` of the infos file."""
+    """The evaluation protocol: ``metric`` 'miou' (masked Occ3D mIoU),
+    'rayiou' (RayIoU, evaluated without the camera mask) or 'hybrid' (both
+    side by side); ``use_image_mask``; ``split`` of the infos file ('val',
+    'val_eval' or 'val_calib', which ``tools/test_torch.py`` maps to
+    ``fusionocc-nuscenes_infos_<split>.pkl`` next to ``--ann-file``)."""
     metric: str = 'miou'
     use_image_mask: bool = True
     split: str = 'val'
@@ -299,13 +302,12 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_train_supported(cfg: TrainConfig) -> None:
-    """``check_supported`` on the model, and refuse what training with the
-    port cannot do yet, naming the ROADMAP item that brings it."""
+    """``check_supported`` on the model; every evaluation protocol
+    (``EvalConfig.metric``) is ported."""
     check_supported(cfg.model)
-    if cfg.eval.metric != 'miou':
-        raise NotImplementedError(
-            f'eval.metric={cfg.eval.metric!r}: RayIoU is not ported yet '
-            '(ROADMAP Queue A item 10)')
+    if cfg.eval.metric not in ('miou', 'rayiou', 'hybrid'):
+        raise ValueError(f'eval.metric={cfg.eval.metric!r}: one of miou, '
+                         'rayiou, hybrid')
 
 
 def tiny_model_config(**overrides) -> ModelConfig:

@@ -1,8 +1,12 @@
-"""Camera geometry of the LSS view transformer, in float32 tensors.
+"""Geometry: the host pose helpers and the LSS view transformer's camera
+geometry.
 
-Ports ``make_frustum``, ``frustum_to_ego`` and ``get_mlp_input`` of
-``fusionocc_tpu/geometry.py`` with the same operation order, so that the
-frustum coordinates, and the voxels they quantise to, agree with it.
+The host half (``quat_to_mat``, ``pose_matrix``, ``sensor2keyego_chain``,
+``bda_matrix``) is numpy float64, as in ``fusionocc_tpu/geometry.py``: the
+data pipeline builds every pose chain with it.  ``make_frustum``,
+``frustum_to_ego``, ``get_mlp_input`` and ``points_to_depthmap`` are float32
+tensors with JAX's operation order, so that the frustum coordinates, and
+the voxels they quantise to, agree with it.
 """
 from __future__ import annotations
 
@@ -11,6 +15,66 @@ from typing import Tuple
 import numpy as np
 import torch
 
+
+# ---------------------------------------------------------------------------
+# Host-side (numpy, float64) pose utilities.
+# ---------------------------------------------------------------------------
+
+def quat_to_mat(q) -> np.ndarray:
+    """Quaternion (w, x, y, z) -> 3x3 rotation matrix, float64."""
+    w, x, y, z = [float(v) for v in q]
+    n = w * w + x * x + y * y + z * z
+    s = 0.0 if n == 0.0 else 2.0 / n
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    return np.array(
+        [[1.0 - (yy + zz), xy - wz, xz + wy],
+         [xy + wz, 1.0 - (xx + zz), yz - wx],
+         [xz - wy, yz + wx, 1.0 - (xx + yy)]], dtype=np.float64)
+
+
+def pose_matrix(rotation_quat, translation) -> np.ndarray:
+    """4x4 homogeneous pose from quaternion + translation (float64)."""
+    m = np.eye(4, dtype=np.float64)
+    m[:3, :3] = quat_to_mat(rotation_quat)
+    m[:3, 3] = np.asarray(translation, dtype=np.float64)
+    return m
+
+
+def sensor2keyego_chain(sensor2egos: np.ndarray,
+                        ego2globals: np.ndarray) -> np.ndarray:
+    """(F, N, 4, 4) camera->own-ego and ego->global poses -> (F, N, 4, 4)
+    float32 camera->key-ego, the key ego being frame 0 / camera 0's; the
+    chain is taken in float64."""
+    s2e = np.asarray(sensor2egos, dtype=np.float64)
+    e2g = np.asarray(ego2globals, dtype=np.float64)
+    global2keyego = np.linalg.inv(e2g[0, 0])
+    out = global2keyego[None, None] @ e2g @ s2e
+    return out.astype(np.float32)
+
+
+def bda_matrix(rotate_deg: float, scale: float,
+               flip_dx: bool, flip_dy: bool) -> np.ndarray:
+    """BEV data-augmentation 3x3 matrix (float32): rotation about z, uniform
+    scale, then optional x/y flips."""
+    a = np.deg2rad(rotate_deg)
+    rot = np.array([[np.cos(a), -np.sin(a), 0.0],
+                    [np.sin(a), np.cos(a), 0.0],
+                    [0.0, 0.0, 1.0]], dtype=np.float64)
+    scale_m = np.eye(3, dtype=np.float64) * scale
+    scale_m[2, 2] = scale
+    flip = np.eye(3, dtype=np.float64)
+    if flip_dx:
+        flip[0, 0] = -1.0
+    if flip_dy:
+        flip[1, 1] = -1.0
+    return (flip @ (scale_m @ rot)).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Tensor geometry.
+# ---------------------------------------------------------------------------
 
 def make_frustum(depth_cfg: Tuple[float, float, float],
                  input_size: Tuple[int, int],
@@ -87,3 +151,24 @@ def get_mlp_input(sensor2keyego: torch.Tensor,
     ], dim=-1)
     pose = sensor2keyego[:, :, :3, :].reshape(B, N, 12)
     return torch.cat([feats, pose], dim=-1)
+
+
+def points_to_depthmap(points_img: torch.Tensor, valid: torch.Tensor,
+                       height: int, width: int,
+                       depth_range: Tuple[float, float]) -> torch.Tensor:
+    """Z-buffered sparse depth map (height, width) float32 from projected
+    points: (P, 3) (u, v, depth) in pixels and (P,) bool ``valid``.  Each
+    point rounds to its pixel (half to even); the nearest depth in
+    [lo, hi) wins; 0 where no point lands."""
+    u = torch.round(points_img[:, 0]).long()
+    v = torch.round(points_img[:, 1]).long()
+    d = points_img[:, 2].float()
+    keep = (valid & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+            & (d >= depth_range[0]) & (d < depth_range[1]))
+    pix = torch.where(keep, v * width + u, height * width)   # dump invalid
+    d = torch.where(keep, d, torch.full_like(d, float('inf')))
+    flat = torch.full((height * width + 1,), float('inf'),
+                      dtype=torch.float32, device=d.device)
+    flat = flat.scatter_reduce(0, pix, d, reduce='amin')
+    out = flat[:height * width].reshape(height, width)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

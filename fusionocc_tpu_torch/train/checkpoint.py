@@ -3,7 +3,8 @@ parameters and buffers, the optimizer state, the EMA, the accumulation
 buffer} in ``<root>/step_<n>/state.pt``.
 
 Port of ``fusionocc_tpu/train/checkpoint.py``'s save, restore and
-``latest_checkpoint``; the JAX package's orbax files are not read.
+``latest_checkpoint``, and ``load_for_eval`` for the evaluation tool; the
+JAX package's orbax files are not read.
 """
 from __future__ import annotations
 
@@ -37,6 +38,22 @@ def restore_checkpoint(path: str, model: torch.nn.Module,
     sd = torch.load(os.path.join(path, STATE_FILE), map_location=dev)
     model.load_state_dict(sd['model'], strict=True)
     state.load_state_dict(sd['train_state'])
+
+
+def load_for_eval(path: str, model: torch.nn.Module, use_ema: bool = True
+                  ) -> int:
+    """Load a checkpoint's weights into ``model`` for evaluation: its
+    parameters and buffers, then, with ``use_ema``, the EMA over the
+    parameters (``tools/test.py`` evaluates ``ema_params`` unless
+    ``--no-ema``).  Returns the checkpoint's step."""
+    dev = next(model.parameters()).device
+    sd = torch.load(os.path.join(path, STATE_FILE), map_location=dev)
+    model.load_state_dict(sd['model'], strict=True)
+    if use_ema:
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(sd['train_state']['ema'][name])
+    return int(sd['step'])
 
 
 def latest_checkpoint(root: str) -> Optional[str]:

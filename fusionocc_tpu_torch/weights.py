@@ -8,6 +8,10 @@ leaf path to its torch key and the layout change (flax kernels are
 (..., in, out), torch's (out, in, ...), spconv2's (out, k, k, k, in)).
 ``num_batches_tracked`` and ``relative_position_index`` buffers, which flax
 does not keep, are filled in.
+
+``convert_official_swin``, ``resize_bias_table`` and ``load_official_swin``
+warm-start the image backbone from an official (Microsoft) Swin checkpoint,
+as ``fusionocc_tpu/train/torch_import.py`` does for JAX.
 """
 from __future__ import annotations
 
@@ -231,3 +235,133 @@ def state_dict_from_flax(params: Any, batch_stats: Any, cfg: ModelConfig
             sd[key[:-len('relative_position_bias_table')]
                + 'relative_position_index'] = rpi.clone()
     return sd
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel, a = -0.5, of |x| (in x's dtype)."""
+    x = np.abs(x)
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out).astype(x.dtype)
+
+
+def _cubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 resampling weights of ``jax.image.resize(...,
+    'cubic')``, with its float32 operation order: sample points on
+    half-pixel centres, the kernel widened by the scale when shrinking
+    (antialias), each column normalised over the input samples, and
+    columns whose sample lies outside the input zero."""
+    f32 = np.float32
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = f32(max(inv_scale, 1.0))
+    sample = ((np.arange(n_out, dtype=f32) + f32(0.5)) * f32(inv_scale)
+              - f32(0.0)) - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None])
+    w = _keys_cubic(x / kernel_scale)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= f32(n_in) - f32(0.5))
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_bias_table(table: np.ndarray, target_len: int) -> np.ndarray:
+    """Resize a ((2w-1)^2, heads) relative-position bias table to
+    ``target_len`` rows (another window size), as JAX's importer does with
+    ``jax.image.resize(..., 'cubic')``: Keys' cubic with a = -0.5 on
+    half-pixel centres, separable over the two table axes; JAX's float32
+    weights, summed in float64.
+    ``F.interpolate(mode='bicubic')`` takes a = -0.75 and differs."""
+    table = np.asarray(table)
+    L1, nH = table.shape
+    s1 = int(round(L1 ** 0.5))
+    s2 = int(round(target_len ** 0.5))
+    if s1 == s2:
+        return table
+    w = _cubic_weights(s1, s2).astype(np.float64)
+    t = table.reshape(s1, s1, nH).astype(np.float64)
+    out = np.einsum('ijh,ia,jb->abh', t, w, w)
+    return out.reshape(s2 * s2, nH).astype(np.float32)
+
+
+def convert_official_swin(state_dict: Dict[str, np.ndarray],
+                          prefix: str = 'img_backbone.'
+                          ) -> Dict[str, np.ndarray]:
+    """Official (Microsoft) Swin checkpoint keys -> the mmcv keys the port's
+    backbone carries: layers -> stages, attn. -> attn.w_msa., mlp.fc1/fc2
+    -> ffn.layers.0.0/1, patch_embed.proj -> projection, the classification
+    head dropped, and PatchMerging's reduction and norm weights reordered
+    from the official concat order [x00, x10, x01, x11] to mmcv unfold's
+    interleaved c*4+p (the reference's swin_convert)."""
+    def reduction_order(x):
+        o, i = x.shape
+        return x.reshape(o, 4, i // 4)[:, (0, 2, 1, 3)].transpose(
+            0, 2, 1).reshape(o, i)
+
+    def norm_order(x):
+        i = x.shape[0]
+        return x.reshape(4, i // 4)[(0, 2, 1, 3), :].T.reshape(i)
+
+    out: Dict[str, np.ndarray] = {}
+    for k, v in state_dict.items():
+        v = np.asarray(v)
+        if k.startswith('head'):
+            continue
+        if k.startswith('layers'):
+            if 'attn.' in k:
+                k = k.replace('attn.', 'attn.w_msa.')
+            elif 'mlp.fc1.' in k:
+                k = k.replace('mlp.fc1.', 'ffn.layers.0.0.')
+            elif 'mlp.fc2.' in k:
+                k = k.replace('mlp.fc2.', 'ffn.layers.1.')
+            elif 'mlp.' in k:
+                k = k.replace('mlp.', 'ffn.')
+            elif 'downsample' in k:
+                if 'reduction.' in k:
+                    v = reduction_order(v)
+                elif 'norm.' in k:
+                    v = norm_order(v)
+            k = k.replace('layers', 'stages', 1)
+        elif k.startswith('patch_embed') and 'proj' in k:
+            k = k.replace('proj', 'projection')
+        out[prefix + k] = v
+    return out
+
+
+@torch.no_grad()
+def load_official_swin(model: torch.nn.Module,
+                       state_dict: Dict[str, np.ndarray]) -> Dict[str, list]:
+    """Copy an official Swin checkpoint into ``model.img_backbone``:
+    ``convert_official_swin``, then each tensor of the backbone whose key
+    the checkpoint has, the bias tables resized to the model's window
+    (``resize_bias_table``); ``relative_position_index`` is the model's
+    own.  Returns the report: ``loaded``, ``missing`` (backbone tensors the
+    checkpoint lacks), ``unused`` (checkpoint keys the backbone lacks) and
+    ``shape_mismatch``; raises ValueError on a mismatch."""
+    sd = convert_official_swin(state_dict)
+    own = {k: v for k, v in model.state_dict().items()
+           if k.startswith('img_backbone.')
+           and not k.endswith('relative_position_index')}
+    report: Dict[str, list] = {'loaded': [], 'missing': [], 'unused': [],
+                               'shape_mismatch': []}
+    for key, dst in own.items():
+        if key not in sd:
+            report['missing'].append(key)
+            continue
+        val = np.asarray(sd[key], np.float32)
+        if (key.endswith('relative_position_bias_table')
+                and val.shape != tuple(dst.shape)
+                and val.shape[1] == dst.shape[1]):
+            val = resize_bias_table(val, dst.shape[0])
+        if val.shape != tuple(dst.shape):
+            report['shape_mismatch'].append(
+                f'{key}: checkpoint {val.shape} vs model {tuple(dst.shape)}')
+            continue
+        dst.copy_(torch.from_numpy(val))
+        report['loaded'].append(key)
+    report['unused'] = sorted(
+        k for k in sd if k not in own
+        and not k.endswith(('relative_position_index', 'attn_mask')))
+    if report['shape_mismatch']:
+        raise ValueError(f'official Swin import: {report["shape_mismatch"]}')
+    return report

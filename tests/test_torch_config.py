@@ -130,6 +130,12 @@ def test_port_imports_no_jax():
         'fusionocc_tpu_torch.ops.dense_conv, '
         'fusionocc_tpu_torch.weights, fusionocc_tpu_torch.data.synthetic, '
         'fusionocc_tpu_torch.eval.metrics, '
+        'fusionocc_tpu_torch.eval.ray_metrics, '
+        'fusionocc_tpu_torch.eval.calibration, fusionocc_tpu_torch.configs, '
+        'fusionocc_tpu_torch.data.pipeline, fusionocc_tpu_torch.data.dataset, '
+        'fusionocc_tpu_torch.data.masks, fusionocc_tpu_torch.native, '
+        'fusionocc_tpu_torch.utils.profiling, '
+        'fusionocc_tpu_torch.utils.logging, tools.test_torch, '
         'fusionocc_tpu_torch.train.loop, fusionocc_tpu_torch.train.losses, '
         'fusionocc_tpu_torch.train.checkpoint, tools.train_torch, '
         'chip_smoke, tools.profile_torch_zwin_micro, '

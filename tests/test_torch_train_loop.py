@@ -7,7 +7,8 @@
   occupancy loss in two chunks under ``lax.map`` and the port in one pass.
   1e-5 relative (fp32 sums in another order).
 - ``OptimConfig``, ``EvalConfig`` and ``TrainConfig`` equal JAX's field
-  by field; ``check_train_supported`` refuses RayIoU (ROADMAP item 10).
+  by field; ``check_train_supported`` takes every evaluation protocol of
+  the presets (mIoU, RayIoU, hybrid) and refuses an unknown one.
 - The optimizer against optax's chain on a small module whose parameters
   sit under ``img_backbone``, ``img_view_transformer`` and another root:
   three steps with clipping active, with ``backbone_lr_mult`` 0.1 (two
@@ -23,7 +24,8 @@
 - A checkpoint round trip, and a resumed run giving the same next step as
   the uninterrupted one, bit for bit under torch's deterministic algorithms
   (random draws included); ``tools/train_torch.py
-  --tiny --synthetic --steps 2 --device cpu`` and its refusal of real data.
+  --tiny --synthetic --steps 2 --device cpu`` and its refusal to run with
+  neither data source.
 - ``predict`` on a model left in train mode equals ``predict`` in eval, and
   leaves the mode as it was; ``eval_step`` predicts with the EMA.
 """
@@ -137,9 +139,12 @@ def test_train_configs_match_jax():
                  dataclasses.fields(getattr(tcfg, name))]
                 == [(f.name, f.default) for f in
                     dataclasses.fields(getattr(jcfg, name))]), name
-    with pytest.raises(NotImplementedError, match='item 10'):
+    for metric in ('miou', 'rayiou', 'hybrid'):
         tcfg.check_train_supported(tcfg.TrainConfig(
-            model=_tiny(), eval=tcfg.EvalConfig(metric='rayiou')))
+            model=_tiny(), eval=tcfg.EvalConfig(metric=metric)))
+    with pytest.raises(ValueError, match='rayiou'):
+        tcfg.check_train_supported(tcfg.TrainConfig(
+            model=_tiny(), eval=tcfg.EvalConfig(metric='nope')))
 
 
 def jcfg_tiny():
@@ -320,7 +325,7 @@ def test_train_tool_runs_on_cpu(tmp_path):
     assert os.path.isfile(tmp_path / 'step_2' / ckpt.STATE_FILE)
     real = subprocess.run(cmd[:2] + ['--tiny'], capture_output=True,
                           text=True, timeout=300, cwd=REPO)
-    assert real.returncode != 0 and 'item 10' in real.stderr
+    assert real.returncode != 0 and '--ann-file' in real.stderr
 
 
 def test_predict_in_train_mode_equals_eval():

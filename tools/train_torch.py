@@ -1,18 +1,27 @@
-"""Training CLI of the PyTorch port: the counterpart of ``tools/train.py``'s
-``--synthetic`` branch.
+"""Training CLI of the PyTorch port: the counterpart of ``tools/train.py``.
 
+    python3 tools/train_torch.py --ann-file data/nuscenes/fusionocc-nuscenes_infos_train.pkl \
+        --img-seg-dir data/nuscenes/img_seg --config fusion_occ_unified \
+        --load-from swin_base_patch4_window12_384_22k.pth --steps 0
     python3 tools/train_torch.py --synthetic --steps 10
     python3 tools/train_torch.py --tiny --synthetic --steps 2 --device cpu
     python3 tools/train_torch.py --synthetic --steps 20 --resume work_dirs/x
 
-Every step trains on the synthetic batch of seed 0, as ``tools/train.py
---synthetic`` does; the schedule's epoch is ``--steps`` long.  ``--tiny``
-takes the tiny model with the LiDAR encoder on the port's z-folded path
-(``backend='zfold'``, ``zconv='zband'``); the default is the full model.
-Checkpoints go to ``<work-dir>/step_<n>`` every ``--ckpt-interval-steps``
-(0: once per epoch) and at the end; ``--resume`` takes a checkpoint or the
-work dir holding them (its latest).  The nuScenes data pipeline is not
-ported yet: without ``--synthetic`` the tool refuses to run.
+``--config`` takes a preset of ``fusionocc_tpu_torch.configs`` (default
+``fusion_occ``; ``--tiny`` alone: ``tiny``, whose LiDAR encoder runs on the
+port's z-folded path, ``backend='zfold'``, ``zconv='zband'``).  With
+``--ann-file`` the port's ``NuScenesOccDataset(train=True)`` feeds the
+steps through ``data_loader`` (shuffled by epoch, 4 threads) and
+``prefetch``, each epoch with its own augmentations (``set_epoch``); the
+schedule's epoch is the dataset's length over the batch size.  With
+``--synthetic`` every step trains on the synthetic batch of seed 0 and the
+epoch is ``--steps`` long.  ``--load-from`` warm-starts the image backbone
+from an official Swin checkpoint (``weights.load_official_swin``).
+``--steps 0`` runs the whole schedule.  Scalars go to
+``<work-dir>/scalars.jsonl``; checkpoints to ``<work-dir>/step_<n>`` every
+``--ckpt-interval-steps`` (0: once per epoch) and at the end; ``--resume``
+takes a checkpoint or the work dir holding them (its latest).  Training
+over several processes is ROADMAP Queue A item 11.
 """
 from __future__ import annotations
 
@@ -25,30 +34,62 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def build_config(tiny: bool, steps: int, lr, accumulate):
-    from fusionocc_tpu_torch.config import (OptimConfig, TrainConfig,
-                                            full_model_config,
-                                            tiny_model_config)
-    if tiny:
-        model = tiny_model_config()
+def build_config(config, tiny: bool, iters_per_epoch: int, lr, accumulate,
+                 epochs=None, batch_size: int = 1):
+    """The preset's ``TrainConfig`` with the schedule and overrides of the
+    command line; the tiny preset's LiDAR encoder on the z-folded path."""
+    from fusionocc_tpu_torch.config import TrainConfig
+    from fusionocc_tpu_torch.configs import get_config
+    preset = get_config(config or ('tiny' if tiny else 'fusion_occ'))
+    model = preset.model
+    if model.lidar.backend != 'zfold':
         model = dataclasses.replace(model, lidar=dataclasses.replace(
             model.lidar, backend='zfold', zconv='zband'))
-    else:
-        model = full_model_config()
     optim = dataclasses.replace(
-        OptimConfig(), iters_per_epoch=max(steps, 1),
-        **{k: v for k, v in (('lr', lr), ('accumulate_steps', accumulate))
+        preset.optim, iters_per_epoch=max(iters_per_epoch, 1),
+        **{k: v for k, v in (('lr', lr), ('accumulate_steps', accumulate),
+                             ('max_epochs', epochs))
            if v is not None})
-    return TrainConfig(model=model, optim=optim)
+    return TrainConfig(model=model, optim=optim, eval=preset.eval,
+                       batch_size=batch_size)
+
+
+def load_official_checkpoint(path: str, model) -> None:
+    """Warm-start the image backbone from an official Swin state dict (a
+    ``.pth``, its tensors under 'model' or 'state_dict' or at the top)."""
+    import torch
+
+    from fusionocc_tpu_torch.weights import load_official_swin
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    for key in ('model', 'state_dict'):
+        if isinstance(sd.get(key), dict):
+            sd = sd[key]
+            break
+    report = load_official_swin(
+        model, {k: v.float().numpy() for k, v in sd.items()
+                if hasattr(v, 'numpy')})
+    print(f'load-from {path}: {len(report["loaded"])} backbone tensors '
+          f'loaded, {len(report["missing"])} missing, '
+          f'{len(report["unused"])} checkpoint keys unused', flush=True)
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument('--ann-file', default=None)
+    ap.add_argument('--data-root', default='')
+    ap.add_argument('--img-seg-dir', default=None)
+    ap.add_argument('--config', default=None,
+                    help='named preset of fusionocc_tpu_torch.configs')
     ap.add_argument('--synthetic', action='store_true')
     ap.add_argument('--tiny', action='store_true', help='tiny model (debug)')
-    ap.add_argument('--steps', type=int, default=10)
+    ap.add_argument('--steps', type=int, default=10,
+                    help='stop after N steps (0 = the whole schedule)')
+    ap.add_argument('--batch-size', type=int, default=1)
+    ap.add_argument('--epochs', type=int, default=None)
     ap.add_argument('--accumulate', type=int, default=None)
     ap.add_argument('--lr', type=float, default=None)
+    ap.add_argument('--load-from', default=None,
+                    help='official Swin checkpoint for the image backbone')
     ap.add_argument('--work-dir', default='./work_dirs/fusion_occ_torch')
     ap.add_argument('--resume', default=None)
     ap.add_argument('--ckpt-interval-steps', type=int, default=0,
@@ -56,41 +97,79 @@ def main(argv=None) -> None:
     ap.add_argument('--log-interval', type=int, default=1)
     ap.add_argument('--device', default='cuda')
     args = ap.parse_args(argv)
-    if not args.synthetic:
-        sys.exit('train_torch.py: the nuScenes data pipeline is not ported '
-                 'yet (ROADMAP Queue A item 10); pass --synthetic')
+    if not args.synthetic and not args.ann_file:
+        ap.error('pass --ann-file (an infos pkl) or --synthetic')
 
     import torch
 
-    from fusionocc_tpu_torch.data.synthetic import synthetic_batch
+    from fusionocc_tpu_torch.data.pipeline import to_device
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
     from fusionocc_tpu_torch.train import checkpoint as ckpt
     from fusionocc_tpu_torch.train.loop import create_train_state, train_step
+    from fusionocc_tpu_torch.utils.logging import MetricLogger
 
-    cfg = build_config(args.tiny, args.steps, args.lr, args.accumulate)
+    on_card = torch.device(args.device).type == 'cuda'
+    if args.synthetic:
+        cfg = build_config(args.config, args.tiny, args.steps, args.lr,
+                           args.accumulate, args.epochs, args.batch_size)
+        from fusionocc_tpu_torch.data.synthetic import synthetic_batch
+        batch = synthetic_batch(cfg.model, args.batch_size, 0,
+                                device=args.device)
+
+        def batches():
+            while True:
+                yield batch
+    else:
+        from fusionocc_tpu_torch.data.dataset import (NuScenesOccDataset,
+                                                      data_loader, prefetch)
+        cfg = build_config(args.config, args.tiny, 1, args.lr,
+                           args.accumulate, args.epochs, args.batch_size)
+        ds = NuScenesOccDataset(args.ann_file, cfg.model,
+                                data_root=args.data_root,
+                                img_seg_dir=args.img_seg_dir, train=True,
+                                seed=cfg.seed)
+        cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
+            cfg.optim, iters_per_epoch=max(len(ds) // args.batch_size, 1)))
+
+        def batches():
+            epoch = 0
+            while True:
+                ds.set_epoch(epoch)     # fresh augmentations each epoch
+                for host in prefetch(data_loader(
+                        ds, args.batch_size, shuffle=True, seed=epoch,
+                        pin_memory=on_card)):
+                    yield to_device(host, args.device)
+                epoch += 1
+
     model = init_weights(FusionOcc(cfg.model, device=args.device),
                          torch.Generator().manual_seed(cfg.seed))
+    if args.load_from:
+        load_official_checkpoint(args.load_from, model)
     state = create_train_state(model, cfg)
     if args.resume:
         path = ckpt.latest_checkpoint(args.resume) or args.resume
         ckpt.restore_checkpoint(path, model, state)
         print(f'resumed from {path} at step {state.step}', flush=True)
-    batch = synthetic_batch(cfg.model, 1, 0, device=args.device)
+    total = args.steps or cfg.optim.max_epochs * cfg.optim.iters_per_epoch
     ckpt_every = args.ckpt_interval_steps or cfg.optim.iters_per_epoch
-    sync = (torch.cuda.synchronize if torch.device(args.device).type == 'cuda'
-            else (lambda: None))
+    mlog = MetricLogger(args.work_dir, use_tensorboard=False)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    gen = batches()
     t0, first = time.perf_counter(), state.step
-    while state.step < args.steps:
-        logs = train_step(model, cfg, state, batch)
+    while state.step < total:
+        logs = train_step(model, cfg, state, next(gen))
         if state.step % args.log_interval == 0 or state.step == first + 1:
             sync()
-            dt = (time.perf_counter() - t0) / (state.step - first)
-            line = ' '.join(f'{k}={float(v):.4f}' for k, v in logs.items())
-            print(f'step {state.step}/{args.steps} {line} '
-                  f'sec_per_iter={dt:.4f}', flush=True)
-        if state.step % ckpt_every == 0 and state.step < args.steps:
+            scalars = {k: float(v) for k, v in logs.items()}
+            scalars['sec_per_iter'] = ((time.perf_counter() - t0)
+                                       / (state.step - first))
+            mlog.log(state.step, scalars)
+            line = ' '.join(f'{k}={v:.4f}' for k, v in scalars.items())
+            print(f'step {state.step}/{total} {line}', flush=True)
+        if state.step % ckpt_every == 0 and state.step < total:
             print(f'saved {ckpt.save_checkpoint(args.work_dir, model, state)}',
                   flush=True)
+    mlog.close()
     path = ckpt.save_checkpoint(args.work_dir, model, state)
     print(f'final checkpoint: {path}', flush=True)
 
