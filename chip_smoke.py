@@ -113,14 +113,35 @@ Phases, each printing its own lines; any failure exits non-zero:
    K1, K2 and K3 launch of one loaded sample, two-pass and streamed,
    against its plain version.
 
+9. data-parallel training over processes on the one card (spawned ranks,
+   the kernels built by the parent): two ranks exchange CUDA tensors over
+   gloo, because NCCL refuses two ranks on one device (gloo stages each
+   collective through the host, so its times measure neither NCCL nor a
+   second card and are no scaling figures). (a) 2 ranks x batch 1 against
+   one process at batch 2, midsize fp32, the random draws on (drop path
+   0.2), 2 steps: each step against one process's step from the same
+   state (losses, gradients, grad_norm, parameters, running statistics,
+   EMA; tolerances at ``held_to_one``), and the ranks' parameters, buffers
+   and EMA bit-identical after each step; (b) NCCL at world 1 against the
+   plain step, the same way; (c) the default full-size config in bf16,
+   batch 1 per rank, 1 warm-up and 3 timed steps on 2 ranks: s/iter per
+   rank (CUDA events, wall), the time inside collectives (the card
+   synchronised around each), the collectives per step (BatchNorm
+   statistics, losses, gradient buckets), the peak memory above what each
+   rank held, launches gated as phase 7c gates them, the ranks
+   bit-identical; beside them one process at batch 1 and at batch 2; (d)
+   ``OccupancyMetric`` over 2 ranks, 2 predicted samples each, equal to
+   one process over the 4.
+
 A kernel's bound is the least time the card could take for the same work:
 the larger of its operations over the peak rate of their type and its bytes
 (each input read once, each output written once) over the memory rate,
 from NVIDIA's H100 SXM data sheet.
 
 The last two lines are the kernels' JSON summary (with each kernel's
-launches per full-size train step, its backward's ms and its launches in
-phase 8's two-pass evaluation of 9 samples) and the result JSON.
+launches per full-size train step, its backward's ms, its launches in
+phase 8's two-pass evaluation of 9 samples and per rank per step of phase
+9c) and the result JSON.
 Needs a CUDA GPU; on a machine without one it exits 1 before doing anything.
 """
 from __future__ import annotations
@@ -259,7 +280,7 @@ def phase_device() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ''
-    print('[1/8] device: nvidia-smi name, power.limit:')
+    print('[1/9] device: nvidia-smi name, power.limit:')
     print(card)
     from fusionocc_tpu_torch.ops.kernels import find_nvcc
     nvcc = subprocess.run([find_nvcc(), '--version'], capture_output=True,
@@ -303,7 +324,7 @@ def phase_build() -> None:
     took = time.perf_counter() - t0
     how = ('compiled' if KERNELS.build_seconds is not None
            else 'found built')
-    print(f'[2/8] build: {how} {path.name} in {took:.1f} s')
+    print(f'[2/9] build: {how} {path.name} in {took:.1f} s')
     for line in KERNELS.build_log.splitlines():
         if 'Used' in line or 'Compiling entry' in line or 'spill' in line:
             print('  ptxas' + line.split('ptxas', 1)[-1])
@@ -725,7 +746,7 @@ def check_edge_shapes(g) -> None:
 
 @torch.inference_mode()
 def phase_kernels(cfg, batch0) -> dict:
-    print('[3/8] kernels vs plain versions at main-path shapes')
+    print('[3/9] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
     measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
                 'zwin_conv_fwd_epi': check_zwin_fused(cfg, batch0),
@@ -743,7 +764,7 @@ def phase_reference() -> None:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
     from fusionocc_tpu_torch.ops.kernels import KERNELS
-    print('[4/8] reference: midsize multi-modal fp32, card vs CPU plain '
+    print('[4/9] reference: midsize multi-modal fp32, card vs CPU plain '
           'versions')
     cfg = midsize_model_config(use_lidar=True)
     g = torch.Generator().manual_seed(7)
@@ -1085,7 +1106,7 @@ def phase_slice(batches) -> dict:
     kernel's launches on the path that runs it."""
     from fusionocc_tpu_torch.config import (full_model_config,
                                             image_only_model_config)
-    print('[5/8] slice: full-size predict, bf16')
+    print('[5/9] slice: full-size predict, bf16')
     paths = []
     for label, cfg in (('image-only', image_only_model_config()),
                        ('default multi-modal', full_model_config()),
@@ -1467,7 +1488,7 @@ def phase_streaming(batches) -> None:
     from fusionocc_tpu_torch.config import full_model_config
     from fusionocc_tpu_torch.models.fusion_occ import map_batch, stack_batches
     from tools.eval_torch_streaming_delta import clip_frames
-    print('[6/8] streaming: full-size default config, a clip of '
+    print('[6/9] streaming: full-size default config, a clip of '
           f'{CLIP_FRAMES} frames, a reset at frame {CLIP_RESET}')
     t0 = time.perf_counter()
     clip = stack_batches(clip_frames(full_model_config(), 0, CLIP_FRAMES,
@@ -1829,7 +1850,7 @@ def phase_training(batches) -> tuple:
     train step card vs CPU, (c) the full-size train steps.  Returns (the
     launches per full-size step, backward ms by kernel)."""
     from fusionocc_tpu_torch.config import full_model_config
-    print('[7/8] training: kernel Functions, midsize card vs CPU, '
+    print('[7/9] training: kernel Functions, midsize card vs CPU, '
           'full-size train steps (bf16)')
     bwd_ms = train_functions(full_model_config(), batches[0])
     torch.cuda.empty_cache()
@@ -2119,7 +2140,7 @@ def phase_eval() -> dict:
     from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc,
                                                        frame_pooling_index,
                                                        spread_weights)
-    print(f'[8/8] evaluation: a written scene of {EVAL_SAMPLES} samples at '
+    print(f'[8/9] evaluation: a written scene of {EVAL_SAMPLES} samples at '
           'full raw size through tools/test_torch.py, bf16, batch 1')
     cfg = full_model_config()
     with tempfile.TemporaryDirectory(prefix='fusionocc_eval_') as root:
@@ -2260,6 +2281,475 @@ def phase_eval() -> dict:
     return launched
 
 
+# phase 9: data-parallel training over processes
+DIST_WORLD = 2
+DIST_STEPS = 2                          # midsize steps of 9a and 9b
+DIST_WARMUP, DIST_TIMED = 1, 3          # full-size steps of 9c
+DIST_DRAWS = 0.2                        # drop path rate of the midsize Swin
+# against the one process's own change when its images and weights move by
+# TRAIN_NOISE: phase 7b's gradient tolerances (fp32 sums in other orders
+# through ReLUs at their kinks), tests/test_torch_train_step.py's others
+DIST_SPREAD, DIST_GRAD_RTOL, DIST_LOSS_RTOL = TRAIN_SPREAD, TRAIN_RTOL, 1e-4
+DIST_PARAM_RTOL, DIST_STATS_TOL = 1e-5, dict(atol=1e-4, rtol=1e-4)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        return s.getsockname()[1]
+
+
+def dist_midsize_config():
+    """The midsize multi-modal config, fp32, every random draw on (ASPP's
+    dropout, the depth-input drop, drop path at DIST_DRAWS)."""
+    import dataclasses
+    from fusionocc_tpu_torch.config import (OptimConfig, TrainConfig,
+                                            midsize_model_config)
+    cfg = midsize_model_config(use_lidar=True)
+    cfg = dataclasses.replace(cfg, swin=dataclasses.replace(
+        cfg.swin, drop_path_rate=DIST_DRAWS))
+    return TrainConfig(model=cfg, optim=OptimConfig(lr=TRAIN_LR))
+
+
+def differing_words(tensors) -> int:
+    """32-bit words of ``tensors`` that differ between the ranks (0 when
+    every rank holds the same bits)."""
+    import torch.distributed as dist
+    bits = torch.cat([t.detach().contiguous().reshape(-1).view(torch.int32)
+                      for t in tensors])
+    hi, lo = bits.clone(), bits
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return int((hi != lo).sum())
+
+
+def model_words(model, state) -> list:
+    return ([p for p in model.parameters()] + list(model.buffers())
+            + list(state.ema.values()))
+
+
+def to_host(tree):
+    """A (nested) dict of tensors copied to the host."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return (tree.detach().to('cpu', copy=True) if torch.is_tensor(tree)
+            else tree)
+
+
+def midsize_steps(model, tc, batch, steps: int, state=None,
+                  identical: bool = False) -> dict:
+    """``steps`` train steps (from ``state``, else a fresh one): the logs
+    and gradients of each, the model and train state after each (on the
+    host); with ``identical`` the words that differ between the ranks
+    after each step."""
+    from fusionocc_tpu_torch.train import loop
+    state = state or loop.create_train_state(model, tc)
+    out = {'logs': [], 'grads': [], 'after': [], 'differ': []}
+    for _ in range(steps):
+        logs = loop.train_step(model, tc, state, batch)
+        out['logs'].append({k: float(v) for k, v in logs.items()})
+        out['grads'].append({n: p.grad.detach().to('cpu', copy=True)
+                             for n, p in model.named_parameters()})
+        out['after'].append(to_host({'model': model.state_dict(),
+                                     'train': state.state_dict()}))
+        if identical:
+            out['differ'].append(differing_words(model_words(model, state)))
+    return out
+
+
+def dist_mid_task(rank, world, tmp) -> dict:
+    """9a (2 ranks) or 9b (world 1): the midsize steps on this rank's rows
+    of the first ``world`` samples; with 2 ranks also 9d, the metric of
+    the trained model's predictions of this rank's 2 of the 4 samples."""
+    from fusionocc_tpu_torch.eval.metrics import OccupancyMetric
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc
+    from fusionocc_tpu_torch.parallel.mesh import shard_batch
+    saved = torch.load(f'{tmp}/mid.pt', weights_only=False)
+    tc = dist_midsize_config()
+    model = FusionOcc(tc.model, device=DEV)
+    model.load_state_dict(saved['model'])
+    four = saved['batch']
+    batch = shard_batch(type(four)(*(None if a is None else a[:world]
+                                     for a in four)), rank, world)
+    out = midsize_steps(model, tc, to_card(batch), DIST_STEPS,
+                        identical=world > 1)
+    if world > 1:
+        mine = to_card(shard_batch(four, rank, world))
+        pred = model.predict(mine)
+        met = OccupancyMetric(grid=tc.model.grid)
+        met.update(pred, mine.voxel_semantics, mask_camera=mine.mask_camera)
+        out['pred'] = pred.cpu()
+        out['metric'] = met.compute()
+    return out
+
+
+def dist_full_task(rank, world, tmp) -> dict:
+    """9c: the default full-size config in bf16, batch 1 per rank: warm-up
+    and timed train steps with their launches, collectives and times; the
+    peak memory above what was held; the ranks' differing words."""
+    from fusionocc_tpu_torch.config import TrainConfig, full_model_config
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    from fusionocc_tpu_torch.parallel import mesh
+    from fusionocc_tpu_torch.train import loop
+    cfg = full_model_config()
+    tc = TrainConfig(model=cfg)
+    model = init_weights(FusionOcc(cfg, device=DEV),
+                         torch.Generator().manual_seed(0))
+    state = loop.create_train_state(model, tc)
+    batch = to_card(mesh.shard_batch(
+        torch.load(f'{tmp}/full.pt', weights_only=False), rank, world))
+    base = reset_peak()
+    rows = []
+    for i in range(DIST_WARMUP + DIST_TIMED):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in '12')
+        torch.cuda.synchronize()
+        KERNELS.reset_counts()
+        mesh.COLLECTIVES.reset()
+        mesh.COLLECTIVES.timed = True
+        t = time.perf_counter()
+        start.record()
+        logs = loop.train_step(model, tc, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        mesh.COLLECTIVES.timed = False
+        rows.append({'ms': start.elapsed_time(end), 'wall_ms': wall * 1e3,
+                     'collective_ms': mesh.COLLECTIVES.seconds * 1e3,
+                     'collectives': dict(mesh.COLLECTIVES.calls),
+                     'collective_mb': mesh.COLLECTIVES.bytes / 1e6,
+                     'launches': {k: KERNELS.launches[k]
+                                  for k in MAIN_KERNELS},
+                     'logs': {k: float(v) for k, v in logs.items()}})
+    peak = torch.cuda.max_memory_allocated()
+    return {'rows': rows, 'held_gib': base / 2 ** 30,
+            'peak_above_gib': (peak - base) / 2 ** 30,
+            'differ': differing_words(model_words(model, state))}
+
+
+DIST_TASKS = {'mid': dist_mid_task, 'full': dist_full_task}
+
+
+def to_card(batch):
+    return type(batch)(*(None if a is None else a.to(DEV) for a in batch))
+
+
+def dist_rank(rank, world, tasks, tmp, port) -> None:
+    """A spawned rank: 2 ranks join a gloo group on the one card (NCCL
+    refuses two ranks on one device); world 1 joins an NCCL group (9b)."""
+    import torch.distributed as dist
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    from fusionocc_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    url = f'tcp://localhost:{port}'
+    if world == 1:
+        dist.init_process_group('nccl', init_method=url, world_size=1,
+                                rank=0, device_id=torch.device(DEV))
+    else:
+        mesh.init_distributed(url, world, rank, backend='gloo', device=DEV)
+    KERNELS.load()
+    try:
+        for task in tasks:
+            torch.save(DIST_TASKS[task](rank, world, tmp),
+                       f'{tmp}/{task}_{world}_{rank}.pt')
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world, tasks, tmp) -> list:
+    """Run ``tasks`` on ``world`` spawned ranks; their results by rank."""
+    import torch.multiprocessing as mp
+    try:
+        mp.spawn(dist_rank, args=(world, tasks, tmp, free_port()),
+                 nprocs=world, join=True)
+    except Exception as e:      # noqa: BLE001 -- a failed rank fails the phase
+        fail(f'{world} rank(s) running {tasks}: {e}')
+    return [{t: torch.load(f'{tmp}/{t}_{world}_{r}.pt', weights_only=False)
+             for t in tasks} for r in range(world)]
+
+
+def held_to_one(label, tc, got, pairs) -> None:
+    """Each of the ranks' midsize steps against one process's step at the
+    global batch from the same state (``one_process_steps``): the losses
+    within DIST_SPREAD x the one process's change under the perturbation
+    plus DIST_LOSS_RTOL of the loss; the gradients and
+    grad_norm within DIST_SPREAD x that change plus DIST_GRAD_RTOL of the
+    norm; after the step, as tests/test_torch_train_step.py holds them
+    after Adam's first: each parameter within 2.1 lr everywhere and, where
+    the two gradients agree in sign above SIGN_MIN, within 1e-6 +
+    DIST_PARAM_RTOL of itself plus 2 lr times their relative difference
+    (the most such a difference moves Adam's update from one state), the
+    EMA within ema_momentum x 2.1 lr, the running statistics within
+    DIST_STATS_TOL."""
+    from fusionocc_tpu_torch.train import loop
+    worst = {'loss': 0.0, 'grad': 0.0, 'param': 0.0, 'at': ''}
+    for s, (one, perts) in enumerate(pairs):
+        want, logs = one['logs'][0], got['logs'][s]
+        for key in ('loss', 'depth_loss', 'seg_loss', 'loss_occ'):
+            err = abs(logs[key] - want[key])
+            bound = (DIST_SPREAD * max(abs(p['logs'][0][key] - want[key])
+                                       for p in perts)
+                     + DIST_LOSS_RTOL * abs(want[key]))
+            worst['loss'] = max(worst['loss'], err / max(bound, 1e-30))
+            if err > bound:
+                fail(f'{label} step {s} {key} {logs[key]} against {want[key]}')
+        ref_g = one['grads'][0]
+        moved = [p['grads'][0] for p in perts]
+        spread = max(float(loop.global_norm([m[n] - g for n, g in
+                                             ref_g.items()])) for m in moved)
+        if abs(logs['grad_norm'] - want['grad_norm']) > (
+                DIST_SPREAD * spread + DIST_GRAD_RTOL * want['grad_norm']):
+            fail(f'{label} step {s} grad_norm {logs["grad_norm"]} against '
+                 f'{want["grad_norm"]}')
+        for n, g in ref_g.items():
+            err = float((got['grads'][s][n] - g).norm())
+            bound = float(DIST_SPREAD * max((m[n] - g).norm() for m in moved)
+                          + DIST_GRAD_RTOL * g.norm())
+            if err / max(bound, 1e-30) > worst['grad']:
+                worst['grad'], worst['at'] = err / max(bound, 1e-30), \
+                    f'{n} step {s}'
+            if err > bound:
+                fail(f'{label} step {s} gradient {n}: {err:.3e} beyond '
+                     f'{bound:.3e}')
+        # the step's update from the same state: Adam moves a parameter by
+        # at most lr (2.1 lr between two runs, whatever their gradients);
+        # where the two gradients agree in sign above SIGN_MIN, a relative
+        # gradient difference d (with the clipping's: the norms') moves it
+        # by at most 2 d lr
+        lr = loop.make_lr_schedule(tc.optim)(got['after'][s]['train']['count']
+                                             - 1)
+        ema_tol = tc.optim.ema_momentum * 2.1 * lr
+        mine, ref = got['after'][s], one['after'][0]
+        grads = got['grads'][s]
+        d_norm = abs(logs['grad_norm'] - want['grad_norm']) / want['grad_norm']
+        for k, want_t in ref['model'].items():
+            g = mine['model'][k]
+            if k in grads:
+                same = ((torch.sign(grads[k]) == torch.sign(ref_g[k]))
+                        & (grads[k].abs() > SIGN_MIN)
+                        & (ref_g[k].abs() > SIGN_MIN))
+                d = ((grads[k] - ref_g[k]).abs()
+                     / torch.minimum(grads[k].abs(), ref_g[k].abs())
+                     .clamp_min(SIGN_MIN)) + d_norm
+                diff = (g - want_t).abs()
+                close = diff <= (1e-6 + DIST_PARAM_RTOL * want_t.abs()
+                                 + 2 * d * lr)
+                worst['param'] = max(worst['param'],
+                                     float(diff.max()) / (2.1 * lr))
+                ok = bool((close | ~same).all()) and float(
+                    diff.max()) <= 2.1 * lr
+                if not ok:
+                    i = int(((diff - 2.1 * lr) * ~same
+                             + diff * (same & ~close)).argmax())
+                    print(f'    {k}: {int((same & ~close).sum())} of '
+                          f'{same.numel()} entries beyond their bound; the '
+                          f'worst moves {float(diff.view(-1)[i]):.3e} '
+                          f'(gradients {float(grads[k].view(-1)[i]):.4e}, '
+                          f'{float(ref_g[k].view(-1)[i]):.4e}; lr {lr:.3e})',
+                          flush=True)
+            elif want_t.is_floating_point():
+                ok, _, _ = within(g, want_t, **DIST_STATS_TOL)
+            else:
+                ok = torch.equal(g, want_t)
+            if not ok:
+                fail(f'{label} step {s}: {k} differs from one process')
+        for k, want_t in ref['train']['ema'].items():
+            ok, _, _ = within(mine['train']['ema'][k], want_t, ema_tol,
+                              DIST_PARAM_RTOL)
+            if not ok:
+                fail(f'{label} step {s}: the EMA of {k} differs')
+    print(f'  {label}: each step\'s losses, gradients and grad_norm, then '
+          f'its parameters, running statistics and EMA held; largest error '
+          f'over its bound: losses {worst["loss"]:.3f}, gradients '
+          f'{worst["grad"]:.3f} ({worst["at"]}); largest parameter change '
+          f'against one process {worst["param"]:.3f} of 2.1 lr', flush=True)
+
+
+def one_process_steps(tc, start, four, rows: int, got) -> list:
+    """For each step of the ranks' run ``got``: the same step in this
+    process at batch ``rows`` from the state the ranks held before it
+    (``start`` before the first), and twice more with the images moved
+    by TRAIN_NOISE (relative), the second time the weights too (the BEV
+    trunk's ReLUs sit at kinks that the images barely reach:
+    tests/test_torch_parallel.py); the spread of a value is the larger of
+    its two changes.  Each step is so held against one process's
+    step from the same state: after the first, Adam's first update has
+    moved the parameters of near-zero gradients by up to 2 lr either way,
+    so two runs' trajectories part further than any one step does."""
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc
+    from fusionocc_tpu_torch.train import loop
+    batch = to_card(type(four)(*(None if a is None else a[:rows]
+                                 for a in four)))
+    noise = torch.randn(batch.imgs.shape, device=DEV,
+                        generator=torch.Generator(DEV).manual_seed(5))
+    moved = batch._replace(imgs=batch.imgs * (1 + TRAIN_NOISE * noise))
+    pairs = []
+    for s in range(DIST_STEPS):
+        before = ({'model': start} if s == 0 else got['after'][s - 1])
+        runs = []
+        for b, weights in ((batch, False), (moved, False), (moved, True)):
+            model = FusionOcc(tc.model, device=DEV)
+            model.load_state_dict(before['model'])
+            if weights:
+                g = torch.Generator(DEV).manual_seed(6)
+                with torch.no_grad():
+                    for p in model.parameters():
+                        p.mul_(1 + TRAIN_NOISE * torch.randn(
+                            p.shape, device=DEV, generator=g))
+            state = loop.create_train_state(model, tc)
+            if 'train' in before:
+                state.load_state_dict(before['train'])
+            runs.append(midsize_steps(model, tc, b, 1, state))
+        pairs.append((runs[0], runs[1:]))
+    return pairs
+
+
+def one_process_fullsize(batch) -> dict:
+    """Single-process full-size bf16 steps beside 9c: ms per step (CUDA
+    events, wall) and the peak above what was held, at batch 1 and 2."""
+    from fusionocc_tpu_torch.config import TrainConfig, full_model_config
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
+    from fusionocc_tpu_torch.train import loop
+    cfg = full_model_config()
+    tc = TrainConfig(model=cfg)
+    out = {}
+    for b in (1, 2):
+        model = init_weights(FusionOcc(cfg, device=DEV),
+                             torch.Generator().manual_seed(0))
+        state = loop.create_train_state(model, tc)
+        rows = type(batch)(*(None if a is None else a[:b] for a in batch))
+        base = reset_peak()
+        ms, wall = [], []
+        for i in range(DIST_WARMUP + DIST_TIMED):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in '12')
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            start.record()
+            loop.train_step(model, tc, state, rows)
+            end.record()
+            torch.cuda.synchronize()
+            if i >= DIST_WARMUP:
+                ms.append(start.elapsed_time(end))
+                wall.append((time.perf_counter() - t) * 1e3)
+        out[b] = (statistics.median(ms), statistics.median(wall),
+                  peak_above(base))
+        del model, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist(batches) -> dict:
+    """Phase 9: data-parallel training over processes on the one card.
+    Returns the launches per rank per full-size step."""
+    import tempfile
+    from fusionocc_tpu_torch.config import full_model_config
+    from fusionocc_tpu_torch.data.synthetic import synthetic_batch
+    from fusionocc_tpu_torch.eval.metrics import OccupancyMetric
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
+    print(f'[9/9] data-parallel training: {DIST_WORLD} ranks on the one '
+          'card exchange CUDA tensors over gloo (NCCL refuses two ranks on '
+          'one device; gloo stages each collective through the host, so '
+          'these times measure neither NCCL nor a second card and are no '
+          'scaling figures); NCCL at world 1', flush=True)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='fusionocc_dist_')
+    tc = dist_midsize_config()
+    model = init_weights(FusionOcc(tc.model, device='cpu'),
+                         torch.Generator().manual_seed(11))
+    four = synthetic_batch(tc.model, 2 * DIST_WORLD, 0, device='cpu')
+    torch.save({'model': model.state_dict(), 'batch': four}, f'{tmp}/mid.pt')
+    full = type(batches[0])(*(None if a[0] is None else
+                              torch.cat(a[:DIST_WORLD]).cpu()
+                              for a in zip(*batches)))
+    torch.save(full, f'{tmp}/full.pt')
+    t1 = time.perf_counter()
+    single = one_process_fullsize(to_card(full))
+    print(f'  inputs in {t1 - t0:.1f} s, one-process full-size steps in '
+          f'{time.perf_counter() - t1:.1f} s', flush=True)
+
+    t0 = time.perf_counter()
+    nccl = spawn_ranks(1, ['mid'], tmp)[0]['mid']
+    t1 = time.perf_counter()
+    held_to_one('9b NCCL world 1, midsize fp32, batch 1, against the '
+                'non-distributed step', tc, nccl, one_process_steps(
+                    tc, model.state_dict(), four, 1, nccl))
+    print(f'  9b: the rank in {t1 - t0:.1f} s, the one-process steps and '
+          f'checks in {time.perf_counter() - t1:.1f} s', flush=True)
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(DIST_WORLD, ['mid', 'full'], tmp)
+    print(f'  {DIST_WORLD} ranks (9a, 9c, 9d) in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    mids = [r['mid'] for r in ranks]
+    for r, m in enumerate(mids):
+        if any(m['differ']) or m['logs'] != mids[0]['logs']:
+            fail(f'9a: rank {r} holds other bits after a step '
+                 f'(differing words per step {m["differ"]})')
+    held_to_one(f'9a {DIST_WORLD} ranks x batch 1 against one process at '
+                f'batch {DIST_WORLD}, midsize fp32, draws on, '
+                f'{DIST_STEPS} steps', tc, mids[0], one_process_steps(
+                    tc, model.state_dict(), four, DIST_WORLD, mids[0]))
+    print(f'  9a: the ranks\' parameters, buffers and EMA bit-identical '
+          f'after each step (differing words {mids[0]["differ"]})',
+          flush=True)
+
+    fulls = [r['full'] for r in ranks]
+    expect = train_launches(full_model_config())
+    for r, f in enumerate(fulls):
+        for i, row in enumerate(f['rows']):
+            if row['launches'] != expect:
+                fail(f'9c rank {r} step {i}: launches {row["launches"]}, '
+                     f'expected {expect}')
+            if not all(map(math.isfinite, row['logs'].values())):
+                fail(f'9c rank {r} step {i}: not finite: {row["logs"]}')
+        if f['differ']:
+            fail(f'9c: rank {r} differs in {f["differ"]} words')
+        timed = f['rows'][DIST_WARMUP:]
+        med = {k: statistics.median(row[k] for row in timed)
+               for k in ('ms', 'wall_ms', 'collective_ms', 'collective_mb')}
+        print(f'  9c rank {r}: s/iter {med["ms"] / 1e3:.4f} (CUDA events), '
+              f'{med["wall_ms"] / 1e3:.4f} (wall), median of {DIST_TIMED} '
+              f'after {DIST_WARMUP} warm-up; inside collectives '
+              f'{med["collective_ms"]:.1f} ms per step (card synchronised '
+              f'around each); collectives per step {timed[0]["collectives"]}'
+              f' ({med["collective_mb"]:.1f} MB); peak memory '
+              f'{f["peak_above_gib"]:.2f} GiB above the '
+              f'{f["held_gib"]:.2f} GiB held; launches per step '
+              f'{timed[0]["launches"]}; losses '
+              + ', '.join(f'{row["logs"]["loss"]:.4f}' for row in f['rows']),
+              flush=True)
+    if fulls[0]['rows'][-1]['logs'] != fulls[1]['rows'][-1]['logs']:
+        fail('9c: the ranks log other losses')
+    print(f'  9c: the ranks\' parameters, buffers and EMA bit-identical after '
+          f'{DIST_WARMUP + DIST_TIMED} steps', flush=True)
+    for b, (ms, wall, peak) in single.items():
+        print(f'  one process, batch {b}, same steps: s/iter {ms / 1e3:.4f} '
+              f'(CUDA events), {wall / 1e3:.4f} (wall); {peak}', flush=True)
+
+    # 9d: the metric over the ranks against one process over the 4 samples
+    met = OccupancyMetric(grid=tc.model.grid)
+    for r, m in enumerate(mids):
+        rows = type(four)(*(None if a is None else
+                            a[2 * r:2 * r + 2].to(DEV) for a in four))
+        met.update(m['pred'].to(DEV), rows.voxel_semantics,
+                   mask_camera=rows.mask_camera)
+    want = met.compute()
+    for r, m in enumerate(mids):
+        if m['metric'].keys() != want.keys() or not all(
+                m['metric'][k] == v or math.isnan(v)
+                and math.isnan(m['metric'][k]) for k, v in want.items()):
+            fail(f'9d: rank {r}\'s summed metric {m["metric"]} differs from '
+                 f'one process\'s {want}')
+    print(f'  9d: OccupancyMetric summed over {DIST_WORLD} ranks (2 predicted '
+          f'samples each) equals one process over the 4: mIoU '
+          f'{want["mIoU"]:.4f}, {len(want)} keys equal', flush=True)
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return fulls[0]['rows'][-1]['launches']
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -2276,6 +2766,7 @@ def main() -> None:
     phase_streaming(batches)
     train, bwd_ms = phase_training(batches)
     evaluated = phase_eval()
+    dist_launches = phase_dist(batches)
     sources = {
         'window_attn_fwd': ('fusionocc_tpu_torch/csrc/window_attn.cu',
                             'fusionocc_tpu/ops/pallas/window_attn.py:79'),
@@ -2296,7 +2787,8 @@ def main() -> None:
                         'launches': launches[name], **m,
                         'train_launches': train[name],
                         'backward_ms': bwd_ms.get(name),
-                        'eval_launches': evaluated[name]})
+                        'eval_launches': evaluated[name],
+                        'dist_train_launches': dist_launches[name]})
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

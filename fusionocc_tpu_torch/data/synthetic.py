@@ -5,7 +5,9 @@ The same numpy draws, in the same order and from the same seed, as
 the arrays are handed over as tensors on the requested device, the card
 unless the caller asks for the CPU.  The LiDAR cloud is drawn even when the
 model is image-only, because the sparse depth is drawn after it from the
-same ``RandomState``.
+same ``RandomState``.  Over R processes each rank takes its rows of the
+global batch of the seed (``parallel.mesh.shard_batch`` of
+``synthetic_batch(cfg, R * b, seed)``), as the JAX package shards it.
 """
 from __future__ import annotations
 

@@ -11,10 +11,9 @@ classes 0..16 of the defined IoUs (the ``free`` class 17 is left out).
 Each matrix is one ``torch.bincount`` on the predictions' device, in int64
 counts (the radius- and height-bucketed ones with the bucket id in the
 key); ``OccupancyMetric`` keeps them there, so an update does not wait on
-the card.  ``fscore`` is host numpy with ``scipy.spatial.cKDTree``.  The
-sum of the matrices over processes is not ported (ROADMAP Queue A item
-11): ``OccupancyMetric.compute`` raises under ``torch.distributed`` with
-more than one process.
+the card.  ``fscore`` is host numpy with ``scipy.spatial.cKDTree``.
+Inside a process group ``OccupancyMetric.compute`` sums the matrices over
+the ranks (every rank must call it).
 """
 from __future__ import annotations
 
@@ -22,6 +21,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel import mesh
 
 CLASS_NAMES = ['others', 'barrier', 'bicycle', 'bus', 'car',
                'construction_vehicle', 'motorcycle', 'pedestrian',
@@ -194,17 +195,15 @@ class OccupancyMetric:
 
     @staticmethod
     def reduced_hist(hist: torch.Tensor) -> np.ndarray:
-        """The matrix as numpy.  JAX sums it over hosts here; the port's
-        multi-process evaluation is ROADMAP Queue A item 11, so with more
-        than one ``torch.distributed`` process it raises rather than
-        report one process's share."""
-        dist = torch.distributed
-        if (dist.is_available() and dist.is_initialized()
-                and dist.get_world_size() > 1):
-            raise NotImplementedError(
-                'OccupancyMetric across processes is not ported: summing '
-                'the matrices over ranks is ROADMAP Queue A item 11')
-        return hist.cpu().numpy()
+        """The matrix summed over the ranks of the process group (this
+        process's outside one), as numpy.  JAX gathers the hosts' matrices
+        and sums them; a sum all-reduce gives the same integers (NCCL
+        reduces on the card: a matrix that no update moved there goes to
+        this rank's card first)."""
+        if (mesh.data_mesh() is not None and not hist.is_cuda
+                and torch.distributed.get_backend() == 'nccl'):
+            hist = hist.cuda()
+        return mesh.all_reduce_sum(hist, 'metric').cpu().numpy()
 
     def compute(self) -> Dict[str, float]:
         out = miou_from_hist(self.reduced_hist(self.hist))

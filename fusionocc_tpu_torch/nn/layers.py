@@ -17,6 +17,11 @@ Random draws (``dropout``, ``drop_path`` masks, the depth-input drop) come
 from the generator of the enclosing ``random_scope``; ``checkpoint`` runs a
 function under ``torch.utils.checkpoint`` without updating running
 statistics again in the recompute.
+
+Inside a process group (``parallel.mesh.data_mesh()``) training is over the
+global batch, as the JAX package's data mesh makes it: the BatchNorms sum
+their statistics over every rank, and each random mask is drawn at the
+global batch's shape, each rank keeping its rows.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+
+from ..parallel import mesh
 
 # the generator of the enclosing random_scope, and whether BatchNorms leave
 # their running statistics alone (a checkpoint's recompute, which runs in
@@ -49,9 +56,14 @@ def random_scope(generator: torch.Generator):
     return _setting(_GENERATOR, generator)
 
 
-def keep_mask(shape, rate: float, device) -> torch.Tensor:
+def keep_mask(shape, rate: float, device, batch_axis: int = 0
+              ) -> torch.Tensor:
     """A bool mask, each entry True with probability 1 - rate, drawn from
-    the scope's generator (which must live on ``device``)."""
+    the scope's generator (which must live on ``device``).  Inside a
+    process group of R ranks the mask is drawn at the global shape (axis
+    ``batch_axis`` R times as long) and this rank's block of that axis is
+    returned, so R ranks draw what one process at the global batch
+    draws."""
     g = _GENERATOR.get()
     if g is None:
         raise RuntimeError('a random draw in training needs a generator: '
@@ -59,7 +71,12 @@ def keep_mask(shape, rate: float, device) -> torch.Tensor:
     if g.device.type != torch.device(device).type:
         raise ValueError(f'the generator is on {g.device}, the tensor on '
                          f'{device}')
-    return torch.rand(shape, generator=g, device=device) < 1.0 - rate
+    r, n = mesh.rank(), mesh.world()
+    shape = list(shape)
+    local = shape[batch_axis]
+    shape[batch_axis] = local * n
+    keep = torch.rand(shape, generator=g, device=device) < 1.0 - rate
+    return keep.narrow(batch_axis, r * local, local)
 
 
 def dropout(x: torch.Tensor, rate: float) -> torch.Tensor:
@@ -140,9 +157,12 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
     it normalises with the batch's and then updates the running ones as
     flax does: ``r = (1 - momentum) * r + momentum * batch`` with the
     *biased* batch variance (torch would take the unbiased one); momentum
-    0.1 is flax's 0.9.  Keeps ``num_batches_tracked`` so reference
-    checkpoints load.  Built in eval mode, as the port's entry points are;
-    ``train()`` switches it.
+    0.1 is flax's 0.9.  Inside a process group the batch statistics are
+    those of every rank's rows: the sums and the count all-reduced, then
+    the sum of squared deviations from that mean (two passes); every rank
+    then holds the same running statistics.  Keeps
+    ``num_batches_tracked`` so reference checkpoints load.  Built in eval
+    mode, as the port's entry points are; ``train()`` switches it.
     """
 
     def __init__(self, *args, **kwargs):
@@ -165,9 +185,18 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         # backward rounds differently where the input gradient is a small
         # difference of large sums
         dims = [0] + list(range(2, x.dim()))
-        var, mean = torch.var_mean(xf, dim=dims, correction=0, keepdim=True)
-        self.update_stats(mean.detach().flatten(), var.detach().flatten())
         shape = (1, -1) + (1,) * (x.dim() - 2)
+        if mesh.data_mesh() is None:
+            var, mean = torch.var_mean(xf, dim=dims, correction=0,
+                                       keepdim=True)
+        else:       # over every rank's rows, two passes
+            count = xf.new_full((1,), xf.numel() // xf.shape[1])
+            sums = mesh.all_reduce_sum(torch.cat([xf.sum(dim=dims), count]),
+                                       'bn')
+            mean = (sums[:-1] / sums[-1]).view(shape)
+            var = (mesh.all_reduce_sum((xf - mean).square().sum(dim=dims),
+                                       'bn') / sums[-1]).view(shape)
+        self.update_stats(mean.detach().flatten(), var.detach().flatten())
         inv = torch.rsqrt(var + self.eps) * self.weight.view(shape)
         return ((xf - mean) * inv + self.bias.view(shape)).to(x.dtype)
 
@@ -193,7 +222,8 @@ class MaskedBatchNorm(BatchNorm):
     cast to x's dtype, with the per-channel affine of ``scale_shift()``
     (``affine`` is torch's bool attribute of a BatchNorm).  In training the
     mean and biased variance are taken over the active cells only (the F*C
-    lanes collapse to C channels; the count is the number of active cells),
+    lanes collapse to C channels; the count is the number of active cells,
+    of every rank inside a process group),
     y = ((x - mean) * inv + bias) * mask, and the running statistics move
     with flax's momentum 0.99 (torch's 0.01).
     """
@@ -224,10 +254,14 @@ class MaskedBatchNorm(BatchNorm):
         def channel_sum(v):             # (..., fold*C) -> (C,)
             return v.reshape(-1, fold, C).sum(dim=(0, 1))
         xf = x.float()
-        cnt = mask.float().sum().clamp_min(1.0)
-        mean = channel_sum(xf * m) / cnt
+        # the active cells of every rank in a process group
+        sums = mesh.all_reduce_sum(
+            torch.cat([channel_sum(xf * m), mask.float().sum().view(1)]), 'bn')
+        cnt = sums[-1].clamp_min(1.0)
+        mean = sums[:-1] / cnt
         centred = xf - mean.repeat(fold)
-        var = channel_sum(centred.square() * m) / cnt
+        var = mesh.all_reduce_sum(channel_sum(centred.square() * m),
+                                  'bn') / cnt
         self.update_stats(mean.detach(), var.detach())
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (centred * inv.repeat(fold) + self.bias.repeat(fold)) * m

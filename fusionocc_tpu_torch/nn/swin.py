@@ -201,7 +201,8 @@ class SwinTransformer(nn.Module):
             for blk in stage.blocks:
                 keep = None
                 if self.training and blk.drop_path_rate > 0:
-                    keep = keep_mask((2, B), blk.drop_path_rate, x.device)
+                    keep = keep_mask((2, B), blk.drop_path_rate, x.device,
+                                     batch_axis=1)
                 if recompute:
                     x = checkpoint(blk, x, hw, keep)
                 else:

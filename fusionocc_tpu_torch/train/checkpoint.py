@@ -4,7 +4,9 @@ buffer} in ``<root>/step_<n>/state.pt``.
 
 Port of ``fusionocc_tpu/train/checkpoint.py``'s save, restore and
 ``latest_checkpoint``, and ``load_for_eval`` for the evaluation tool; the
-JAX package's orbax files are not read.
+JAX package's orbax files are not read.  Over several processes the ranks
+hold the same state: rank 0 writes and every rank then meets at a barrier;
+every rank reads on resume.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import mesh
 from .loop import TrainState
 
 STATE_FILE = 'state.pt'
@@ -20,13 +23,16 @@ STATE_FILE = 'state.pt'
 
 def save_checkpoint(root: str, model: torch.nn.Module, state: TrainState
                     ) -> str:
-    """Write ``<root>/step_<state.step>``; returns its path."""
+    """Write ``<root>/step_<state.step>`` (rank 0 only; every rank of a
+    process group returns once it is written); returns its path."""
     path = os.path.join(os.path.abspath(root), f'step_{state.step}')
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, STATE_FILE + '.tmp')
-    torch.save({'step': state.step, 'model': model.state_dict(),
-                'train_state': state.state_dict()}, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    if mesh.rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, STATE_FILE + '.tmp')
+        torch.save({'step': state.step, 'model': model.state_dict(),
+                    'train_state': state.state_dict()}, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+    mesh.barrier()
     return path
 
 

@@ -1,9 +1,8 @@
 """Training: the optimizer, the LR schedule, EMA, gradient accumulation and
 the train and eval steps.
 
-Port of ``fusionocc_tpu/train/loop.py`` without the mesh (one card).  The
-optimizer is optax's chain, written out so that it matches optax where
-torch's built-ins differ:
+Port of ``fusionocc_tpu/train/loop.py``.  The optimizer is optax's chain,
+written out so that it matches optax where torch's built-ins differ:
 
 - per parameter group, ``clip_by_global_norm(clip_norm)`` (the group's own
   norm: under ``multi_transform`` each group is clipped alone; optax divides
@@ -24,6 +23,16 @@ JAX's ``train_step`` does.  ``grad_norm`` is the global norm of the call's
 raw gradients, before clipping.  A step's random draws come from a
 generator seeded by (``TrainConfig.seed``, step), as JAX folds the step
 into its key, so a resumed run draws what the uninterrupted one would.
+
+Over several processes (``parallel.mesh``; the JAX package's data mesh)
+each rank runs ``train_step`` on its rows of the global batch.  Its loss is
+its part of the global loss (``train/losses.py``), so after the backward
+every gradient is summed over the ranks (``all_reduce_gradients``), on
+every call, accumulation steps included: each of ``MultiSteps``'s micro
+gradients is already the global one in JAX.  The optimizer, the clipping,
+``grad_norm`` and the EMA then run alike on every rank, whose parameters
+stay bit-identical.  The logged losses are summed over the ranks: the
+global batch's.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import torch
 from ..config import OptimConfig, TrainConfig, check_train_supported
 from ..models.fusion_occ import Batch, FusionOcc
 from ..nn.layers import random_scope
+from ..parallel import mesh
 from .losses import total_loss
 
 LOW_LR_ROOTS = ('img_backbone', 'img_view_transformer')
@@ -213,9 +223,10 @@ def train_step(model: FusionOcc, cfg: TrainConfig, state: TrainState,
                batch: Batch, mark: Optional[Callable[[str], None]] = None
                ) -> Dict[str, torch.Tensor]:
     """One optimisation step in place on ``model`` and ``state``; returns
-    the logs (``loss`` and its terms, ``grad_norm``) as tensors.  ``mark``,
-    if given, is called with 'forward', 'backward' and 'optimizer' as each
-    part is queued (a timer's hook)."""
+    the logs (``loss`` and its terms, ``grad_norm``) as tensors, those of
+    the global batch inside a process group.  ``mark``, if given, is called
+    with 'forward', 'backward' (the gradients' reduction included) and
+    'optimizer' as each part is queued (a timer's hook)."""
     mark = mark or (lambda part: None)
     device = next(model.parameters()).device
     loss, logs = compute_loss(model, cfg, batch,
@@ -223,8 +234,11 @@ def train_step(model: FusionOcc, cfg: TrainConfig, state: TrainState,
     mark('forward')
     model.zero_grad(set_to_none=True)
     loss.backward()
+    mesh.all_reduce_gradients(list(model.parameters()))
     mark('backward')
-    logs = {k: v.detach() for k, v in logs.items()}
+    keys = list(logs)
+    logs = dict(zip(keys, mesh.all_reduce_sum(
+        torch.stack([logs[k].detach() for k in keys]), 'loss').unbind()))
     logs['grad_norm'] = apply_gradients(model, cfg.optim, state)
     mark('optimizer')
     return logs

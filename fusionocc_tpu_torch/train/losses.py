@@ -11,7 +11,11 @@ Port of ``fusionocc_tpu/train/losses.py``:
   and divided by its count (or by the voxel count without it).
 
 total = depth * fuse_w * depth_w + seg * fuse_w + occ.  Every loss is taken
-in float32.  JAX takes the occupancy loss in row chunks under ``lax.map``,
+in float32.  Inside a process group each rank divides its own masked sum
+by the count of every rank (``global_count``, no gradient), so the ranks'
+losses sum to the loss of the global batch, as the JAX package's data mesh
+takes it; an average of per-rank ratios would differ wherever the counts
+do.  JAX takes the occupancy loss in row chunks under ``lax.map``,
 a device for its 128-lane padding of the 18 classes; here it is one pass,
 the same sums in another order.
 """
@@ -24,8 +28,15 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..models.lss import downsample_depth_onehot
+from ..parallel import mesh
 
 FREE_CLASS = 17
+
+
+def global_count(count: torch.Tensor) -> torch.Tensor:
+    """A loss normaliser over every rank of the process group (this
+    rank's outside one), without gradient, at least 1."""
+    return mesh.all_reduce_sum(count.detach(), 'loss').clamp_min(1.0)
 
 
 def depth_loss(depth_pred: torch.Tensor, sparse_depth: torch.Tensor,
@@ -39,7 +50,7 @@ def depth_loss(depth_pred: torch.Tensor, sparse_depth: torch.Tensor,
     fg = (labels.amax(dim=1) > 0.0).float()
     p = pred.clamp(1e-7, 1.0 - 1e-7)
     bce = -(labels * torch.log(p) + (1.0 - labels) * torch.log(1.0 - p))
-    return (bce.sum(dim=-1) * fg).sum() / fg.sum().clamp_min(1.0)
+    return (bce.sum(dim=-1) * fg).sum() / global_count(fg.sum())
 
 
 def seg_loss(seg_logits: torch.Tensor, segs: torch.Tensor,
@@ -51,7 +62,7 @@ def seg_loss(seg_logits: torch.Tensor, segs: torch.Tensor,
     valid = (label != FREE_CLASS).float()
     logp = F.log_softmax(logits, dim=-1)
     nll = -logp.gather(1, label.clamp(0, logits.shape[-1] - 1)[:, None])[:, 0]
-    return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    return (nll * valid).sum() / global_count(valid.sum())
 
 
 def occ_loss(logits: torch.Tensor, voxel_semantics: torch.Tensor,
@@ -65,8 +76,8 @@ def occ_loss(logits: torch.Tensor, voxel_semantics: torch.Tensor,
     nll = -logp.gather(1, label[:, None])[:, 0]
     if use_mask and mask_camera is not None:
         w = mask_camera.reshape(-1).float()
-        return (nll * w).sum() / w.sum().clamp_min(1.0)
-    return nll.sum() / nll.shape[0]
+        return (nll * w).sum() / global_count(w.sum())
+    return nll.sum() / global_count(nll.new_full((), nll.shape[0]))
 
 
 def total_loss(outputs: Dict[str, torch.Tensor], batch, cfg: ModelConfig

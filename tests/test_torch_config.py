@@ -138,6 +138,7 @@ def test_port_imports_no_jax():
         'fusionocc_tpu_torch.utils.logging, tools.test_torch, '
         'fusionocc_tpu_torch.train.loop, fusionocc_tpu_torch.train.losses, '
         'fusionocc_tpu_torch.train.checkpoint, tools.train_torch, '
+        'fusionocc_tpu_torch.parallel.mesh, '
         'chip_smoke, tools.profile_torch_zwin_micro, '
         'tools.ab_bev_pool_split, tools.eval_torch_streaming_delta, '
         'tools.profile_torch_predict\n'

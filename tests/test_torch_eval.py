@@ -116,16 +116,26 @@ def test_bucketed_metric_matches_jax(use_image_mask):
     _close(tmet.compute(), jmet.compute())
 
 
-def test_metric_refuses_multiple_processes(monkeypatch):
-    met = tm.OccupancyMetric()
-    dist = torch.distributed
-    monkeypatch.setattr(dist, 'is_available', lambda: True)
-    monkeypatch.setattr(dist, 'is_initialized', lambda: True)
-    monkeypatch.setattr(dist, 'get_world_size', lambda *a: 2)
-    with pytest.raises(NotImplementedError, match='item 11'):
-        met.compute()
-    monkeypatch.setattr(dist, 'get_world_size', lambda *a: 1)
-    assert 'mIoU' in met.compute()
+def test_metric_refuses_multiple_processes(tmp_path):
+    """The refusal is gone: inside a process group (one gloo rank here;
+    two in ``tests/test_torch_parallel.py``) ``compute`` sums the matrices
+    over the group, buckets included, and gives the one-process result."""
+    from fusionocc_tpu_torch.parallel import mesh
+    met = tm.OccupancyMetric(grid=TGrid(**GRID))
+    rng = np.random.RandomState(0)
+    gx, gy, gz = met.buckets['radius']['id'].shape
+    gt = torch.from_numpy(rng.randint(0, 18, (gx, gy, gz)).astype(np.int32))
+    met.update(gt.to(torch.uint8), gt)
+    want = met.compute()
+    torch.distributed.init_process_group(
+        'gloo', init_method=f'file://{tmp_path}/store', world_size=1, rank=0)
+    try:
+        mesh.COLLECTIVES.reset()
+        got = met.compute()
+        assert mesh.COLLECTIVES.calls == {'metric': 3}
+    finally:
+        torch.distributed.destroy_process_group()
+    assert got == want and want['mIoU'] == 100.0
 
 
 @pytest.mark.parametrize('masked', [False, True])

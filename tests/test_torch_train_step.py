@@ -100,13 +100,12 @@ def record_grads():
         lambda updates, state, params=None: (updates, updates))
 
 
-@pytest.fixture(scope='module')
-def jax_step():
-    """JAX's train_step on the tiny batch: (variables, new state, logs, raw
-    gradients), numpy."""
+def jax_train_step(batch_size: int):
+    """JAX's train_step on the tiny batch of ``batch_size``: (variables, new
+    state, logs, raw gradients), numpy."""
     jc = jcfg.TrainConfig(model=model_config(jcfg),
                           optim=jcfg.OptimConfig(**OPTIM))
-    jbatch = j_synthetic_batch(jc.model, 1, 0)
+    jbatch = j_synthetic_batch(jc.model, batch_size, 0)
     jbatch = jbatch._replace(points=jnp.asarray(_snap(jbatch.points)))
     model = JFusionOcc(jc.model)
     variables = random_variables(_init_fn(model, jbatch), seed=3)
@@ -128,20 +127,20 @@ def jax_step():
             to_np(new_state.opt_state[0]))
 
 
-@pytest.fixture(scope='module')
-def port_step(jax_step):
-    """The port's train_step from the same weights: (model, state, logs,
-    raw gradients by name, the gradients with the images perturbed)."""
-    variables = jax_step[0]
+def port_train_step(variables, batch_size: int):
+    """The port's train_step from the same weights on the batch of
+    ``batch_size``: (model, state, logs, raw gradients by name, the
+    gradients with the images perturbed), and the batch."""
     tc = tcfg.TrainConfig(model=model_config(tcfg),
                           optim=tcfg.OptimConfig(**OPTIM))
     model = FusionOcc(tc.model, device='cpu')
     model.load_state_dict(state_dict_from_flax(
         variables['params'], variables['batch_stats'], tc.model), strict=True)
-    batch = synthetic_batch(tc.model, 1, 0, device='cpu')
+    batch = synthetic_batch(tc.model, batch_size, 0, device='cpu')
     batch = batch._replace(points=torch.from_numpy(_snap(batch.points)))
     noise = torch.randn(batch.imgs.shape,
                         generator=torch.Generator().manual_seed(5))
+    start = copy.deepcopy(model.state_dict())
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(layers, 'dropout', lambda x, rate: x)
         twin = copy.deepcopy(model)
@@ -151,7 +150,17 @@ def port_step(jax_step):
         logs = loop.train_step(model, tc, state, batch)
     grads = {n: p.grad for n, p in model.named_parameters()}
     perturbed = {n: p.grad for n, p in twin.named_parameters()}
-    return model, state, logs, grads, perturbed
+    return (model, state, logs, grads, perturbed), (tc, start, batch)
+
+
+@pytest.fixture(scope='module')
+def jax_step():
+    return jax_train_step(1)
+
+
+@pytest.fixture(scope='module')
+def port_step(jax_step):
+    return port_train_step(jax_step[0], 1)[0]
 
 
 def by_name(tree, stats=None):
@@ -162,24 +171,17 @@ def by_name(tree, stats=None):
         if not k.endswith(('relative_position_index', 'num_batches_tracked'))}
 
 
-def test_losses_and_logs_match_jax(jax_step, port_step):
-    _, _, jlogs, _ = jax_step
-    logs = port_step[2]
+def check_logs(jax_step, logs):
+    jlogs = jax_step[2]
     assert set(logs) == set(jlogs)
     for key, want in jlogs.items():
-        if key != 'grad_norm':      # held in test_gradients_match_jax
+        if key != 'grad_norm':      # held in check_gradients
             np.testing.assert_allclose(float(logs[key]), float(want),
                                        rtol=LOSS_RTOL, err_msg=key)
 
 
-def test_gradients_match_jax(jax_step, port_step):
-    """Every gradient, by name.  In training mode the camera branch's
-    gradients upstream of the view transformer's first BatchNorm move by
-    up to a few % when the images move by 1e-6 (a ReLU fed by that
-    BatchNorm sits at its kink): the port must agree with JAX to within
-    3x its own change under that perturbation, plus 1e-4 of the norm."""
+def check_gradients(jax_step, logs, grads, perturbed):
     jgrads = by_name(jax_step[3])
-    _, _, logs, grads, perturbed = port_step
     assert set(grads) == set(jgrads)
     spread = loop.global_norm([perturbed[n] - g for n, g in grads.items()])
     jnorm = float(jax_step[2]['grad_norm'])
@@ -197,19 +199,13 @@ def test_gradients_match_jax(jax_step, port_step):
     assert len(tight) >= 0.5 * len(jgrads), (len(tight), len(jgrads))
 
 
-def test_updated_params_match_jax(jax_step, port_step):
-    """Where the two gradients agree in sign and both exceed 1e-4 (the first
-    update is g / (|g| + 1e-8), so a gradient difference moves it by less
-    than 1e-4 there), the update agrees to rounding; elsewhere it is within
-    2.1 lr."""
-    _, jstate, _, jgrads = jax_step
-    jgrads = by_name(jgrads)
-    want = by_name(jstate.params)
-    model, _, _, grads, _ = port_step
+def check_updated_params(jax_step, params, grads):
+    jgrads = by_name(jax_step[3])
+    want = by_name(jax_step[1].params)
     lr0 = OPTIM['lr'] * tcfg.OptimConfig().warmup_start_factor
     held = total = 0
-    for name, p in model.named_parameters():
-        got, w = p.detach(), want[name]
+    for name, got in params.items():
+        w = want[name]
         same = ((torch.sign(grads[name]) == torch.sign(jgrads[name]))
                 & (jgrads[name].abs() > SIGN_MIN)
                 & (grads[name].abs() > SIGN_MIN))
@@ -223,26 +219,54 @@ def test_updated_params_match_jax(jax_step, port_step):
     assert held >= 0.5 * total, (held, total)
 
 
-def test_running_stats_match_jax(jax_step, port_step):
-    """The BatchNorms' running statistics after one step (the adjacent
-    frame's batch first, the key frame's last; flax's momenta, biased
-    variance)."""
-    _, jstate, _, _ = jax_step
-    want = by_name({}, jstate.batch_stats)
-    sd = port_step[0].state_dict()
+def check_running_stats(jax_step, sd):
+    want = by_name({}, jax_step[1].batch_stats)
     assert want
     for name, w in want.items():
         np.testing.assert_allclose(sd[name].numpy(), w.numpy(), **STATS_TOL,
                                    err_msg=name)
 
 
-def test_ema_matches_jax(jax_step, port_step):
-    _, jstate, _, _ = jax_step
-    want = by_name(jstate.ema_params)
-    ema = port_step[1].ema
+def check_ema(jax_step, ema):
+    want = by_name(jax_step[1].ema_params)
     assert set(ema) == set(want)
     lr0 = OPTIM['lr'] * tcfg.OptimConfig().warmup_start_factor
     for name, w in want.items():
         np.testing.assert_allclose(ema[name].numpy(), w.numpy(),
                                    atol=EMA_ATOL * lr0, rtol=1e-5,
                                    err_msg=name)
+
+
+def test_losses_and_logs_match_jax(jax_step, port_step):
+    check_logs(jax_step, port_step[2])
+
+
+def test_gradients_match_jax(jax_step, port_step):
+    """Every gradient, by name.  In training mode the camera branch's
+    gradients upstream of the view transformer's first BatchNorm move by
+    up to a few % when the images move by 1e-6 (a ReLU fed by that
+    BatchNorm sits at its kink): the port must agree with JAX to within
+    3x its own change under that perturbation, plus 1e-4 of the norm."""
+    _, _, logs, grads, perturbed = port_step
+    check_gradients(jax_step, logs, grads, perturbed)
+
+
+def test_updated_params_match_jax(jax_step, port_step):
+    """Where the two gradients agree in sign and both exceed 1e-4 (the first
+    update is g / (|g| + 1e-8), so a gradient difference moves it by less
+    than 1e-4 there), the update agrees to rounding; elsewhere it is within
+    2.1 lr."""
+    model, _, _, grads, _ = port_step
+    check_updated_params(jax_step, {n: p.detach() for n, p in
+                                    model.named_parameters()}, grads)
+
+
+def test_running_stats_match_jax(jax_step, port_step):
+    """The BatchNorms' running statistics after one step (the adjacent
+    frame's batch first, the key frame's last; flax's momenta, biased
+    variance)."""
+    check_running_stats(jax_step, port_step[0].state_dict())
+
+
+def test_ema_matches_jax(jax_step, port_step):
+    check_ema(jax_step, port_step[1].ema)

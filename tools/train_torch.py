@@ -6,6 +6,9 @@
     python3 tools/train_torch.py --synthetic --steps 10
     python3 tools/train_torch.py --tiny --synthetic --steps 2 --device cpu
     python3 tools/train_torch.py --synthetic --steps 20 --resume work_dirs/x
+    torchrun --nproc_per_node 8 tools/train_torch.py --synthetic --steps 10
+    torchrun --standalone --nproc_per_node 2 tools/train_torch.py --tiny \
+        --synthetic --steps 2 --device cpu
 
 ``--config`` takes a preset of ``fusionocc_tpu_torch.configs`` (default
 ``fusion_occ``; ``--tiny`` alone: ``tiny``, whose LiDAR encoder runs on the
@@ -20,13 +23,24 @@ from an official Swin checkpoint (``weights.load_official_swin``).
 ``--steps 0`` runs the whole schedule.  Scalars go to
 ``<work-dir>/scalars.jsonl``; checkpoints to ``<work-dir>/step_<n>`` every
 ``--ckpt-interval-steps`` (0: once per epoch) and at the end; ``--resume``
-takes a checkpoint or the work dir holding them (its latest).  Training
-over several processes is ROADMAP Queue A item 11.
+takes a checkpoint or the work dir holding them (its latest).
+
+Over several processes (``torchrun``, ``tools/launch_torch_multihost.sh``,
+or the JAX tool's ``--coordinator``/``--num-processes``/``--process-id``)
+the process group is joined before anything touches the card, one card per
+local rank (NCCL; gloo with ``--device cpu``).  ``--batch-size`` is each
+rank's: the global batch is that times the world size.  With
+``--synthetic`` each rank trains on its rows of the global synthetic batch
+of seed 0; with ``--ann-file`` each rank reads its shard of the shuffled
+order (``data_loader(host_id=rank, host_count=world)``), an epoch being
+``len(dataset) // (batch_size * world)`` steps on every rank.  Rank 0 alone
+prints, writes ``scalars.jsonl`` and the checkpoints.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import os
 import sys
 import time
@@ -54,7 +68,7 @@ def build_config(config, tiny: bool, iters_per_epoch: int, lr, accumulate,
                        batch_size=batch_size)
 
 
-def load_official_checkpoint(path: str, model) -> None:
+def load_official_checkpoint(path: str, model, say=print) -> None:
     """Warm-start the image backbone from an official Swin state dict (a
     ``.pth``, its tensors under 'model' or 'state_dict' or at the top)."""
     import torch
@@ -68,9 +82,9 @@ def load_official_checkpoint(path: str, model) -> None:
     report = load_official_swin(
         model, {k: v.float().numpy() for k, v in sd.items()
                 if hasattr(v, 'numpy')})
-    print(f'load-from {path}: {len(report["loaded"])} backbone tensors '
-          f'loaded, {len(report["missing"])} missing, '
-          f'{len(report["unused"])} checkpoint keys unused', flush=True)
+    say(f'load-from {path}: {len(report["loaded"])} backbone tensors '
+        f'loaded, {len(report["missing"])} missing, '
+        f'{len(report["unused"])} checkpoint keys unused', flush=True)
 
 
 def main(argv=None) -> None:
@@ -95,26 +109,50 @@ def main(argv=None) -> None:
     ap.add_argument('--ckpt-interval-steps', type=int, default=0,
                     help='0 = once per epoch')
     ap.add_argument('--log-interval', type=int, default=1)
-    ap.add_argument('--device', default='cuda')
+    ap.add_argument('--device', default='cuda',
+                    help="'cuda' (each local rank's card), 'cuda:<i>' or "
+                         "'cpu'")
+    ap.add_argument('--coordinator', default=None,
+                    help='host:port of rank 0 (without torchrun)')
+    ap.add_argument('--num-processes', type=int, default=None)
+    ap.add_argument('--process-id', type=int, default=None)
     args = ap.parse_args(argv)
     if not args.synthetic and not args.ann_file:
         ap.error('pass --ann-file (an infos pkl) or --synthetic')
 
     import torch
 
+    from fusionocc_tpu_torch.parallel import mesh
+    # before anything touches the card: each rank takes its own
+    device = mesh.init_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        device=None if args.device == 'cuda' else args.device)
+    rank, world = mesh.rank(), mesh.world()
+    try:
+        train(args, device, rank, world)
+    finally:
+        if world > 1:
+            torch.distributed.destroy_process_group()
+
+
+def train(args, device, rank: int, world: int) -> None:
+    import torch
+
     from fusionocc_tpu_torch.data.pipeline import to_device
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
+    from fusionocc_tpu_torch.parallel.mesh import shard_batch
     from fusionocc_tpu_torch.train import checkpoint as ckpt
     from fusionocc_tpu_torch.train.loop import create_train_state, train_step
     from fusionocc_tpu_torch.utils.logging import MetricLogger
 
-    on_card = torch.device(args.device).type == 'cuda'
+    on_card = device.type == 'cuda'
+    say = print if rank == 0 else (lambda *a, **k: None)
     if args.synthetic:
         cfg = build_config(args.config, args.tiny, args.steps, args.lr,
                            args.accumulate, args.epochs, args.batch_size)
         from fusionocc_tpu_torch.data.synthetic import synthetic_batch
-        batch = synthetic_batch(cfg.model, args.batch_size, 0,
-                                device=args.device)
+        batch = shard_batch(synthetic_batch(cfg.model, args.batch_size * world,
+                                            0, device=device), rank, world)
 
         def batches():
             while True:
@@ -128,31 +166,36 @@ def main(argv=None) -> None:
                                 data_root=args.data_root,
                                 img_seg_dir=args.img_seg_dir, train=True,
                                 seed=cfg.seed)
+        per_epoch = max(len(ds) // (args.batch_size * world), 1)
         cfg = dataclasses.replace(cfg, optim=dataclasses.replace(
-            cfg.optim, iters_per_epoch=max(len(ds) // args.batch_size, 1)))
+            cfg.optim, iters_per_epoch=per_epoch))
 
         def batches():
+            # every rank takes per_epoch batches of its shard per epoch, so
+            # the ranks' steps (and collectives) stay paired
             epoch = 0
             while True:
                 ds.set_epoch(epoch)     # fresh augmentations each epoch
-                for host in prefetch(data_loader(
+                for host in itertools.islice(prefetch(data_loader(
                         ds, args.batch_size, shuffle=True, seed=epoch,
-                        pin_memory=on_card)):
-                    yield to_device(host, args.device)
+                        host_id=rank, host_count=world,
+                        pin_memory=on_card)), per_epoch):
+                    yield to_device(host, device)
                 epoch += 1
 
-    model = init_weights(FusionOcc(cfg.model, device=args.device),
+    model = init_weights(FusionOcc(cfg.model, device=device),
                          torch.Generator().manual_seed(cfg.seed))
     if args.load_from:
-        load_official_checkpoint(args.load_from, model)
+        load_official_checkpoint(args.load_from, model, say)
     state = create_train_state(model, cfg)
     if args.resume:
         path = ckpt.latest_checkpoint(args.resume) or args.resume
         ckpt.restore_checkpoint(path, model, state)
-        print(f'resumed from {path} at step {state.step}', flush=True)
+        say(f'resumed from {path} at step {state.step}', flush=True)
     total = args.steps or cfg.optim.max_epochs * cfg.optim.iters_per_epoch
     ckpt_every = args.ckpt_interval_steps or cfg.optim.iters_per_epoch
-    mlog = MetricLogger(args.work_dir, use_tensorboard=False)
+    mlog = (MetricLogger(args.work_dir, use_tensorboard=False)
+            if rank == 0 else None)
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     gen = batches()
     t0, first = time.perf_counter(), state.step
@@ -163,15 +206,17 @@ def main(argv=None) -> None:
             scalars = {k: float(v) for k, v in logs.items()}
             scalars['sec_per_iter'] = ((time.perf_counter() - t0)
                                        / (state.step - first))
-            mlog.log(state.step, scalars)
+            if mlog is not None:
+                mlog.log(state.step, scalars)
             line = ' '.join(f'{k}={v:.4f}' for k, v in scalars.items())
-            print(f'step {state.step}/{total} {line}', flush=True)
+            say(f'step {state.step}/{total} {line}', flush=True)
         if state.step % ckpt_every == 0 and state.step < total:
-            print(f'saved {ckpt.save_checkpoint(args.work_dir, model, state)}',
-                  flush=True)
-    mlog.close()
+            say(f'saved {ckpt.save_checkpoint(args.work_dir, model, state)}',
+                flush=True)
+    if mlog is not None:
+        mlog.close()
     path = ckpt.save_checkpoint(args.work_dir, model, state)
-    print(f'final checkpoint: {path}', flush=True)
+    say(f'final checkpoint: {path}', flush=True)
 
 
 if __name__ == '__main__':
