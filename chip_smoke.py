@@ -133,6 +133,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``OccupancyMetric`` over 2 ranks, 2 predicted samples each, equal to
    one process over the 4.
 
+10. serving, the default config at full size, bf16, ``spread_weights``:
+   (a) one ``int8_dense`` predict with every int8 product taken through
+   ``torch._int_mm`` and through the exact float64 product on the same
+   operands, bit-equal, each distinct shape timed both ways; (b) the
+   ``int8_dense`` two-pass predict beside the bf16 one on the same weights
+   (ms per predict by CUDA events, Swin-B's device ms and share, logit drift
+   over scale and argmax agreement printed beside JAX's tiny-model bounds
+   0.08 and 0.99), launches gated; (c) the same for ``--int8-weights``
+   (bounds 0.05 and 0.995); (d) ``tools/export_torch.py``'s export, save,
+   load and run of the predict and of the streaming step: the loaded
+   program's output equal to eager's, its launches counted through the
+   program (tracing launches none), export, save and load times, the
+   program's size and its ms beside eager's; (e) ``LSSViewTransformer``
+   and ``LSSViewTransformerBEVDepth`` (plain and with a stereo cost volume)
+   on the key frame's pooling index, one K1 launch each held against its
+   plain version.
+
 A kernel's bound is the least time the card could take for the same work:
 the larger of its operations over the peak rate of their type and its bytes
 (each input read once, each output written once) over the memory rate,
@@ -140,8 +157,10 @@ from NVIDIA's H100 SXM data sheet.
 
 The last two lines are the kernels' JSON summary (with each kernel's
 launches per full-size train step, its backward's ms, its launches in
-phase 8's two-pass evaluation of 9 samples and per rank per step of phase
-9c) and the result JSON.
+phase 8's two-pass evaluation of 9 samples, per rank per step of phase
+9c, per int8 predict, per run of the loaded two-pass and streaming
+programs and per base view transformer call of phase 10) and the result
+JSON.
 Needs a CUDA GPU; on a machine without one it exits 1 before doing anything.
 """
 from __future__ import annotations
@@ -280,7 +299,7 @@ def phase_device() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ''
-    print('[1/9] device: nvidia-smi name, power.limit:')
+    print('[1/10] device: nvidia-smi name, power.limit:')
     print(card)
     from fusionocc_tpu_torch.ops.kernels import find_nvcc
     nvcc = subprocess.run([find_nvcc(), '--version'], capture_output=True,
@@ -324,7 +343,7 @@ def phase_build() -> None:
     took = time.perf_counter() - t0
     how = ('compiled' if KERNELS.build_seconds is not None
            else 'found built')
-    print(f'[2/9] build: {how} {path.name} in {took:.1f} s')
+    print(f'[2/10] build: {how} {path.name} in {took:.1f} s')
     for line in KERNELS.build_log.splitlines():
         if 'Used' in line or 'Compiling entry' in line or 'spill' in line:
             print('  ptxas' + line.split('ptxas', 1)[-1])
@@ -746,7 +765,7 @@ def check_edge_shapes(g) -> None:
 
 @torch.inference_mode()
 def phase_kernels(cfg, batch0) -> dict:
-    print('[3/9] kernels vs plain versions at main-path shapes')
+    print('[3/10] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
     measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
                 'zwin_conv_fwd_epi': check_zwin_fused(cfg, batch0),
@@ -764,7 +783,7 @@ def phase_reference() -> None:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
     from fusionocc_tpu_torch.ops.kernels import KERNELS
-    print('[4/9] reference: midsize multi-modal fp32, card vs CPU plain '
+    print('[4/10] reference: midsize multi-modal fp32, card vs CPU plain '
           'versions')
     cfg = midsize_model_config(use_lidar=True)
     g = torch.Generator().manual_seed(7)
@@ -1106,7 +1125,7 @@ def phase_slice(batches) -> dict:
     kernel's launches on the path that runs it."""
     from fusionocc_tpu_torch.config import (full_model_config,
                                             image_only_model_config)
-    print('[5/9] slice: full-size predict, bf16')
+    print('[5/10] slice: full-size predict, bf16')
     paths = []
     for label, cfg in (('image-only', image_only_model_config()),
                        ('default multi-modal', full_model_config()),
@@ -1488,7 +1507,7 @@ def phase_streaming(batches) -> None:
     from fusionocc_tpu_torch.config import full_model_config
     from fusionocc_tpu_torch.models.fusion_occ import map_batch, stack_batches
     from tools.eval_torch_streaming_delta import clip_frames
-    print('[6/9] streaming: full-size default config, a clip of '
+    print('[6/10] streaming: full-size default config, a clip of '
           f'{CLIP_FRAMES} frames, a reset at frame {CLIP_RESET}')
     t0 = time.perf_counter()
     clip = stack_batches(clip_frames(full_model_config(), 0, CLIP_FRAMES,
@@ -1850,7 +1869,7 @@ def phase_training(batches) -> tuple:
     train step card vs CPU, (c) the full-size train steps.  Returns (the
     launches per full-size step, backward ms by kernel)."""
     from fusionocc_tpu_torch.config import full_model_config
-    print('[7/9] training: kernel Functions, midsize card vs CPU, '
+    print('[7/10] training: kernel Functions, midsize card vs CPU, '
           'full-size train steps (bf16)')
     bwd_ms = train_functions(full_model_config(), batches[0])
     torch.cuda.empty_cache()
@@ -2140,7 +2159,7 @@ def phase_eval() -> dict:
     from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc,
                                                        frame_pooling_index,
                                                        spread_weights)
-    print(f'[8/9] evaluation: a written scene of {EVAL_SAMPLES} samples at '
+    print(f'[8/10] evaluation: a written scene of {EVAL_SAMPLES} samples at '
           'full raw size through tools/test_torch.py, bf16, batch 1')
     cfg = full_model_config()
     with tempfile.TemporaryDirectory(prefix='fusionocc_eval_') as root:
@@ -2648,7 +2667,7 @@ def phase_dist(batches) -> dict:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.eval.metrics import OccupancyMetric
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
-    print(f'[9/9] data-parallel training: {DIST_WORLD} ranks on the one '
+    print(f'[9/10] data-parallel training: {DIST_WORLD} ranks on the one '
           'card exchange CUDA tensors over gloo (NCCL refuses two ranks on '
           'one device; gloo stages each collective through the host, so '
           'these times measure neither NCCL nor a second card and are no '
@@ -2750,6 +2769,298 @@ def phase_dist(batches) -> dict:
     return fulls[0]['rows'][-1]['launches']
 
 
+# -- phase 10: int8 serving, the serving export, the base view transformers --
+INT8_DENSE_BOUNDS = (0.08, 0.99)    # JAX's tests/test_quant.py:136-140
+INT8_WEIGHT_BOUNDS = (0.05, 0.995)  # JAX's tests/test_quant.py:109-111
+SERVE_REPS = 5                      # timed predicts per serving mode
+
+
+def set_int8(model, on: bool) -> None:
+    """Route the Swin backbone's Linears through int8 products or not (the
+    same weights either way: ``SwinConfig.int8_dense``)."""
+    from fusionocc_tpu_torch.nn.layers import Linear
+    for mod in model.img_backbone.modules():
+        if isinstance(mod, Linear):
+            mod.int8 = on
+
+
+def timed_predicts(model, batches, pool_idxs, reps: int = SERVE_REPS):
+    """One warm-up, then ``reps`` two-pass predicts over ``batches`` in
+    turn: (device ms per predict by CUDA events, Swin-B's device ms per
+    predict, the logits of each batch)."""
+    clock = ModuleClock(model.img_backbone)
+    with torch.inference_mode():
+        logits = [model(b, pool_idxs)['occ_logits'] for b in batches]
+        clock.reset()
+        ms = []
+        for i in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model.predict(batches[i % len(batches)], pool_idxs)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+    swin = clock.call_ms()
+    clock.remove()
+    per = [sum(swin[i:i + 2]) for i in range(0, len(swin), 2)]
+    return ms, per, logits
+
+
+def drift_agree(got, want) -> tuple:
+    """max |got - want| / max |want| over the batches' logits, and the
+    share of voxels whose argmax agrees."""
+    drift = max((g - w).abs().max().item() for g, w in zip(got, want))
+    scale = max(w.abs().max().item() for w in want)
+    agree = (sum((g.argmax(-1) == w.argmax(-1)).float().mean().item()
+                 for g, w in zip(got, want)) / len(want))
+    return drift / scale, agree
+
+
+def int8_products(model, batch, pool_idxs) -> list:
+    """10a: one int8 predict with every int8 product taken twice, through
+    ``torch._int_mm`` and through the exact plain product on the same
+    operands: fail unless bit-equal.  Returns the distinct (M, K, N) with
+    each shape's operands of its first call."""
+    from fusionocc_tpu_torch import quant
+    real, seen = quant.int8_mm, {}
+
+    def checked(a, b):
+        got = real(a, b)
+        want = quant.int8_mm_plain(a, b)
+        if not torch.equal(got, want):
+            fail(f'10a: torch._int_mm at {tuple(a.shape)} x {tuple(b.shape)} '
+                 'differs from the plain int32 product')
+        seen.setdefault((a.shape[0], a.shape[1], b.shape[1]), (a, b))
+        return got
+    quant.int8_mm = checked
+    try:
+        with torch.inference_mode():
+            model.predict(batch, pool_idxs)
+    finally:
+        quant.int8_mm = real
+    return seen
+
+
+def serving_int8(cfg, batches) -> dict:
+    """10a-10c on one full-size bf16 model with spread weights: the int8
+    products, the ``int8_dense`` predict and the ``--int8-weights`` predict
+    beside the bf16 one, each predict's launches gated.  Returns the
+    launches per int8 predict."""
+    from fusionocc_tpu_torch import quant
+    from fusionocc_tpu_torch.models.fusion_occ import (
+        FusionOcc, batch_pooling_indices, spread_weights)
+    model = spread_weights(FusionOcc(cfg, device=DEV),
+                           torch.Generator().manual_seed(0))
+    pool_idxs = batch_pooling_indices(cfg, batches[0])
+    expect = launches_per(cfg, cfg.num_frame, 1)
+
+    set_int8(model, True)
+    shapes = int8_products(model, batches[0], pool_idxs)
+    rows = []
+    for (M, K, N), (a, b) in sorted(shapes.items()):
+        t_lib = cuda_ms(lambda: quant.int8_mm(a, b), reps=5, warmup=1)
+        t_plain = cuda_ms(lambda: quant.int8_mm_plain(a, b), reps=2,
+                          warmup=1)
+        rows.append(f'{M}x{K}x{N} {t_lib:.4f}/{t_plain:.3f}')
+    print(f'  10a: every int8 product of one int8_dense predict '
+          f'({len(shapes)} shapes) through torch._int_mm bit-equal to the '
+          f'plain int32 product (float64 sums); ms torch._int_mm / plain '
+          f'per shape M x K x N: ' + ', '.join(rows), flush=True)
+
+    set_int8(model, False)
+    base_ms, base_swin, base = timed_predicts(model, batches, pool_idxs)
+    set_int8(model, True)
+    counted('10b int8_dense predict',
+            lambda: model.predict(batches[0], pool_idxs), expect)
+    int8_ms, int8_swin, got = timed_predicts(model, batches, pool_idxs)
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        fail('10b: int8_dense logits not finite')
+    drift, agree = drift_agree(got, base)
+    med = statistics.median
+    print(f'  10b int8_dense two-pass predict, launches {expect} per predict:'
+          f' ms per predict median {med(int8_ms):.2f} (all '
+          f'{[round(t, 2) for t in int8_ms]}) against bf16 {med(base_ms):.2f}'
+          f' (all {[round(t, 2) for t in base_ms]}) in this run; Swin-B '
+          f'{med(int8_swin):.2f} ms ({med(int8_swin) / med(int8_ms):.3f} of '
+          f'the predict) against {med(base_swin):.2f} '
+          f'({med(base_swin) / med(base_ms):.3f}); logit drift / scale '
+          f'{drift:.4f} (JAX tiny fp32 bound {INT8_DENSE_BOUNDS[0]}), argmax '
+          f'agreement with bf16 {agree:.4f} (bound {INT8_DENSE_BOUNDS[1]})',
+          flush=True)
+    set_int8(model, False)
+
+    live = {k: v.clone() for k, v in model.state_dict().items()}
+    sizes = quant.load_int8_weights(model, cfg)
+    counted('10c --int8-weights predict',
+            lambda: model.predict(batches[0], pool_idxs), expect)
+    w8_ms, _, got = timed_predicts(model, batches, pool_idxs)
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        fail('10c: --int8-weights logits not finite')
+    drift, agree = drift_agree(got, base)
+    print(f'  10c --int8-weights two-pass predict ({sizes}), launches '
+          f'{expect}: ms per predict median {med(w8_ms):.2f} (all '
+          f'{[round(t, 2) for t in w8_ms]}); logit drift / scale '
+          f'{drift:.4f} (JAX tiny fp32 bound {INT8_WEIGHT_BOUNDS[0]}), '
+          f'argmax agreement with bf16 {agree:.4f} (bound '
+          f'{INT8_WEIGHT_BOUNDS[1]})', flush=True)
+    model.load_state_dict(live)
+    del model, live
+    torch.cuda.empty_cache()
+    return expect
+
+
+def serving_export(cfg, batches) -> dict:
+    """10d: ``tools/export_torch.py``'s export, save, load and run of the
+    full-size predict and streaming step (bf16, spread weights): the loaded
+    program's output equal to eager's, its launches counted, its ms beside
+    eager's.  Returns the launches per run of each loaded program."""
+    import os
+    import shutil
+    import tempfile
+    from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc,
+                                                       spread_weights)
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    from tools import export_torch as et
+    model = spread_weights(FusionOcc(cfg, device=DEV),
+                           torch.Generator().manual_seed(0))
+    tmp = tempfile.mkdtemp(prefix='fusionocc_export_')
+    out = {}
+    try:
+        for mode in ('two-pass', 'streaming'):
+            state = (model.init_streaming_state(1) if mode == 'streaming'
+                     else None)
+            passes = 1 if state is not None else cfg.num_frame
+            expect = launches_per(cfg, passes, 1)
+            KERNELS.reset_counts()
+            t0 = time.perf_counter()
+            program = et.export_program(model, batches[0], state)
+            export_s = time.perf_counter() - t0
+            traced = {k: v for k, v in KERNELS.launches.items() if v}
+            if traced:
+                fail(f'10d: tracing launched kernels {traced}')
+            path = os.path.join(tmp, f'{mode}.pt2')
+            t0 = time.perf_counter()
+            torch.export.save(program, path)
+            save_s = time.perf_counter() - t0
+            del program
+            t0 = time.perf_counter()
+            loaded = torch.export.load(path).module()
+            load_s = time.perf_counter() - t0
+            args = et.program_args(batches[0], state)
+
+            def run_loaded():
+                with torch.no_grad():
+                    return loaded(*args)
+            got = counted(f'10d loaded {mode} program', run_loaded, expect)
+            want = et.eager(model, batches[0], state)
+            got0 = got[0] if state is not None else got
+            want0 = want[0] if state is not None else want
+            if not torch.equal(got0, want0):
+                agree = (got0 == want0).float().mean().item()
+                fail(f'10d: the loaded {mode} program\'s prediction differs '
+                     f'from eager\'s (voxel agreement {agree:.6f})')
+            if state is not None and not all(
+                    torch.equal(g, w) for g, w in zip(got[1:], want[1:])):
+                fail('10d: the loaded streaming program\'s new state differs')
+            ms_loaded = cuda_ms(run_loaded, reps=SERVE_REPS, warmup=1)
+            ms_eager = cuda_ms(lambda: et.eager(model, batches[0], state),
+                               reps=SERVE_REPS, warmup=1)
+            out[mode] = expect
+            print(f'  10d {mode}: torch.export {export_s:.1f} s, save '
+                  f'{save_s:.1f} s, {os.path.getsize(path) / 2**20:.1f} MiB, '
+                  f'load {load_s:.1f} s; the loaded program\'s output equals '
+                  f'eager\'s; launches {expect} per run; ms per run (CUDA '
+                  f'events, {SERVE_REPS} queued) loaded {ms_loaded:.2f}, '
+                  f'eager {ms_eager:.2f}', flush=True)
+            del loaded
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+@torch.inference_mode()
+def serving_lss_base(cfg, batch) -> dict:
+    """10e: ``LSSViewTransformer`` and ``LSSViewTransformerBEVDepth`` (plain
+    and stereo) at full size on the key frame's pooling index, bf16: one K1
+    launch each, every launch held against its plain version.  Returns the
+    launches of the three calls."""
+    from fusionocc_tpu_torch.geometry import make_frustum
+    from fusionocc_tpu_torch.models import lss_base
+    from fusionocc_tpu_torch.models.fusion_occ import (frame_pooling_index,
+                                                       init_weights)
+    g = torch.Generator().manual_seed(5)
+    idx = frame_pooling_index(cfg, batch.sensor2keyego[:, 0],
+                              batch.intrins[:, 0], batch.post_rots[:, 0],
+                              batch.post_trans[:, 0], batch.bda)
+    H, W = cfg.input_size
+    ds = cfg.vt.downsample
+    N, cin, C = cfg.num_cams, cfg.img_neck_out_channels, cfg.img_channels
+    x = torch.randn(1, N, H // ds, W // ds, cin, generator=g).to(
+        DEV, cfg.dtype)
+    mlp = torch.randn(1, N, 27, generator=g).to(DEV)
+    hs, ws = H // 4, W // 4
+    prev = torch.randn(N, hs, ws, 128, generator=g).to(DEV, cfg.dtype)
+    curr = (prev.float() + 0.3 * torch.randn(N, hs, ws, 128, generator=g).to(
+        DEV)).to(cfg.dtype)
+    cv = lss_base.stereo_cost_volume(
+        prev, curr, make_frustum(cfg.grid.depth, (H, W), 4, device=DEV),
+        batch.sensor2keyego[:, 0], batch.intrins[:, 0],
+        batch.post_rots[:, 0], batch.post_trans[:, 0])
+    modules = (
+        ('LSSViewTransformer', lss_base.LSSViewTransformer(cfg.grid, cin, C),
+         lambda m: m(x, idx)),
+        ('LSSViewTransformerBEVDepth',
+         lss_base.LSSViewTransformerBEVDepth(cfg.grid, cin, C),
+         lambda m: m(x, mlp, idx)),
+        ('LSSViewTransformerBEVDepth stereo',
+         lss_base.LSSViewTransformerBEVDepth(cfg.grid, cin, C, stereo=True),
+         lambda m: m(x, mlp, idx, cv)))
+    expect = {k: 0 for k in MAIN_KERNELS}
+    expect['bev_pool_fwd'] = 1
+    for label, mod, run in modules:
+        mod = init_weights(mod.to(DEV).eval(), g)
+        with KernelCheck(f'10e {label}', cfg):
+            voxel, depth = counted(f'10e {label}', lambda: run(mod), expect)
+        gx, gy, gz = cfg.grid.grid_size
+        if (voxel.shape != (1, gz, gy, gx, C) or not bool(
+                torch.isfinite(voxel).all()) or not bool(
+                torch.isfinite(depth).all())):
+            fail(f'10e {label}: voxel {tuple(voxel.shape)} or depth not '
+                 'finite')
+        ms = cuda_ms(lambda: run(mod), reps=3, warmup=1)
+        print(f'  10e {label}: voxel {tuple(voxel.shape)} '
+              f'{str(voxel.dtype).split(".")[-1]} finite, K1 1 launch, '
+              f'{ms:.2f} ms per call', flush=True)
+    print(f'  10e: stereo cost volume {tuple(cv.shape)} finite '
+          f'{bool(torch.isfinite(cv).all())}', flush=True)
+    return expect
+
+
+def phase_serving(batches) -> dict:
+    """Phase 10: int8 serving, the serving export and the base view
+    transformers at full size.  Returns each kernel's launches per run of
+    the int8 predict, the loaded two-pass program and a base view
+    transformer."""
+    from fusionocc_tpu_torch.config import full_model_config
+    print('[10/10] serving: int8 products, int8_dense and --int8-weights '
+          'predicts, torch.export round trips, base view transformers; '
+          'full size, bf16', flush=True)
+    cfg = full_model_config()
+    t0 = time.perf_counter()
+    int8 = serving_int8(cfg, batches)
+    t1 = time.perf_counter()
+    export = serving_export(cfg, batches)
+    t2 = time.perf_counter()
+    lss = serving_lss_base(cfg, batches[0])
+    print(f'  phase 10: int8 {t1 - t0:.1f} s, export {t2 - t1:.1f} s, base '
+          f'view transformers {time.perf_counter() - t2:.1f} s', flush=True)
+    return {'int8': int8, 'export': export['two-pass'],
+            'export_streaming': export['streaming'], 'lss_base': lss}
+
+
 def main() -> None:
     card = phase_device()
     phase_build()
@@ -2767,6 +3078,7 @@ def main() -> None:
     train, bwd_ms = phase_training(batches)
     evaluated = phase_eval()
     dist_launches = phase_dist(batches)
+    serving = phase_serving(batches)
     sources = {
         'window_attn_fwd': ('fusionocc_tpu_torch/csrc/window_attn.cu',
                             'fusionocc_tpu/ops/pallas/window_attn.py:79'),
@@ -2788,7 +3100,12 @@ def main() -> None:
                         'train_launches': train[name],
                         'backward_ms': bwd_ms.get(name),
                         'eval_launches': evaluated[name],
-                        'dist_train_launches': dist_launches[name]})
+                        'dist_train_launches': dist_launches[name],
+                        'int8_launches': serving['int8'][name],
+                        'export_launches': serving['export'][name],
+                        'export_streaming_launches':
+                            serving['export_streaming'][name],
+                        'lss_base_launches': serving['lss_base'][name]})
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

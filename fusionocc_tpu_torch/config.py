@@ -75,7 +75,9 @@ class SwinConfig:
     draws its stochastic-depth masks from ``linspace(0, drop_path_rate,
     24)`` (JAX's rates), and ``with_cp`` runs each block under
     ``torch.utils.checkpoint`` with those masks drawn before it, so the
-    recompute sees the same masks.
+    recompute sees the same masks.  ``int8_dense`` serves the backbone's
+    Linears through int8 products (``quant.int8_linear``), as JAX's
+    ``int8_dot_general`` does.
     """
     embed_dims: int = 128
     depths: Tuple[int, ...] = (2, 2, 18, 2)
@@ -291,10 +293,6 @@ def check_supported(cfg: ModelConfig) -> None:
                     "ports the default path only (backend 'zfold', zconv "
                     "'zwin' or 'zband'); the COO, tile, lifted and zslice "
                     "paths are on ROADMAP's not-ported list")
-    if cfg.swin.int8_dense:
-        raise NotImplementedError(
-            'swin.int8_dense=True (int8 serving) is not ported yet '
-            '(ROADMAP Queue A item 12)')
     if cfg.param_dtype != 'float32':
         raise NotImplementedError(
             f'param_dtype={cfg.param_dtype!r}: the port keeps parameters in '

@@ -299,6 +299,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if ((int)blockIdx.x < long_blocks) {
     if (warp >= n_long) return;                 // the whole warp
     const int v = long_voxels[warp];
+    if (v < 0) return;                          // padding of a static table
     long_item<TF, TO, G>(depth, feat, ranks_depth, ranks_feat, bounds[v],
                          bounds[v + 1], v, out);
     return;
@@ -338,7 +339,8 @@ int launch(const void* depth, const void* feat, const void* ranks_depth,
 
 // C is 8 (the test presets) or 32 (the reference's feature channels);
 // feat_bf16 / out_bf16 pick the dtypes (else fp32);
-// long_voxels holds n_long voxel ids, each with a run longer than max_short.
+// long_voxels holds n_long voxel ids, each with a run longer than max_short,
+// or -1 (padding of a table of static length, skipped).
 extern "C" int bev_pool_fwd(const void* depth, const void* feat,
                             const void* ranks_depth, const void* ranks_feat,
                             const void* bounds, const void* long_voxels,

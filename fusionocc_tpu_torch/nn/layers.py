@@ -116,10 +116,21 @@ def _cast(t, dtype):
 
 
 class Linear(nn.Linear):
-    """nn.Linear computing in the input's dtype."""
+    """nn.Linear computing in the input's dtype.  With ``int8`` set (the
+    Swin layers of ``SwinConfig.int8_dense``) the product runs through
+    ``quant.int8_linear`` on the weight cast to that dtype, and the bias is
+    added after, in that dtype, as flax's ``Dense`` with JAX's
+    ``int8_dot_general`` does."""
+
+    int8 = False
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype))
+        w = self.weight.to(x.dtype)
+        if not self.int8:
+            return F.linear(x, w, _cast(self.bias, x.dtype))
+        from ..quant import int8_linear
+        y = int8_linear(x, w)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):

@@ -13,6 +13,11 @@ In training, block i drops its two residual branches per sample with rate
 drawn before the checkpointed call and passed in: the checkpoint restores
 the RNG state of torch's default generators only, not of the generator the
 draws come from, so a mask drawn inside would differ in the recompute.
+
+With ``int8_dense`` every Linear of the backbone (``qkv``, ``proj``, the
+ffn's two layers and the patch-merge ``reduction``) runs through
+``quant.int8_linear`` (int8 serving, JAX's ``int8_dot_general``); the
+attention itself stays K2, fed by the int8 ``qkv``.
 """
 from __future__ import annotations
 
@@ -187,6 +192,10 @@ class SwinTransformer(nn.Module):
             for i in range(n)])
         for i in cfg.out_indices:
             self.add_module(f'norm{i}', LayerNorm(dims[i]))
+        if cfg.int8_dense:      # qkv, proj, ffn fc1/fc2, patch-merge reduction
+            for mod in self.modules():
+                if isinstance(mod, Linear):
+                    mod.int8 = True
         self.eval()     # inference semantics until train() is called
 
     def forward(self, x) -> List[torch.Tensor]:

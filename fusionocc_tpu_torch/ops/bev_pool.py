@@ -13,11 +13,13 @@ each voxel's run of sorted points (``bounds``), the permutation that sorts
 the points by feature row (``order_by_feat``, for the backward) and builds
 the kernel's work table (``long_runs``): the voxels whose run is longer
 than ``max_short`` points, longest first.  ``bev_pool`` then sums the runs
-in the autograd ``Function`` ``BevPool``: the plain version by
-``index_add_`` over the sorted points, the CUDA kernel (``csrc/bev_pool.cu``)
-by a group of C/8 lanes per short run and a warp per long one.  The JAX
-package's cumulative-sum formulation and trimmed index are TPU devices the
-kernel does not need.
+through the custom op ``fusionocc::bev_pool`` (``bev_pool_op``, inside the
+autograd ``Function`` ``BevPool``): its CPU
+implementation is the plain version, ``index_add_`` over the sorted
+points, its CUDA one the kernel (``csrc/bev_pool.cu``), a group of C/8
+lanes per short run and a warp per long one.  The JAX package's
+cumulative-sum formulation and trimmed index are TPU devices the kernel
+does not need.
 
 The backward is JAX's ``_bev_pool_bwd``, the same code on both devices: the
 cotangent in fp32, gathered per sorted point; the depth gradient put back in
@@ -33,7 +35,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import GridConfig
-from .kernels import KERNELS, stream_ptr
+from .kernels import KERNELS, exporting, stream_ptr
 
 
 # The longest run a group of C/8 lanes sums (the kernel's short items);
@@ -62,13 +64,27 @@ class PoolingIndex(NamedTuple):
     order_by_feat: Optional[torch.Tensor] = None
 
 
-def long_runs(bounds: torch.Tensor, max_short: int) -> torch.Tensor:
+def long_runs(bounds: torch.Tensor, max_short: int,
+              num_points: int = 0) -> torch.Tensor:
     """int32 ids of the voxels whose run is longer than ``max_short``
     points, longest first (ties by voxel id): the kernel's warp items.
-    Every other voxel, empty ones included, is a short item."""
+    Every other voxel, empty ones included, is a short item.  While
+    ``torch.export`` traces, the table has a static length, the most long
+    runs ``num_points`` points can make (every voxel when it is 0), padded
+    with -1, which the kernel skips: ``nonzero``'s length would be read
+    from the card."""
     n = bounds[1:] - bounds[:-1]
-    v = torch.nonzero(n > max_short).flatten()
-    order = torch.sort(n[v], descending=True, stable=True).indices
+    if exporting():
+        size = n.numel()
+        if num_points:
+            size = min(size, num_points // (max_short + 1))
+        v = torch.nonzero_static(n > max_short, size=max(size, 1),
+                                 fill_value=-1).flatten()
+        key = torch.where(v >= 0, n[v.clamp_min(0)], -1)
+    else:
+        v = torch.nonzero(n > max_short).flatten()
+        key = n[v]
+    order = torch.sort(key, descending=True, stable=True).indices
     return v[order].to(torch.int32)
 
 
@@ -106,7 +122,7 @@ def prepare_pooling_index(coor: torch.Tensor, grid: GridConfig
         out_int32=True)
     order_by_feat = torch.argsort(rf_s, stable=True).to(torch.int32)
     return PoolingIndex(order.to(torch.int32), rf_s, rank_s, bounds,
-                        long_runs(bounds, MAX_SHORT_RUN), MAX_SHORT_RUN,
+                        long_runs(bounds, MAX_SHORT_RUN, P), MAX_SHORT_RUN,
                         order_by_feat)
 
 
@@ -185,19 +201,56 @@ def bev_pool_bwd(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
     return d_depth.to(depth_flat.dtype), d_feat.to(feat_flat.dtype)
 
 
+def _index(ranks_depth, ranks_feat, ranks_bev, bounds, long_voxels,
+           max_short):
+    return PoolingIndex(ranks_depth, ranks_feat, ranks_bev, bounds,
+                        long_voxels, max_short)
+
+
+@torch.library.custom_op('fusionocc::bev_pool', mutates_args=(),
+                         device_types='cpu')
+def bev_pool_op(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
+                ranks_depth: torch.Tensor, ranks_feat: torch.Tensor,
+                ranks_bev: torch.Tensor, bounds: torch.Tensor,
+                long_voxels: torch.Tensor, num_voxels: int, max_short: int,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    """K1 as a custom op on a ``PoolingIndex``'s tensors: on the CPU the
+    plain version, cast once to ``out_dtype``."""
+    idx = _index(ranks_depth, ranks_feat, ranks_bev, bounds, long_voxels,
+                 max_short)
+    return bev_pool_plain(depth_flat, feat_flat, idx, num_voxels
+                          ).to(out_dtype)
+
+
+@bev_pool_op.register_kernel('cuda')
+def _bev_pool_op_cuda(depth_flat, feat_flat, ranks_depth, ranks_feat,
+                      ranks_bev, bounds, long_voxels, num_voxels, max_short,
+                      out_dtype):
+    idx = _index(ranks_depth, ranks_feat, ranks_bev, bounds, long_voxels,
+                 max_short)
+    return bev_pool_cuda(depth_flat, feat_flat, idx, num_voxels, out_dtype)
+
+
+@bev_pool_op.register_fake
+def _bev_pool_op_fake(depth_flat, feat_flat, ranks_depth, ranks_feat,
+                      ranks_bev, bounds, long_voxels, num_voxels, max_short,
+                      out_dtype):
+    return feat_flat.new_empty(num_voxels, feat_flat.shape[1],
+                               dtype=out_dtype)
+
+
 class BevPool(torch.autograd.Function):
-    """Forward: the plain version for CPU tensors, K1 otherwise; backward:
-    ``bev_pool_bwd`` on both."""
+    """Forward: ``bev_pool_op`` (the plain version for CPU tensors, K1
+    otherwise); backward: ``bev_pool_bwd`` on both."""
 
     @staticmethod
     def forward(ctx, depth_flat, feat_flat, idx, num_voxels, out_dtype):
         ctx.save_for_backward(depth_flat, feat_flat)
         ctx.idx = idx
-        if feat_flat.device.type == 'cpu':
-            return bev_pool_plain(depth_flat, feat_flat, idx, num_voxels
-                                  ).to(out_dtype)
-        return bev_pool_cuda(depth_flat, feat_flat, idx, num_voxels,
-                             out_dtype)
+        return bev_pool_op(depth_flat, feat_flat, idx.ranks_depth,
+                           idx.ranks_feat, idx.ranks_bev, idx.bounds,
+                           idx.long_voxels, num_voxels, idx.max_short,
+                           out_dtype)
 
     @staticmethod
     def backward(ctx, g):

@@ -12,6 +12,15 @@ after its launch, and ``launch`` raises when that is not ``cudaSuccess``.
 ``KERNELS.launches`` counts, per kernel, the launches that went through
 ``launch``: a run resets the counts and reads them afterwards to show which
 kernels its path really used.
+
+Each kernel is a ``torch.library`` custom op in the ``fusionocc``
+namespace (registered by ``ops/bev_pool.py``, ``ops/window_attn.py`` and
+``ops/zwin_conv.py``): its CPU implementation is the plain version, its
+CUDA implementation the wrapper that launches the kernel, and a fake
+implementation gives ``torch.export`` its output's shape.  An exported
+program calls the op, so its launches go through ``launch`` and are
+counted too.  ``exporting()`` tells the index builds to take their static
+capacities instead of reading a padded width from the card.
 """
 from __future__ import annotations
 
@@ -161,6 +170,14 @@ class KernelLibrary:
 
 # One library per process, as there is one CUDA context per process.
 KERNELS = KernelLibrary()
+
+
+def exporting() -> bool:
+    """True while ``torch.export`` traces: the builds then size their
+    tensors by the static capacities (JAX's shapes), as a traced program
+    cannot read a width from the card."""
+    import torch
+    return torch.compiler.is_exporting()
 
 
 def stream_ptr(device) -> int:

@@ -117,7 +117,7 @@ def _downsample_keys(in_coords: torch.Tensor, in_mask: torch.Tensor,
     occ.scatter_(1, key.permute(3, 0, 1, 2, 4).reshape(B, -1), True)
     count = occ[:, :n_out].cumsum(dim=1, dtype=torch.int32)
     n = torch.clamp(count[:, -1], max=capacity)
-    S = padded_width(n)
+    S = padded_width(n, capacity)
     rank = torch.arange(1, S + 1, dtype=torch.int32, device=d.device)
     rank = rank.expand(B, S).contiguous()
     mask = rank <= n[:, None]

@@ -13,7 +13,8 @@ port's sparse stack (``ops/zfold.py``, ``ops/sparse_conv.py``):
 - every build runs on the whole batch at once on the inputs' device, as
   JAX's ``vmap`` does: no loop over the samples.  The padded width is the
   one number a build reads from the card (``padded_width``), so each build
-  waits for the card once, whatever the batch size.
+  waits for the card once, whatever the batch size (and never while
+  ``torch.export`` traces: the width is then the capacity).
 
 Points are binned with ``floor`` in fp32 exactly as the JAX package does.
 The mean is an exact segment mean: each voxel's few points are summed in
@@ -26,6 +27,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from .kernels import exporting
 
 
 class SparseVoxels(NamedTuple):
@@ -69,9 +72,15 @@ def segment_ranks(keys: torch.Tensor, valid: torch.Tensor):
     return torch.cumsum(first, dim=1, dtype=torch.int32) - 1, first
 
 
-def padded_width(n: torch.Tensor) -> int:
-    """The largest of the per-sample counts ``n`` (B,): the padded width of
-    a batched set, read from the card (the one wait of a build)."""
+def padded_width(n: torch.Tensor, capacity: int) -> int:
+    """The largest of the per-sample counts ``n`` (B,), each at most
+    ``capacity``: the padded width of a batched set, read from the card
+    (the one wait of a build).  While ``torch.export`` traces, the width is
+    ``capacity`` itself (the JAX package's static shape): the rows past a
+    sample's count are padding, masked as they are at any width, so the
+    result is the same."""
+    if exporting():
+        return capacity
     return int(n.max()) if n.numel() else 0
 
 
@@ -109,7 +118,7 @@ def voxelize_mean(points: torch.Tensor, valid: torch.Tensor,
     ok = torch.gather(ok, 1, order)
     vid, first = segment_ranks(key, ok)
     n = torch.clamp(first.sum(dim=1), max=capacity)
-    V = padded_width(n)
+    V = padded_width(n, capacity)
     # cut and invalid points go to P dump rows past the B*V voxel rows, one
     # per position, so no single row takes the scattered writes of a batch
     dump = B * V + torch.arange(P, device=dev)

@@ -11,9 +11,10 @@ kernel's contract); the output has q's dtype.  The shift mask is mmcv's:
 -100 between tokens of different regions, which only the last window row and
 column have.
 
-``window_attention`` is the autograd ``Function`` ``WindowAttention``: its
-forward takes the plain version for CPU tensors and launches
-``csrc/window_attn.cu`` for CUDA tensors; it never falls back.  The kernel
+``window_attention`` is the autograd ``Function`` ``WindowAttention``
+around the custom op ``fusionocc::window_attn`` (``window_attn_op``): its
+CPU implementation is the plain version,
+its CUDA one launches ``csrc/window_attn.cu``; it never falls back.  The kernel
 has two bodies, chosen by dtype: bf16 runs on the tensor cores (N <= 144,
 16-byte aligned q, k, v rows), fp32 on the CUDA cores (N <= 1024).  A bf16
 input that the tensor-core body does not take raises.  Its backward is JAX's
@@ -145,17 +146,35 @@ def window_attention_bwd(q, k, v, bias, nWh: int, nWw: int, w: int,
             dv.reshape(bn, n, c).to(v.dtype), ds.sum(dim=0).to(bias.dtype))
 
 
+@torch.library.custom_op('fusionocc::window_attn', mutates_args=(),
+                         device_types='cpu')
+def window_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: torch.Tensor, nWh: int, nWw: int, w: int,
+                   shift: int, heads: int) -> torch.Tensor:
+    """K2 as a custom op: on the CPU the plain version."""
+    return window_attention_plain(q, k, v, bias, nWh, nWw, w, shift, heads)
+
+
+@window_attn_op.register_kernel('cuda')
+def _window_attn_op_cuda(q, k, v, bias, nWh, nWw, w, shift, heads):
+    # the wrapper by its module name, so a caller may wrap it
+    return window_attention_cuda(q, k, v, bias, nWh, nWw, w, shift, heads)
+
+
+@window_attn_op.register_fake
+def _window_attn_op_fake(q, k, v, bias, nWh, nWw, w, shift, heads):
+    return q.new_empty(q.shape)
+
+
 class WindowAttention(torch.autograd.Function):
-    """Forward: the plain version for CPU tensors, K2 otherwise; backward:
-    ``window_attention_bwd`` on both."""
+    """Forward: ``window_attn_op`` (the plain version for CPU tensors, K2
+    otherwise); backward: ``window_attention_bwd`` on both."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, nWh, nWw, w, shift, heads):
         ctx.save_for_backward(q, k, v, bias)
         ctx.geom = (nWh, nWw, w, shift, heads)
-        fn = (window_attention_plain if q.device.type == 'cpu'
-              else window_attention_cuda)
-        return fn(q, k, v, bias, nWh, nWw, w, shift, heads)
+        return window_attn_op(q, k, v, bias, nWh, nWw, w, shift, heads)
 
     @staticmethod
     def backward(ctx, g):

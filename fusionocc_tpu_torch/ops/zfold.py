@@ -81,7 +81,7 @@ def zfold_regroup(sp: SparseVoxels, shape: Tuple[int, int, int],
                        * sshape[2])
     sid, first = segment_ranks(skey, sp.mask)
     n = torch.clamp(first.sum(dim=1), max=capacity)
-    S = padded_width(n)
+    S = padded_width(n, capacity)
     ok = sp.mask & (sid < capacity)
     row = torch.arange(B, device=dev)[:, None] * S + sid
     dump = torch.arange(V, device=dev)

@@ -23,9 +23,10 @@ weight; the kernel reads the cell weight at tap t - ds + dz directly.
 The TPU kernel's window plan, one-hot row selection, overflow patch and
 ``lax.cond`` fallback exist only because Mosaic had no dynamic gather; the
 CUDA kernel gathers rows by index, so it is exact and has none of them.
-``zwin_conv`` is the autograd ``Function`` ``ZwinConv``: its forward takes
-the plain version for CPU tensors and launches ``csrc/zwin_conv.cu`` for
-CUDA tensors; it never falls back.  Its backward is JAX's ``_zwin_bwd``, the
+``zwin_conv`` is the autograd ``Function`` ``ZwinConv`` around the custom
+op ``fusionocc::zwin_conv`` (``zwin_conv_op``): its CPU implementation is
+the plain version, its CUDA one launches ``csrc/zwin_conv.cu``; it never
+falls back.  Its backward is JAX's ``_zwin_bwd``, the
 VJP of the plain contract recomputed from the saved (feats, weight), the
 same code on both devices.  The kernel
 has two bodies, chosen by dtype: bf16 runs on the tensor cores (Cin a
@@ -241,17 +242,69 @@ def zwin_conv_bwd(feats: torch.Tensor, mask_out: torch.Tensor,
         return torch.autograd.grad(y, (f, w), g)
 
 
+@torch.library.custom_op('fusionocc::zwin_conv', mutates_args=(),
+                         device_types='cpu')
+def zwin_conv_op(feats: torch.Tensor, mask_out: torch.Tensor,
+                 nbr_idx: torch.Tensor, weight: torch.Tensor, f_in: int,
+                 f_out: int, stride: int) -> torch.Tensor:
+    """K3 as a custom op: on the CPU the plain version."""
+    return zwin_conv_plain(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                           stride)
+
+
+@zwin_conv_op.register_kernel('cuda')
+def _zwin_conv_op_cuda(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                       stride):
+    # the wrapper by its module name, so a caller may wrap it
+    return zwin_conv_cuda(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                          stride)
+
+
+@zwin_conv_op.register_fake
+def _zwin_conv_op_fake(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                       stride):
+    return feats.new_empty(feats.shape[0], nbr_idx.shape[1],
+                           f_out * weight.shape[2])
+
+
+@torch.library.custom_op('fusionocc::zwin_conv_epi', mutates_args=(),
+                         device_types='cpu')
+def zwin_conv_epi_op(feats: torch.Tensor, mask_out: torch.Tensor,
+                     nbr_idx: torch.Tensor, weight: torch.Tensor, f_in: int,
+                     f_out: int, stride: int, inv: torch.Tensor,
+                     shift: torch.Tensor, lane_mask: torch.Tensor
+                     ) -> torch.Tensor:
+    """K3 with its fused eval epilogue as a custom op: on the CPU the plain
+    version."""
+    return zwin_conv_epi_plain(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                               stride, inv, shift, lane_mask)
+
+
+@zwin_conv_epi_op.register_kernel('cuda')
+def _zwin_conv_epi_op_cuda(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                           stride, inv, shift, lane_mask):
+    return zwin_conv_epi_cuda(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                              stride, inv, shift, lane_mask)
+
+
+@zwin_conv_epi_op.register_fake
+def _zwin_conv_epi_op_fake(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                           stride, inv, shift, lane_mask):
+    return _zwin_conv_op_fake(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                              stride)
+
+
 class ZwinConv(torch.autograd.Function):
-    """Forward: the plain version for CPU tensors, K3 otherwise; backward:
-    ``zwin_conv_bwd`` on both.  The saved float tensors are the inputs
-    (feats, weight), as JAX's residuals."""
+    """Forward: ``zwin_conv_op`` (the plain version for CPU tensors, K3
+    otherwise); backward: ``zwin_conv_bwd`` on both.  The saved float
+    tensors are the inputs (feats, weight), as JAX's residuals."""
 
     @staticmethod
     def forward(ctx, feats, mask_out, nbr_idx, weight, f_in, f_out, stride):
         ctx.save_for_backward(feats, mask_out, nbr_idx, weight)
         ctx.geom = (f_in, f_out, stride)
-        fn = zwin_conv_plain if feats.device.type == 'cpu' else zwin_conv_cuda
-        return fn(feats, mask_out, nbr_idx, weight, f_in, f_out, stride)
+        return zwin_conv_op(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                            stride)
 
     @staticmethod
     def backward(ctx, g):
@@ -275,9 +328,7 @@ def zwin_conv_epi(feats: torch.Tensor, mask_out: torch.Tensor,
                   f_in: int, f_out: int, stride: int, inv: torch.Tensor,
                   shift: torch.Tensor, lane_mask: torch.Tensor
                   ) -> torch.Tensor:
-    """The fused conv: plain version for CPU tensors, the CUDA kernel
+    """The fused conv op: plain version for CPU tensors, the CUDA kernel
     otherwise; never the unfused chain."""
-    fn = (zwin_conv_epi_plain if feats.device.type == 'cpu'
-          else zwin_conv_epi_cuda)
-    return fn(feats, mask_out, nbr_idx, weight, f_in, f_out, stride, inv,
-              shift, lane_mask)
+    return zwin_conv_epi_op(feats, mask_out, nbr_idx, weight, f_in, f_out,
+                            stride, inv, shift, lane_mask)

@@ -2,7 +2,9 @@
 
 The inverse of ``fusionocc_tpu/train/torch_import.py`` (``build_rules``):
 Swin, FPN_LSS, CrossModalLSS, pre_process, the LiDAR encoder (when the
-config uses it), the BEV encoder and the head.  The trees come in as nested
+config uses it), the BEV encoder and the head; and, each as its own root,
+the base view transformers of ``models/lss_base.py``
+(``lss_base_rules``).  The trees come in as nested
 dicts of numpy arrays, so nothing here imports JAX.  Each rule maps a flax
 leaf path to its torch key and the layout change (flax kernels are
 (..., in, out), torch's (out, in, ...), spconv2's (out, k, k, k, in)).
@@ -116,6 +118,61 @@ def _lidar_encoder(rules: Rules, lc):
             _bn(rules, f'{f}/MaskedBatchNorm_0', f'{t}.1')
 
 
+def _mlp(rules: Rules, fpath, tpath):
+    _dense(rules, f'{fpath}/Dense_0', f'{tpath}.fc1')
+    _dense(rules, f'{fpath}/Dense_1', f'{tpath}.fc2')
+
+
+def _selayer(rules: Rules, fpath, tpath):
+    _conv(rules, f'{fpath}/Conv_0', f'{tpath}.conv_reduce', 2)
+    _conv(rules, f'{fpath}/Conv_1', f'{tpath}.conv_expand', 2)
+
+
+def _aspp(rules: Rules, fpath, tpath):
+    """Branches aspp1..aspp4, the global pool, the fused 1x1 (ConvBN_0..5)."""
+    for i in range(4):
+        _convbn(rules, f'{fpath}/ConvBN_{i}', f'{tpath}.aspp{i + 1}.atrous_conv',
+                f'{tpath}.aspp{i + 1}.bn', 2)
+    _convbn(rules, f'{fpath}/ConvBN_4', f'{tpath}.global_avg_pool.1',
+            f'{tpath}.global_avg_pool.2', 2)
+    _convbn(rules, f'{fpath}/ConvBN_5', f'{tpath}.conv1', f'{tpath}.bn1', 2)
+
+
+def _depth_net(rules: Rules, fpath, tpath, stereo: bool):
+    """``models/lss_base.DepthNet`` (with ASPP)."""
+    _convbn(rules, f'{fpath}/reduce_conv', f'{tpath}.reduce_conv.0',
+            f'{tpath}.reduce_conv.1', 2)
+    _bn(rules, f'{fpath}/mlp_bn/BatchNorm_0', f'{tpath}.bn')
+    for m in ('context', 'depth'):
+        _mlp(rules, f'{fpath}/{m}_mlp', f'{tpath}.{m}_mlp')
+        _selayer(rules, f'{fpath}/{m}_se', f'{tpath}.{m}_se')
+    _conv(rules, f'{fpath}/context_conv', f'{tpath}.context_conv', 2)
+    if stereo:
+        for k in range(2):
+            _convbn(rules, f'{fpath}/cost_volumn_{k}',
+                    f'{tpath}.cost_volumn_net.{2 * k}',
+                    f'{tpath}.cost_volumn_net.{2 * k + 1}', 2)
+        _conv(rules, f'{fpath}/cv_downsample', f'{tpath}.cv_downsample', 2)
+    for i in range(3):
+        _basicblock2d(rules, f'{fpath}/block{i}', f'{tpath}.depth_conv.{i}')
+    _aspp(rules, f'{fpath}/aspp', f'{tpath}.depth_conv.3')
+    _conv(rules, f'{fpath}/depth_out', f'{tpath}.depth_conv.4', 2)
+
+
+def lss_base_rules(kind: str, stereo: bool = False) -> Rules:
+    """The rules of a base view transformer of ``models/lss_base.py`` as
+    its own root: ``kind`` 'lss' (``LSSViewTransformer``) or 'bevdepth'
+    (``LSSViewTransformerBEVDepth``, ``stereo`` as built)."""
+    rules: Rules = {'params': {}, 'batch_stats': {}}
+    if kind == 'lss':
+        _conv(rules, 'depth_net', 'depth_net', 2)
+    elif kind == 'bevdepth':
+        _depth_net(rules, 'depth_net', 'depth_net', stereo)
+    else:
+        raise ValueError(f'kind {kind!r}: lss or bevdepth')
+    return rules
+
+
 def slice_rules(cfg: ModelConfig) -> Rules:
     """flax leaf path -> (torch key, converter), per collection."""
     rules: Rules = {'params': {}, 'batch_stats': {}}
@@ -167,21 +224,12 @@ def slice_rules(cfg: ModelConfig) -> Rules:
     for r in ('reduce_conv_depth', 'reduce_conv_seg', 'reduce_conv_context'):
         _convbn(rules, f'{dsn}/{r}', f'{tdsn}.{r}.0', f'{tdsn}.{r}.1', 2)
     _bn(rules, f'{dsn}/mlp_bn/BatchNorm_0', f'{tdsn}.bn')
-    for m in ('depth_mlp', 'context_mlp', 'seg_mlp'):
-        _dense(rules, f'{dsn}/{m}/Dense_0', f'{tdsn}.{m}.fc1')
-        _dense(rules, f'{dsn}/{m}/Dense_1', f'{tdsn}.{m}.fc2')
-    for s in ('depth_se', 'context_se', 'seg_se'):
-        _conv(rules, f'{dsn}/{s}/Conv_0', f'{tdsn}.{s}.conv_reduce', 2)
-        _conv(rules, f'{dsn}/{s}/Conv_1', f'{tdsn}.{s}.conv_expand', 2)
+    for m in ('depth', 'context', 'seg'):
+        _mlp(rules, f'{dsn}/{m}_mlp', f'{tdsn}.{m}_mlp')
+        _selayer(rules, f'{dsn}/{m}_se', f'{tdsn}.{m}_se')
     _basicblock2d(rules, f'{dsn}/depth_block0', f'{tdsn}.depth_conv.0')
     _basicblock2d(rules, f'{dsn}/depth_block1', f'{tdsn}.depth_conv.1')
-    aspp, taspp = f'{dsn}/aspp', f'{tdsn}.depth_conv.2'
-    for i in range(4):
-        _convbn(rules, f'{aspp}/ConvBN_{i}', f'{taspp}.aspp{i + 1}.atrous_conv',
-                f'{taspp}.aspp{i + 1}.bn', 2)
-    _convbn(rules, f'{aspp}/ConvBN_4', f'{taspp}.global_avg_pool.1',
-            f'{taspp}.global_avg_pool.2', 2)
-    _convbn(rules, f'{aspp}/ConvBN_5', f'{taspp}.conv1', f'{taspp}.bn1', 2)
+    _aspp(rules, f'{dsn}/aspp', f'{tdsn}.depth_conv.2')
     _conv(rules, f'{dsn}/depth_out', f'{tdsn}.depth_conv.3', 2)
     _conv(rules, f'{dsn}/context_conv', f'{tdsn}.context_conv', 2)
     _conv(rules, f'{dsn}/seg_conv0/Conv_0', f'{tdsn}.seg_conv.0', 2)
@@ -218,7 +266,22 @@ def state_dict_from_flax(params: Any, batch_stats: Any, cfg: ModelConfig
 
     Raises KeyError for a flax leaf no rule covers.
     """
-    rules = slice_rules(cfg)
+    sd = state_dict_from_rules(params, batch_stats, slice_rules(cfg))
+    rpi = relative_position_index(cfg.swin.window_size)
+    for key in list(sd):
+        if key.endswith('.relative_position_bias_table'):
+            sd[key[:-len('relative_position_bias_table')]
+               + 'relative_position_index'] = rpi.clone()
+    return sd
+
+
+def state_dict_from_rules(params: Any, batch_stats: Any, rules: Rules
+                          ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` that ``rules`` make of flax ``params`` /
+    ``batch_stats``, with each BatchNorm's ``num_batches_tracked``.
+
+    Raises KeyError for a flax leaf no rule covers.
+    """
     sd: Dict[str, torch.Tensor] = {}
     for kind, tree in (('params', params), ('batch_stats', batch_stats)):
         for path, leaf in flatten_tree(tree).items():
@@ -226,14 +289,10 @@ def state_dict_from_flax(params: Any, batch_stats: Any, cfg: ModelConfig
                 raise KeyError(f'no rule for flax {kind} leaf {path!r}')
             tkey, conv = rules[kind][path]
             sd[tkey] = torch.tensor(conv(np.asarray(leaf, np.float32)))
-    rpi = relative_position_index(cfg.swin.window_size)
     for key in list(sd):
         if key.endswith('.running_mean'):
             sd[key[:-len('running_mean')] + 'num_batches_tracked'] = (
                 torch.tensor(0, dtype=torch.long))
-        elif key.endswith('.relative_position_bias_table'):
-            sd[key[:-len('relative_position_bias_table')]
-               + 'relative_position_index'] = rpi.clone()
     return sd
 
 

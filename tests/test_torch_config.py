@@ -56,14 +56,29 @@ def test_image_only_preset_matches_named_config():
     (dict(use_lidar=True,
           lidar=dataclasses.replace(tcfg.SparseEncoderConfig(),
                                     backend='coo')), 'item 5'),
-    (dict(use_lidar=False,
-          swin=dataclasses.replace(tcfg.SwinConfig(), int8_dense=True)),
-     'item 12'),
+    (dict(use_lidar=False, param_dtype='bfloat16'), 'param_dtype'),
 ])
 def test_unported_paths_are_refused(overrides, item):
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc
     with pytest.raises(NotImplementedError, match=item):
         FusionOcc(tcfg.full_model_config(**overrides))
+
+
+def test_int8_dense_builds_at_full_size():
+    """int8 serving is ported: the full-size config with
+    ``swin.int8_dense`` builds, and exactly the backbone's Linears (qkv,
+    proj, the ffn's two, the patch-merge reductions) take int8 products."""
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc
+    from fusionocc_tpu_torch.nn.layers import Linear
+    cfg = tcfg.full_model_config(swin=dataclasses.replace(
+        tcfg.SwinConfig(), int8_dense=True))
+    model = FusionOcc(cfg, device='meta')
+    int8 = [n for n, m in model.named_modules()
+            if isinstance(m, Linear) and m.int8]
+    assert len(int8) == 4 * sum(cfg.swin.depths) + len(cfg.swin.depths) - 1
+    assert all(n.startswith('img_backbone.') for n in int8)
+    assert not any(m.int8 for n, m in model.named_modules()
+                   if isinstance(m, Linear) and not n.startswith('img_'))
 
 
 @pytest.mark.parametrize('field,value', [
@@ -139,6 +154,9 @@ def test_port_imports_no_jax():
         'fusionocc_tpu_torch.train.loop, fusionocc_tpu_torch.train.losses, '
         'fusionocc_tpu_torch.train.checkpoint, tools.train_torch, '
         'fusionocc_tpu_torch.parallel.mesh, '
+        'fusionocc_tpu_torch.quant, fusionocc_tpu_torch.models.lss_base, '
+        'fusionocc_tpu_torch.utils.visualization, tools.export_torch, '
+        'tools.visualize_torch, '
         'chip_smoke, tools.profile_torch_zwin_micro, '
         'tools.ab_bev_pool_split, tools.eval_torch_streaming_delta, '
         'tools.profile_torch_predict\n'

@@ -76,11 +76,13 @@ def _run_port(argv, capsys):
     return _lines(capsys.readouterr().out)
 
 
-@pytest.mark.parametrize('mode', ['two-pass', 'streaming', 'batch-frames'])
+@pytest.mark.parametrize('mode', ['two-pass', 'streaming', 'batch-frames',
+                                  'int8', 'int8-weights'])
 def test_port_tool_prints_every_jax_key(tree, jax_keys, capsys, mode):
     _, ann, seg = tree
     extra = {'two-pass': [], 'streaming': ['--streaming'],
-             'batch-frames': ['--batch-frames']}[mode]
+             'batch-frames': ['--batch-frames'], 'int8': ['--int8'],
+             'int8-weights': ['--int8-weights']}[mode]
     lines, res = _run_port(['--tiny', '--device', 'cpu', '--ann-file', ann,
                             '--img-seg-dir', seg, '--buckets', '--rayiou',
                             '--warmup', '0'] + extra, capsys)
@@ -114,11 +116,17 @@ def test_config_protocol_and_saved_predictions(tree, capsys, tmp_path):
 
 
 def test_refusals(tree):
+    """No data source is refused; ``--int8`` and ``--int8-weights`` are
+    ported and parse; the default device is the card."""
     import tools.test_torch as tt
     _, ann, _ = tree
+    with pytest.raises(SystemExit):
+        tt.parse_args(['--tiny'])
     for flag in ('--int8', '--int8-weights'):
-        with pytest.raises(SystemExit):
-            tt.parse_args(['--ann-file', ann, flag])
+        args = tt.parse_args(['--ann-file', ann, flag])
+        assert args.int8 or args.int8_weights
+    assert tt.resolve_config(tt.parse_args(
+        ['--ann-file', ann, '--int8']))[0].swin.int8_dense
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             tt.evaluate(tt.parse_args(['--tiny', '--ann-file', ann]))

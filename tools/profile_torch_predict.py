@@ -3,7 +3,7 @@
 spends its time on the GPU.
 
     python3 tools/profile_torch_predict.py [--iters 3] [--top 25] [--streaming]
-        [--zwin-fuse]
+        [--zwin-fuse] [--int8]
 
 Builds the model as ``chip_smoke.py`` does (bf16, seeded random weights,
 synthetic batch, cached pooling indices), warms up, then over ``--iters``
@@ -23,7 +23,8 @@ the motion):
   ``--streaming`` also the cache warp (``_shift_bev``); with
   ``--zwin-fuse`` the encoder runs K3 with its fused epilogue
   (``zwin_conv_epi``: the sparse stages' BatchNorms and ReLUs are in it,
-  so only the dense tail's two BatchNorms are hooked);
+  so only the dense tail's two BatchNorms are hooked); with ``--int8``
+  Swin-B's Linears take int8 products (``swin.int8_dense``);
 - then, over as many steps under ``torch.profiler``, the kernels with the
   most device time and the summed kernel time per step;
 - the device idle share: 1 - kernel time / unprofiled wall time.
@@ -127,6 +128,9 @@ def main() -> None:
     ap.add_argument('--zwin-fuse', action='store_true',
                     help="the LiDAR encoder with K3's fused epilogue "
                     '(zwin_fuse=True)')
+    ap.add_argument('--int8', action='store_true',
+                    help="Swin-B's Linears through int8 products "
+                    '(swin.int8_dense=True)')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('profile_torch_predict: needs a CUDA GPU')
@@ -142,7 +146,10 @@ def main() -> None:
     if args.zwin_fuse:
         cfg = dataclasses.replace(cfg, lidar=dataclasses.replace(
             cfg.lidar, zwin_fuse=True))
-    print(f'zwin_fuse={cfg.lidar.zwin_fuse}')
+    if args.int8:
+        cfg = dataclasses.replace(cfg, swin=dataclasses.replace(
+            cfg.swin, int8_dense=True))
+    print(f'zwin_fuse={cfg.lidar.zwin_fuse} int8_dense={cfg.swin.int8_dense}')
     model = init_weights(FusionOcc(cfg, device=dev),
                          torch.Generator().manual_seed(0))
     batch = synthetic_batch(cfg, 1, 0, device=dev)

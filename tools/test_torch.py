@@ -21,8 +21,11 @@ seed 0.
 Two-pass (default), ``--streaming`` (one camera pass per frame, the cache
 reset where the scene token changes) and ``--batch-frames`` (every frame
 in one camera pass).  The key frame's pooling index is cached by its
-geometry, as ``tools/test.py`` does.  ``--int8`` and ``--int8-weights``
-are not ported (ROADMAP Queue A item 12) and are refused.
+geometry, as ``tools/test.py`` does.  ``--int8`` serves the Swin
+backbone's Linears through int8 products (``SwinConfig.int8_dense``,
+``quant.int8_linear``); ``--int8-weights`` quantizes every kernel to int8
+per output channel and dequantizes it into the compute dtype before the
+run (``quant.load_int8_weights``), as ``tools/test.py`` does.
 """
 from __future__ import annotations
 
@@ -69,14 +72,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument('--fp32', action='store_true',
                     help='fp32 compute instead of the default bf16')
     ap.add_argument('--int8-weights', action='store_true',
-                    help='not ported (ROADMAP Queue A item 12)')
+                    help='weight-only int8 post-training quantization '
+                         '(every kernel, per output channel, dequantized '
+                         'into the compute dtype)')
     ap.add_argument('--int8', action='store_true',
-                    help='not ported (ROADMAP Queue A item 12)')
+                    help='serve the image backbone with int8 x int8 -> '
+                         'int32 products (dynamic activation '
+                         'quantization)')
     ap.add_argument('--device', default='cuda')
     args = ap.parse_args(argv)
-    if args.int8 or args.int8_weights:
-        ap.error('--int8 and --int8-weights (int8 serving, quant.py) are not '
-                 'ported yet: ROADMAP Queue A item 12')
     if not args.synthetic and not args.ann_file:
         ap.error('pass --ann-file (an infos pkl) or --synthetic')
     return args
@@ -114,6 +118,9 @@ def resolve_config(args):
             temperature=model_cfg.temperature)
     if args.fp32:
         model_cfg = dataclasses.replace(model_cfg, compute_dtype='float32')
+    if args.int8:
+        model_cfg = dataclasses.replace(model_cfg, swin=dataclasses.replace(
+            model_cfg.swin, int8_dense=True))
     return model_cfg, eval_cfg
 
 
@@ -191,7 +198,9 @@ class Evaluator:
 
 def build_model(args, cfg):
     """The port's FusionOcc on ``args.device``: seeded random weights, or
-    the checkpoint's (its EMA unless ``--no-ema``)."""
+    the checkpoint's (its EMA unless ``--no-ema``); with ``--int8-weights``
+    every kernel quantized to int8 and dequantized into the compute
+    dtype."""
     import torch
 
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
@@ -206,6 +215,9 @@ def build_model(args, cfg):
                 else args.checkpoint)
         step = ckpt.load_for_eval(path, model, use_ema=not args.no_ema)
         print(f'loaded checkpoint {path} (step {step})')
+    if args.int8_weights:
+        from fusionocc_tpu_torch.quant import load_int8_weights
+        load_int8_weights(model, cfg)
     return model
 
 

@@ -21,7 +21,10 @@ schedule's epoch is the dataset's length over the batch size.  With
 epoch is ``--steps`` long.  ``--load-from`` warm-starts the image backbone
 from an official Swin checkpoint (``weights.load_official_swin``).
 ``--steps 0`` runs the whole schedule.  Scalars go to
-``<work-dir>/scalars.jsonl``; checkpoints to ``<work-dir>/step_<n>`` every
+``<work-dir>/scalars.jsonl``; with ``--render-interval N`` a BEV render of
+the EMA prediction of the step's batch goes to
+``<work-dir>/images/train_bev_pred_<step>.png`` every N steps
+(``MetricLogger.log_image``); checkpoints to ``<work-dir>/step_<n>`` every
 ``--ckpt-interval-steps`` (0: once per epoch) and at the end; ``--resume``
 takes a checkpoint or the work dir holding them (its latest).
 
@@ -109,6 +112,9 @@ def main(argv=None) -> None:
     ap.add_argument('--ckpt-interval-steps', type=int, default=0,
                     help='0 = once per epoch')
     ap.add_argument('--log-interval', type=int, default=1)
+    ap.add_argument('--render-interval', type=int, default=0,
+                    help='log a BEV render of the EMA prediction every N '
+                         'steps as a PNG (0 = off)')
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (each local rank's card), 'cuda:<i>' or "
                          "'cpu'")
@@ -142,7 +148,8 @@ def train(args, device, rank: int, world: int) -> None:
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
     from fusionocc_tpu_torch.parallel.mesh import shard_batch
     from fusionocc_tpu_torch.train import checkpoint as ckpt
-    from fusionocc_tpu_torch.train.loop import create_train_state, train_step
+    from fusionocc_tpu_torch.train.loop import (create_train_state,
+                                                eval_step, train_step)
     from fusionocc_tpu_torch.utils.logging import MetricLogger
 
     on_card = device.type == 'cuda'
@@ -200,7 +207,8 @@ def train(args, device, rank: int, world: int) -> None:
     gen = batches()
     t0, first = time.perf_counter(), state.step
     while state.step < total:
-        logs = train_step(model, cfg, state, next(gen))
+        batch = next(gen)
+        logs = train_step(model, cfg, state, batch)
         if state.step % args.log_interval == 0 or state.step == first + 1:
             sync()
             scalars = {k: float(v) for k, v in logs.items()}
@@ -210,6 +218,13 @@ def train(args, device, rank: int, world: int) -> None:
                 mlog.log(state.step, scalars)
             line = ' '.join(f'{k}={v:.4f}' for k, v in scalars.items())
             say(f'step {state.step}/{total} {line}', flush=True)
+        if (mlog is not None and args.render_interval
+                and state.step % args.render_interval == 0):
+            from fusionocc_tpu_torch.utils.visualization import (
+                occupancy_bev_image)
+            pred = eval_step(model, state, batch, use_ema=True)
+            mlog.log_image(state.step, 'train/bev_pred',
+                           occupancy_bev_image(pred[0].cpu().numpy()))
         if state.step % ckpt_every == 0 and state.step < total:
             say(f'saved {ckpt.save_checkpoint(args.work_dir, model, state)}',
                 flush=True)
