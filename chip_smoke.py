@@ -150,6 +150,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    on the key frame's pooling index, one K1 launch each held against its
    plain version.
 
+11. the hybrid data x spatial mesh, ranks spawned on the one card over
+   gloo after the parent built the kernels (``parallel.mesh.hybrid_mesh``,
+   ``FusionOcc(cfg, mesh=)``; gloo stages every collective through the
+   host, so these times are no scaling figures).  The parent computes one
+   process's references.  (a) Midsize fp32: the two-pass forward at (2, 2)
+   and (1, 2) within HYB_TOL of one process; at (2, 2)
+   ``predict_streaming_batch`` on a 4-frame clip with a reset (agreement
+   at least 0.999, state within 5e-3) and one train step with the draws
+   on, held as phase 9a holds a step, the 4 ranks' parameters and EMA
+   bit-identical.  (b) The default config at full size, bf16, (2, 2),
+   batch 1 per data rank: per rank the ms per two-pass predict (CUDA
+   events, median of 3), the collectives per predict by kind with their
+   bytes and the ms inside them, the halo rows sent per predict and per
+   layer, the peak memory above what was held, the argmax agreement with
+   one process (printed), launches gated 48 / 2 / 9 with rank 0's every
+   launch held against its plain version (``KernelCheck``), and 1 + 2
+   train steps (s/iter, launches gated as phase 7c's).
+
+Phases 5 and 8 also print the rows each static capacity cut of the LiDAR
+encoder drops (``capacity_cuts``, ROADMAP Queue C's C2), and the script
+prints its whole time before the card's line.
+
 A kernel's bound is the least time the card could take for the same work:
 the larger of its operations over the peak rate of their type and its bytes
 (each input read once, each output written once) over the memory rate,
@@ -159,8 +181,8 @@ The last two lines are the kernels' JSON summary (with each kernel's
 launches per full-size train step, its backward's ms, its launches in
 phase 8's two-pass evaluation of 9 samples, per rank per step of phase
 9c, per int8 predict, per run of the loaded two-pass and streaming
-programs and per base view transformer call of phase 10) and the result
-JSON.
+programs and per base view transformer call of phase 10, and per rank per
+full-size predict of phase 11b) and the result JSON.
 Needs a CUDA GPU; on a machine without one it exits 1 before doing anything.
 """
 from __future__ import annotations
@@ -299,7 +321,7 @@ def phase_device() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ''
-    print('[1/10] device: nvidia-smi name, power.limit:')
+    print('[1/11] device: nvidia-smi name, power.limit:')
     print(card)
     from fusionocc_tpu_torch.ops.kernels import find_nvcc
     nvcc = subprocess.run([find_nvcc(), '--version'], capture_output=True,
@@ -343,7 +365,7 @@ def phase_build() -> None:
     took = time.perf_counter() - t0
     how = ('compiled' if KERNELS.build_seconds is not None
            else 'found built')
-    print(f'[2/10] build: {how} {path.name} in {took:.1f} s')
+    print(f'[2/11] build: {how} {path.name} in {took:.1f} s')
     for line in KERNELS.build_log.splitlines():
         if 'Used' in line or 'Compiling entry' in line or 'spill' in line:
             print('  ptxas' + line.split('ptxas', 1)[-1])
@@ -765,7 +787,7 @@ def check_edge_shapes(g) -> None:
 
 @torch.inference_mode()
 def phase_kernels(cfg, batch0) -> dict:
-    print('[3/10] kernels vs plain versions at main-path shapes')
+    print('[3/11] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
     measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
                 'zwin_conv_fwd_epi': check_zwin_fused(cfg, batch0),
@@ -783,7 +805,7 @@ def phase_reference() -> None:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
     from fusionocc_tpu_torch.ops.kernels import KERNELS
-    print('[4/10] reference: midsize multi-modal fp32, card vs CPU plain '
+    print('[4/11] reference: midsize multi-modal fp32, card vs CPU plain '
           'versions')
     cfg = midsize_model_config(use_lidar=True)
     g = torch.Generator().manual_seed(7)
@@ -1125,7 +1147,7 @@ def phase_slice(batches) -> dict:
     kernel's launches on the path that runs it."""
     from fusionocc_tpu_torch.config import (full_model_config,
                                             image_only_model_config)
-    print('[5/10] slice: full-size predict, bf16')
+    print('[5/11] slice: full-size predict, bf16')
     paths = []
     for label, cfg in (('image-only', image_only_model_config()),
                        ('default multi-modal', full_model_config()),
@@ -1136,9 +1158,27 @@ def phase_slice(batches) -> dict:
         # runs dense)
         paths.append(drive_path(label, cfg, batches,
                                 launches_per(cfg, cfg.num_frame, 1)))
+    slice_cuts(full_model_config(), batches)
     fused_against_unfused(batches)
     count_encoder_syncs(batches)
     return {k: max(p[k] for p in paths) for k in MAIN_KERNELS}
+
+
+def slice_cuts(cfg, batches) -> None:
+    """C2 on the synthetic batches of seeds SLICE_SEEDS: the points each
+    synthetic cloud had before its cut to ``point_capacity`` (its
+    generator run again from the batch's seed with room for every ray:
+    ``synthetic_batch`` draws nothing from that generator before the
+    cloud), then ``capacity_cuts``."""
+    import numpy as np
+
+    from fusionocc_tpu_torch.data.synthetic import beam_lidar_cloud
+    generated = [int(beam_lidar_cloud(np.random.RandomState(seed),
+                                      SYNTHETIC_RAYS,
+                                      cfg.grid.point_cloud_range)[1].sum())
+                 for seed in SLICE_SEEDS]
+    capacity_cuts('phase 5', cfg, torch.cat([b.points for b in batches]),
+                  torch.cat([b.points_mask for b in batches]), generated)
 
 
 def counted(label, run, expect) -> object:
@@ -1507,7 +1547,7 @@ def phase_streaming(batches) -> None:
     from fusionocc_tpu_torch.config import full_model_config
     from fusionocc_tpu_torch.models.fusion_occ import map_batch, stack_batches
     from tools.eval_torch_streaming_delta import clip_frames
-    print('[6/10] streaming: full-size default config, a clip of '
+    print('[6/11] streaming: full-size default config, a clip of '
           f'{CLIP_FRAMES} frames, a reset at frame {CLIP_RESET}')
     t0 = time.perf_counter()
     clip = stack_batches(clip_frames(full_model_config(), 0, CLIP_FRAMES,
@@ -1869,7 +1909,7 @@ def phase_training(batches) -> tuple:
     train step card vs CPU, (c) the full-size train steps.  Returns (the
     launches per full-size step, backward ms by kernel)."""
     from fusionocc_tpu_torch.config import full_model_config
-    print('[7/10] training: kernel Functions, midsize card vs CPU, '
+    print('[7/11] training: kernel Functions, midsize card vs CPU, '
           'full-size train steps (bf16)')
     bwd_ms = train_functions(full_model_config(), batches[0])
     torch.cuda.empty_cache()
@@ -2072,7 +2112,9 @@ def lidar_density(ds, cfg) -> None:
     """The fused cloud of each sample before ``pad_points`` (the dataset's
     own loading, range filter in the ego frame), its point count against
     ``point_capacity`` and its distinct LiDAR voxels (numpy, on the host)
-    against ``voxel_capacity[0]``: ROADMAP Queue C's C2."""
+    against ``voxel_capacity[0]``, then each cut's dropped rows
+    (``capacity_cuts``, the cloud padded as the dataset pads it in eval):
+    ROADMAP Queue C's C2."""
     import numpy as np
 
     from fusionocc_tpu_torch.data import pipeline as pl
@@ -2080,11 +2122,12 @@ def lidar_density(ds, cfg) -> None:
     lo = np.float32(cfg.grid.point_cloud_range[:3])
     vs = np.float32(lc.voxel_size)
     dims = np.asarray(lc.sparse_shape(cfg.grid), np.int64)
-    rows = []
+    rows, padded = [], []
     for i in range(len(ds)):
         fused, _, l2e = ds._load_points(i, ds._sample_rng(i))
         pts = pl.filter_points_range(pl.points_lidar_to_ego(fused, l2e),
                                      cfg.grid.point_cloud_range)
+        padded.append(pl.pad_points(pts, lc.point_capacity))
         cell = np.clip(np.floor((pts[:, :3] - lo) / vs).astype(np.int64), 0,
                        dims - 1)
         keys = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
@@ -2093,6 +2136,10 @@ def lidar_density(ds, cfg) -> None:
           'in range before pad_points; distinct voxels of 0.05 m): '
           + '; '.join(f'{a} fused, {b} in range, {c} voxels'
                       for a, b, c in rows), flush=True)
+    capacity_cuts('phase 8', cfg,
+                  torch.from_numpy(np.stack([p for p, _ in padded])).to(DEV),
+                  torch.from_numpy(np.stack([m for _, m in padded])).to(DEV),
+                  [r[1] for r in rows])
     print(f'  LiDAR density, largest: {max(r[1] for r in rows)} points '
           f'against point_capacity {lc.point_capacity} '
           f'({max(r[1] for r in rows) / lc.point_capacity:.3f}); '
@@ -2100,6 +2147,52 @@ def lidar_density(ds, cfg) -> None:
           f'{lc.voxel_capacity[0]} '
           f'({max(r[2] for r in rows) / lc.voxel_capacity[0]:.3f})',
           flush=True)
+
+
+SYNTHETIC_RAYS = 32 * 1100 * 8     # beam_lidar_cloud's rays: beams, azimuths, sweeps
+
+
+def capacity_cuts(label, cfg, points, points_mask, generated) -> None:
+    """ROADMAP Queue C's C2: the rows each static cut of the LiDAR encoder
+    drops, per sample, counted from the inputs by the port's own index
+    builds run once at their capacity and once without one.  ``generated``
+    holds each sample's points before the cut to ``point_capacity``.  The
+    cuts: points at ``point_capacity``; voxels at ``voxel_capacity[0]``
+    (``ops/voxelize.py``); super rows at ``zfold_capacity[0]``
+    (``ops/zfold.py``); each sparse stage's stride-2 outputs at
+    ``zfold_capacity[i + 1]`` (``ops/sparse_conv._downsample_keys``), each
+    stage from the set the previous cut left."""
+    from fusionocc_tpu_torch.ops.sparse_conv import (_downsample_keys,
+                                                     out_shape_strided)
+    from fusionocc_tpu_torch.ops.voxelize import voxelize_mean
+    from fusionocc_tpu_torch.ops.zfold import super_shape, zfold_regroup
+    lc, grid = cfg.lidar, cfg.grid
+    cells = lc.sparse_shape(grid)
+    args = (points, points_mask, grid.point_cloud_range, lc.voxel_size,
+            cells)
+    every = math.prod(cells)
+    fold = min(lc.zfold, cells[2])
+    sp = voxelize_mean(*args, lc.voxel_capacity[0])
+    zf = zfold_regroup(sp, cells, lc.zfold_capacity[0], fold)
+    cuts = [('points', torch.as_tensor(generated), lc.point_capacity),
+            ('voxels', voxelize_mean(*args, every).mask.sum(1),
+             lc.voxel_capacity[0]),
+            ('super rows', zfold_regroup(sp, cells, every // fold,
+                                         fold).mask.sum(1),
+             lc.zfold_capacity[0])]
+    coords, mask, shape = zf.coords, zf.mask, super_shape(cells, fold)
+    for i in range(min(lc.dense_from, len(lc.encoder_channels) - 1)):
+        shape = out_shape_strided(shape)
+        cap = lc.zfold_capacity[i + 1]
+        cuts.append((f'stage {i} stride-2 outputs',
+                     _downsample_keys(coords, mask, shape,
+                                      math.prod(shape))[2].sum(1), cap))
+        coords, _, mask = _downsample_keys(coords, mask, shape, cap)
+    for b in range(points.shape[0]):
+        print(f'  C2 {label} sample {b}: rows before each cut, capacity, '
+              'dropped: ' + '; '.join(
+                  f'{name} {int(n[b])} / {cap} -> {max(int(n[b]) - cap, 0)}'
+                  for name, n, cap in cuts), flush=True)
 
 
 def eval_args(ann, seg, *extra):
@@ -2159,7 +2252,7 @@ def phase_eval() -> dict:
     from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc,
                                                        frame_pooling_index,
                                                        spread_weights)
-    print(f'[8/10] evaluation: a written scene of {EVAL_SAMPLES} samples at '
+    print(f'[8/11] evaluation: a written scene of {EVAL_SAMPLES} samples at '
           'full raw size through tools/test_torch.py, bf16, batch 1')
     cfg = full_model_config()
     with tempfile.TemporaryDirectory(prefix='fusionocc_eval_') as root:
@@ -2586,7 +2679,8 @@ def held_to_one(label, tc, got, pairs) -> None:
           f'against one process {worst["param"]:.3f} of 2.1 lr', flush=True)
 
 
-def one_process_steps(tc, start, four, rows: int, got) -> list:
+def one_process_steps(tc, start, four, rows: int, got,
+                      steps: int = DIST_STEPS) -> list:
     """For each step of the ranks' run ``got``: the same step in this
     process at batch ``rows`` from the state the ranks held before it
     (``start`` before the first), and twice more with the images moved
@@ -2605,7 +2699,7 @@ def one_process_steps(tc, start, four, rows: int, got) -> list:
                         generator=torch.Generator(DEV).manual_seed(5))
     moved = batch._replace(imgs=batch.imgs * (1 + TRAIN_NOISE * noise))
     pairs = []
-    for s in range(DIST_STEPS):
+    for s in range(steps):
         before = ({'model': start} if s == 0 else got['after'][s - 1])
         runs = []
         for b, weights in ((batch, False), (moved, False), (moved, True)):
@@ -2667,7 +2761,7 @@ def phase_dist(batches) -> dict:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.eval.metrics import OccupancyMetric
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
-    print(f'[9/10] data-parallel training: {DIST_WORLD} ranks on the one '
+    print(f'[9/11] data-parallel training: {DIST_WORLD} ranks on the one '
           'card exchange CUDA tensors over gloo (NCCL refuses two ranks on '
           'one device; gloo stages each collective through the host, so '
           'these times measure neither NCCL nor a second card and are no '
@@ -3045,7 +3139,7 @@ def phase_serving(batches) -> dict:
     the int8 predict, the loaded two-pass program and a base view
     transformer."""
     from fusionocc_tpu_torch.config import full_model_config
-    print('[10/10] serving: int8 products, int8_dense and --int8-weights '
+    print('[10/11] serving: int8 products, int8_dense and --int8-weights '
           'predicts, torch.export round trips, base view transformers; '
           'full size, bf16', flush=True)
     cfg = full_model_config()
@@ -3061,7 +3155,354 @@ def phase_serving(batches) -> dict:
             'export_streaming': export['streaming'], 'lss_base': lss}
 
 
+# -- phase 11: the hybrid data x spatial mesh --------------------------------
+HYB_SPATIAL = 2                     # spatial ranks of both meshes
+HYB_BATCH = 2                       # the global batch
+# midsize fp32 against one process on the card: sums in other orders and
+# cuDNN's algorithms at other shapes (REF_TOL's size); the streaming state
+# as tests/test_sharding.py:168-169 holds JAX's
+HYB_TOL = dict(atol=1e-3, rtol=1e-3)
+HYB_STATE_TOL = dict(atol=5e-3, rtol=5e-3)
+HYB_REPS = 3                        # timed full-size predicts per rank
+HYB_WARMUP, HYB_TIMED = 1, 2        # full-size train steps
+
+
+def event_ms(fn, reps: int) -> list:
+    """Device ms of each of ``reps`` calls of fn(), by CUDA events around
+    each (fn may wait on the host)."""
+    ms = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in '12')
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms
+
+
+def hybrid_mid_task(rank, world, tmp) -> dict:
+    """11a on one rank of (world // 2, 2): the midsize two-pass forward;
+    at (2, 2) also ``predict_streaming_batch`` on the clip and one train
+    step with the draws on (``midsize_steps``)."""
+    from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc,
+                                                       stack_batches)
+    from fusionocc_tpu_torch.parallel import mesh
+    saved = torch.load(f'{tmp}/hmid.pt', weights_only=False)
+    tc = dist_midsize_config()
+    m = mesh.hybrid_mesh(world // HYB_SPATIAL, HYB_SPATIAL)
+    model = FusionOcc(tc.model, device=DEV, mesh=m)
+    model.load_state_dict(saved['model'])
+    batch = to_card(m.shard(saved['batch']))
+    with torch.inference_mode():
+        out = {'coords': (m.d, m.s),
+               'logits': model(batch)['occ_logits'].cpu()}
+    if world // HYB_SPATIAL == 1:
+        return out
+    frames = stack_batches([to_card(m.shard(f)) for f in saved['frames']])
+    b = frames.imgs.shape[1]
+    resets = saved['resets'][:, m.d * b:(m.d + 1) * b].to(DEV)
+    preds, state = model.predict_streaming_batch(
+        frames, model.init_streaming_state(b), resets=resets, chunk=2)
+    out['stream'] = (preds.cpu(), state.voxel_feat.cpu(), state.valid.cpu())
+    model.load_state_dict(saved['train'])
+    from fusionocc_tpu_torch.train import loop
+    state = loop.create_train_state(model, tc)
+    out['train'] = midsize_steps(model, tc, batch, 1, state)
+    out['differ'] = {
+        'parameters and EMA': differing_words(
+            list(model.parameters()) + list(state.ema.values())),
+        'buffers': differing_words(list(model.buffers()))}
+    return out
+
+
+def hybrid_full_task(rank, world, tmp) -> dict:
+    """11b on one rank of (2, 2): the default config at full size, bf16,
+    ``spread_weights``, batch 1 per data rank.  A warm-up predict; one
+    predict with the launches counted (rank 0 holds every launch against
+    its plain version) and the collectives and halo rows counted;
+    HYB_REPS timed by CUDA events; one with the time inside each
+    collective; the peak memory above what was held.  Then train steps
+    from ``init_weights``."""
+    from fusionocc_tpu_torch.config import TrainConfig, full_model_config
+    from fusionocc_tpu_torch.models.fusion_occ import (
+        FusionOcc, batch_pooling_indices, init_weights, spread_weights)
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    from fusionocc_tpu_torch.parallel import mesh
+    from fusionocc_tpu_torch.train import loop
+    cfg = full_model_config()
+    m = mesh.hybrid_mesh(world // HYB_SPATIAL, HYB_SPATIAL)
+    batch = to_card(m.shard(torch.load(f'{tmp}/hfull.pt',
+                                       weights_only=False)))
+    model = spread_weights(FusionOcc(cfg, device=DEV, mesh=m),
+                           torch.Generator().manual_seed(0))
+    idx = batch_pooling_indices(cfg, batch, m)
+    base = reset_peak()
+    model.predict(batch, idx)
+    torch.cuda.synchronize()
+    KERNELS.reset_counts()
+    mesh.COLLECTIVES.reset()
+    if rank == 0:
+        with KernelCheck(f'11b rank {rank} predict', cfg):
+            pred = model.predict(batch, idx)
+    else:
+        pred = model.predict(batch, idx)
+    torch.cuda.synchronize()
+    c = mesh.COLLECTIVES
+    out = {'coords': (m.d, m.s), 'pred': pred.cpu(),
+           'launches': {k: KERNELS.launches[k] for k in MAIN_KERNELS},
+           'calls': dict(c.calls), 'bytes': dict(c.kind_bytes),
+           'rows': sum(c.rows.values()), 'layer_rows': dict(c.rows)}
+    ms = event_ms(lambda: model.predict(batch, idx), HYB_REPS)
+    c.reset()
+    c.timed = True
+    t = time.perf_counter()
+    model.predict(batch, idx)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    c.timed = False
+    out.update(ms=ms, timed_wall_ms=wall,
+               collective_ms={k: v * 1e3 for k, v in c.kind_seconds.items()},
+               held_gib=base / 2 ** 30,
+               peak_above_gib=(torch.cuda.max_memory_allocated() - base)
+               / 2 ** 30)
+    del model, idx
+    torch.cuda.empty_cache()
+    tc = TrainConfig(model=cfg)
+    model = init_weights(FusionOcc(cfg, device=DEV, mesh=m),
+                         torch.Generator().manual_seed(0))
+    state = loop.create_train_state(model, tc)
+    rows = []
+    for _ in range(HYB_WARMUP + HYB_TIMED):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in '12')
+        torch.cuda.synchronize()
+        KERNELS.reset_counts()
+        start.record()
+        logs = loop.train_step(model, tc, state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        rows.append({'ms': start.elapsed_time(end),
+                     'launches': {k: KERNELS.launches[k]
+                                  for k in MAIN_KERNELS},
+                     'logs': {k: float(v) for k, v in logs.items()}})
+    out['train'] = rows
+    return out
+
+
+HYB_TASKS = {'mid': hybrid_mid_task, 'full': hybrid_full_task}
+
+
+def hybrid_rank(rank, world, tasks, tmp, port) -> None:
+    """A spawned rank of the hybrid mesh: gloo on the one card (NCCL
+    refuses two ranks on one device)."""
+    import torch.distributed as dist
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    from fusionocc_tpu_torch.parallel import mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh.init_distributed(f'tcp://localhost:{port}', world, rank,
+                          backend='gloo', device=DEV)
+    KERNELS.load()
+    try:
+        for task in tasks:
+            torch.save(HYB_TASKS[task](rank, world, tmp),
+                       f'{tmp}/h{task}_{world}_{rank}.pt')
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_hybrid(world, tasks, tmp) -> list:
+    import torch.multiprocessing as mp
+    try:
+        mp.spawn(hybrid_rank, args=(world, tasks, tmp, free_port()),
+                 nprocs=world, join=True)
+    except Exception as e:      # noqa: BLE001 -- a failed rank fails the phase
+        fail(f'{world} hybrid rank(s) running {tasks}: {e}')
+    return [{t: torch.load(f'{tmp}/h{t}_{world}_{r}.pt', weights_only=False)
+             for t in tasks} for r in range(world)]
+
+
+def hybrid_mid_references(tmp) -> dict:
+    """11a's inputs, saved for the ranks, and one process's outputs on
+    them: the midsize fp32 forward and streamed clip (``spread_weights``)
+    and the train step's start (``init_weights``)."""
+    from fusionocc_tpu_torch.data.synthetic import synthetic_batch
+    from fusionocc_tpu_torch.models.fusion_occ import (
+        FusionOcc, init_weights, spread_weights, stack_batches)
+    tc = dist_midsize_config()
+    model = spread_weights(FusionOcc(tc.model, device=DEV),
+                           torch.Generator().manual_seed(11))
+    batch = synthetic_batch(tc.model, HYB_BATCH, 0, device='cpu')
+    frames = [synthetic_batch(tc.model, HYB_BATCH, s, device='cpu')
+              for s in range(4)]
+    resets = torch.zeros(4, HYB_BATCH, dtype=torch.bool)
+    resets[2] = True
+    train = init_weights(FusionOcc(tc.model, device='cpu'),
+                         torch.Generator().manual_seed(11)).state_dict()
+    torch.save({'model': model.state_dict(), 'batch': batch,
+                'frames': frames, 'resets': resets, 'train': train},
+               f'{tmp}/hmid.pt')
+    ref = {'tc': tc, 'batch': batch, 'train': train}
+    with torch.inference_mode():
+        ref['logits'] = model(to_card(batch))['occ_logits'].cpu()
+        stacked = to_card(stack_batches(frames))
+        preds, state = model.predict_streaming_batch(
+            stacked, model.init_streaming_state(HYB_BATCH),
+            resets=resets.to(DEV), chunk=2)
+    ref['stream'] = (preds.cpu(), state.voxel_feat.cpu(), state.valid.cpu())
+    return ref
+
+
+def hybrid_full_references(tmp, ref) -> dict:
+    """11b's batch, saved for the ranks, and one process's full-size bf16
+    predict of its 2 samples (``spread_weights``) and ms at batch 1."""
+    from fusionocc_tpu_torch.config import full_model_config
+    from fusionocc_tpu_torch.data.synthetic import synthetic_batch
+    from fusionocc_tpu_torch.models.fusion_occ import (
+        FusionOcc, batch_pooling_indices, spread_weights)
+    cfg = full_model_config()
+    full = synthetic_batch(cfg, HYB_BATCH, 0, device='cpu')
+    torch.save(full, f'{tmp}/hfull.pt')
+    model = spread_weights(FusionOcc(cfg, device=DEV),
+                           torch.Generator().manual_seed(0))
+    card = to_card(full)
+    ref['full_pred'] = model.predict(
+        card, batch_pooling_indices(cfg, card)).cpu()
+    one = type(card)(*(None if a is None else a[:1] for a in card))
+    idx = batch_pooling_indices(cfg, one)
+    model.predict(one, idx)
+    ref['one_ms'] = statistics.median(
+        event_ms(lambda: model.predict(one, idx), HYB_REPS))
+    del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def hybrid_midsize(ref, square, row) -> None:
+    """11a: every rank's forward within HYB_TOL of one process's, the
+    streamed clip as tests/test_sharding.py:162-171 holds JAX's, the
+    train step as phase 9a holds the data mesh's."""
+    for label, ranks in (('(2, 2)', square), ('(1, 2)', row)):
+        b = HYB_BATCH * HYB_SPATIAL // len(ranks)
+        worst = 0.0
+        for r in ranks:
+            d = r['mid']['coords'][0]
+            ok, err, _ = within(r['mid']['logits'],
+                                ref['logits'][d * b:(d + 1) * b], **HYB_TOL)
+            worst = max(worst, err)
+            if not ok:
+                fail(f'11a {label} rank {r["mid"]["coords"]}: logits '
+                     f'{err:.3e} from one process')
+        print(f'  11a {label} midsize fp32 two-pass forward, batch '
+              f'{HYB_BATCH}: every rank\'s logits within {HYB_TOL} of one '
+              f'process (max abs {worst:.3e})', flush=True)
+    want_pred, want_feat, want_valid = ref['stream']
+    agrees, worst = [], 0.0
+    for r in square:
+        d = r['mid']['coords'][0]
+        pred, feat, valid = r['mid']['stream']
+        agrees.append(float((pred == want_pred[:, d:d + 1]).float().mean()))
+        ok, err, _ = within(feat, want_feat[d:d + 1], **HYB_STATE_TOL)
+        worst = max(worst, err)
+        if not ok or not torch.equal(valid, want_valid[d:d + 1]):
+            fail(f'11a (2, 2) streaming state of rank {r["mid"]["coords"]}'
+                 f' off by {err:.3e}')
+    if min(agrees) < MIN_AGREE:
+        fail(f'11a (2, 2) streaming agreement {agrees} below {MIN_AGREE}')
+    print(f'  11a (2, 2) predict_streaming_batch, 4 frames, chunk 2, reset '
+          f'at frame 2: voxel agreement with one process per rank '
+          f'{[round(a, 6) for a in agrees]} (need >= {MIN_AGREE}); state '
+          f'max abs {worst:.3e} (within {HYB_STATE_TOL})', flush=True)
+    got = square[0]['mid']['train']
+    for r in square:
+        if r['mid']['differ']['parameters and EMA'] or (
+                r['mid']['train']['logs'] != got['logs']):
+            fail(f'11a: rank {r["mid"]["coords"]} holds other parameters '
+                 f'after the step ({r["mid"]["differ"]})')
+    held_to_one(f'11a (2, 2) x batch 1 against one process at batch '
+                f'{HYB_BATCH}, midsize fp32, draws on, 1 step', ref['tc'],
+                got, one_process_steps(ref['tc'], ref['train'],
+                                       ref['batch'], HYB_BATCH, got, 1))
+    print(f'  11a: after the step the ranks\' words that differ: '
+          f'{square[0]["mid"]["differ"]}', flush=True)
+
+
+def hybrid_fullsize(ref, square) -> dict:
+    """11b: gates and prints the full-size ranks' rows; returns the
+    launches of one rank's predict."""
+    from fusionocc_tpu_torch.config import full_model_config
+    cfg = full_model_config()
+    expect = launches_per(cfg, cfg.num_frame, 1)
+    train_expect = train_launches(cfg)
+    for r in square:
+        f = r['full']
+        where = f'11b rank {f["coords"]}'
+        if f['launches'] != expect:
+            fail(f'{where}: launches per predict {f["launches"]}, expected '
+                 f'{expect}')
+        for i, row in enumerate(f['train']):
+            if row['launches'] != train_expect:
+                fail(f'{where} train step {i}: launches {row["launches"]}, '
+                     f'expected {train_expect}')
+            if not all(map(math.isfinite, row['logs'].values())):
+                fail(f'{where} train step {i}: not finite: {row["logs"]}')
+        d = f['coords'][0]
+        agree = float((f['pred'] == ref['full_pred'][d:d + 1]).float()
+                      .mean())
+        timed = [row['ms'] for row in f['train'][HYB_WARMUP:]]
+        print(f'  {where}: ms per two-pass predict (CUDA events) median '
+              f'{statistics.median(f["ms"]):.1f}, all '
+              f'{[round(x, 1) for x in f["ms"]]}; collectives per predict '
+              f'{f["calls"]}, bytes {f["bytes"]}; ms inside them (card '
+              f'synchronised around each, a predict of '
+              f'{f["timed_wall_ms"]:.1f} ms wall) '
+              f'{ {k: round(v, 1) for k, v in f["collective_ms"].items()} };'
+              f' halo rows sent per predict {f["rows"]}; peak memory '
+              f'{f["peak_above_gib"]:.2f} GiB above the {f["held_gib"]:.2f} '
+              f'GiB held; launches per predict {f["launches"]}; argmax '
+              f'agreement with one process (bf16, printed) {agree:.4f}; '
+              f'train s/iter {statistics.median(timed) / 1e3:.4f} (median '
+              f'of {HYB_TIMED} after {HYB_WARMUP}), losses '
+              + ', '.join(f'{row["logs"]["loss"]:.4f}'
+                          for row in f['train']), flush=True)
+    layer_rows = square[0]['full']['layer_rows']
+    print(f'  11b rank (0, 0) halo rows sent per layer in one predict: '
+          f'{layer_rows}', flush=True)
+    print(f'  11b one process, batch 1, the same weights: ms per two-pass '
+          f'predict (CUDA events, median of {HYB_REPS}) {ref["one_ms"]:.1f}',
+          flush=True)
+    return square[0]['full']['launches']
+
+
+def phase_hybrid() -> dict:
+    """Phase 11: the hybrid data x spatial mesh, ranks spawned on the one
+    card.  Returns one rank's launches per full-size predict."""
+    import shutil
+    import tempfile
+    print('[11/11] hybrid data x spatial mesh: ranks on the one card over '
+          'gloo (NCCL refuses two ranks on one device; gloo stages each '
+          'collective through the host, so these times are no scaling '
+          'figures)', flush=True)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='fusionocc_hybrid_')
+    ref = hybrid_full_references(tmp, hybrid_mid_references(tmp))
+    t1 = time.perf_counter()
+    square = spawn_hybrid(2 * HYB_SPATIAL, ['mid', 'full'], tmp)
+    t2 = time.perf_counter()
+    row = spawn_hybrid(HYB_SPATIAL, ['mid'], tmp)
+    t3 = time.perf_counter()
+    hybrid_midsize(ref, square, row)
+    launches = hybrid_fullsize(ref, square)
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f'  phase 11: references {t1 - t0:.1f} s, (2, 2) ranks '
+          f'{t2 - t1:.1f} s, (1, 2) ranks {t3 - t2:.1f} s, checks '
+          f'{time.perf_counter() - t3:.1f} s', flush=True)
+    return launches
+
+
 def main() -> None:
+    start = time.perf_counter()
     card = phase_device()
     phase_build()
     from fusionocc_tpu_torch.config import full_model_config
@@ -3079,6 +3520,7 @@ def main() -> None:
     evaluated = phase_eval()
     dist_launches = phase_dist(batches)
     serving = phase_serving(batches)
+    hybrid = phase_hybrid()
     sources = {
         'window_attn_fwd': ('fusionocc_tpu_torch/csrc/window_attn.cu',
                             'fusionocc_tpu/ops/pallas/window_attn.py:79'),
@@ -3105,7 +3547,9 @@ def main() -> None:
                         'export_launches': serving['export'][name],
                         'export_streaming_launches':
                             serving['export_streaming'][name],
-                        'lss_base_launches': serving['lss_base'][name]})
+                        'lss_base_launches': serving['lss_base'][name],
+                        'hybrid_launches': hybrid[name]})
+    print(f'whole script: {time.perf_counter() - start:.1f} s', flush=True)
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -151,13 +151,17 @@ class OccupancyMetric:
     the LiDAR mask, selects the voxels, as the switches ask; without either
     every voxel counts.  With ``grid`` it also accumulates radius- and
     height-bucketed matrices (the reference evaluator's distance- and
-    height-conditioned mIoU)."""
+    height-conditioned mIoU).  With a ``parallel.mesh.HybridMesh`` each
+    update takes this rank's Y rows of the full (X, Y, Z) maps it is given
+    (what a spatial rank predicts), so the matrices summed over every rank
+    count each voxel once."""
 
     RADIUS_BINS = (0, 20, 25, 30, 35, 40, 45, 50)
     HEIGHT_BINS_REL = (0, 2, 4, 6)
 
     def __init__(self, num_classes: int = 18, use_image_mask: bool = True,
-                 use_lidar_mask: bool = False, grid=None):
+                 use_lidar_mask: bool = False, grid=None, mesh=None):
+        self.mesh = mesh
         self.num_classes = num_classes
         self.use_image_mask = use_image_mask
         self.use_lidar_mask = use_lidar_mask
@@ -177,6 +181,12 @@ class OccupancyMetric:
     def update(self, pred: torch.Tensor, gt: torch.Tensor,
                mask_camera: Optional[torch.Tensor] = None,
                mask_lidar: Optional[torch.Tensor] = None) -> None:
+        if self.mesh is not None:       # this rank's Y rows (axis -2)
+            def rows(t):
+                return None if t is None else self.mesh.y_block(
+                    t, t.dim() - 2)
+            pred, gt, mask_camera, mask_lidar = map(
+                rows, (pred, gt, mask_camera, mask_lidar))
         if self.use_image_mask and mask_camera is not None:
             mask = mask_camera
         elif self.use_lidar_mask and mask_lidar is not None:
@@ -187,6 +197,8 @@ class OccupancyMetric:
         self.hist = self.hist.to(hist.device) + hist
         for b in self.buckets.values():
             bid = b['id'] = b['id'].to(hist.device)
+            if self.mesh is not None:
+                bid = self.mesh.y_block(bid, 1)
             if gt.dim() == 4:                       # (B, X, Y, Z)
                 bid = bid[None].expand(gt.shape)
             b['hist'] = b['hist'].to(hist.device) + bucketed_confusion_matrix(

@@ -27,6 +27,32 @@ Streaming inference (``predict_streaming``, ``predict_streaming_scan``,
 adjacent frame's feature from a cache (``StreamingState``): the previous
 frame's camera voxel feature, warped into the new ego frame (``_shift_bev``).
 
+Under the hybrid mesh (``FusionOcc(cfg, mesh=hybrid_mesh(n_data,
+n_spatial))``, the JAX package's ``mesh`` field) each process holds its
+data rank's samples (``HybridMesh.shard``) and the steps that the JAX
+package leaves to XLA's partitioner are written out:
+
+- the camera images: rank (d, s) takes block s of its B*N images (the
+  constraint on the image batch, ``fusionocc_tpu/models/fusion_occ.py:
+  178-179``); Swin-B, FPN_LSS and CrossModalLSS run on those, and K1 pools
+  them into a partial float32 volume of every sample (an index of the
+  rank's images, ``prepare_pooling_index(images=)``);
+- the partial volumes are summed over the spatial group (K1 is additive
+  over cameras; the sum is differentiable) and cast once, as one process
+  casts K1's float32 sums; ``pre_process_net`` then runs replicated on
+  the whole volume, as does the LiDAR encoder, each with its BatchNorms
+  over the data group (``HybridMesh.replicated``): the streaming cache and
+  ``_shift_bev`` see the whole pooled feature;
+- the fused volume's Y axis (``:299-301``): each rank cuts its Y rows and
+  runs the trunk, the final conv and the predicter on them with halo rows
+  exchanged (``parallel/spatial.py``).
+
+``forward`` in eval mode and every ``predict*`` gather what they return
+over the spatial group, so the caller gets what one process returns; in
+training ``forward`` returns this rank's blocks (the logits' Y rows, the
+depth and seg of its images) and the losses take the matching targets
+(``local_targets``).
+
 ``check_supported`` refuses configurations the port does not run.
 """
 from __future__ import annotations
@@ -45,6 +71,7 @@ from ..nn.layers import BatchNorm, Conv3d, LayerNorm, Linear, checkpoint
 from ..nn.swin import SwinTransformer
 from ..ops.bev_pool import PoolingIndex, prepare_pooling_index
 from ..ops.grid_sample import grid_sample_2d
+from ..parallel import spatial
 from .fpn import FPN_LSS, LSSFPN3D, CustomResNet3D
 from .lidar_encoder import SparseEncoder, SpConv
 from .lss import CrossModalLSS
@@ -68,8 +95,9 @@ class Batch(NamedTuple):
 
 
 def frame_pooling_index(cfg: ModelConfig, s2k, intrins, post_rots, post_trans,
-                        bda) -> PoolingIndex:
-    """Pooling index for one temporal frame's camera geometry.
+                        bda, mesh=None) -> PoolingIndex:
+    """Pooling index for one temporal frame's camera geometry (with a
+    ``HybridMesh``, of this rank's block of the B*N images).
 
     At inference the rig is fixed, so callers build it once per frame and
     pass it to ``forward`` / ``predict`` (the reference's ``accelerate``).
@@ -77,14 +105,16 @@ def frame_pooling_index(cfg: ModelConfig, s2k, intrins, post_rots, post_trans,
     frustum = make_frustum(cfg.grid.depth, cfg.input_size, cfg.vt.downsample,
                            cfg.vt.sid, device=s2k.device)
     coor = frustum_to_ego(frustum, s2k, intrins, post_rots, post_trans, bda)
-    return prepare_pooling_index(coor, cfg.grid)
+    images = (None if mesh is None else
+              mesh.image_block(coor.shape[0] * coor.shape[1]))
+    return prepare_pooling_index(coor, cfg.grid, images)
 
 
-def batch_pooling_indices(cfg: ModelConfig, batch: Batch):
+def batch_pooling_indices(cfg: ModelConfig, batch: Batch, mesh=None):
     """Per-frame pooling indices of ``batch``, indexed by frame id."""
     return [frame_pooling_index(cfg, batch.sensor2keyego[:, f],
                                 batch.intrins[:, f], batch.post_rots[:, f],
-                                batch.post_trans[:, f], batch.bda)
+                                batch.post_trans[:, f], batch.bda, mesh)
             for f in range(cfg.num_frame)]
 
 
@@ -108,8 +138,8 @@ def stack_batches(batches: Sequence[Batch]) -> Batch:
                    for a in zip(*batches)))
 
 
-def batched_frames_pooling_index(cfg: ModelConfig, batch: Batch
-                                 ) -> PoolingIndex:
+def batched_frames_pooling_index(cfg: ModelConfig, batch: Batch,
+                                 mesh=None) -> PoolingIndex:
     """Pooling index of ``forward(batch_frames=True)``: the (B, F) frames
     folded into one batch of B*F, each with its own pose and ``bda``
     repeated per frame (the fold order of ``_batched_frame_feats``)."""
@@ -118,11 +148,12 @@ def batched_frames_pooling_index(cfg: ModelConfig, batch: Batch
     return frame_pooling_index(
         cfg, fold(batch.sensor2keyego), fold(batch.intrins),
         fold(batch.post_rots), fold(batch.post_trans),
-        batch.bda.repeat_interleave(batch.sensor2keyego.shape[1], dim=0))
+        batch.bda.repeat_interleave(batch.sensor2keyego.shape[1], dim=0),
+        mesh)
 
 
 def streaming_fold_pooling_index(cfg: ModelConfig, stacked: Batch,
-                                 chunk: int, cam_chunk: int = 0
+                                 chunk: int, cam_chunk: int = 0, mesh=None
                                  ) -> PoolingIndex:
     """Pooling index of ``predict_streaming_batch``: the key-frame geometry
     of the first n stacked (T, B, ...) frames folded into one batch of n*B,
@@ -136,7 +167,7 @@ def streaming_fold_pooling_index(cfg: ModelConfig, stacked: Batch,
     return frame_pooling_index(
         cfg, fold(stacked.sensor2keyego)[:, 0], fold(stacked.intrins)[:, 0],
         fold(stacked.post_rots)[:, 0], fold(stacked.post_trans)[:, 0],
-        fold(stacked.bda))
+        fold(stacked.bda), mesh)
 
 
 class FinalConv(nn.Module):
@@ -163,13 +194,15 @@ def _inference(fn):
 class FusionOcc(nn.Module):
     """FusionOcc.  Parameters are float32 on ``device`` (the card unless
     the caller asks for another); ``cfg.dtype`` is the compute dtype.
-    Built in eval mode.
+    ``mesh``: a ``parallel.mesh.HybridMesh``, or None for one process (or
+    the data mesh alone).  Built in eval mode.
     """
 
-    def __init__(self, cfg: ModelConfig, device='cuda'):
+    def __init__(self, cfg: ModelConfig, device='cuda', mesh=None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
+        self.mesh = mesh
         sw = cfg.swin
         dims = sw.num_features
         occ = cfg.occ_channels
@@ -226,6 +259,10 @@ class FusionOcc(nn.Module):
         (B, Z, Y, X, C_img), the depth softmax and the seg logits."""
         mlp_input = get_mlp_input(s2k_key, intrin_f, post_rot_f, post_tran_f,
                                   bda)
+        if self.mesh is not None:
+            return self._spatial_voxel_feat(imgs_f, s2k_f, intrin_f,
+                                            post_rot_f, post_tran_f, bda,
+                                            sparse_depth, mlp_input, pool_idx)
         x = self.image_encoder(imgs_f)
         if pool_idx is None:
             pool_idx = frame_pooling_index(self.cfg, s2k_f, intrin_f,
@@ -233,6 +270,70 @@ class FusionOcc(nn.Module):
         voxel, depth, seg = self.img_view_transformer(
             x, sparse_depth, mlp_input, pool_idx)
         return self.pre_process_net(voxel)[0], depth, seg
+
+    def _spatial_voxel_feat(self, imgs_f, s2k_f, intrin_f, post_rot_f,
+                            post_tran_f, bda, sparse_depth, mlp_input,
+                            pool_idx: Optional[PoolingIndex]):
+        """``_frame_voxel_feat`` under the hybrid mesh: the camera branch on
+        this rank's block of the B*N images (its random masks that block
+        of the global batch's draw), K1's partial float32 volume summed
+        over the spatial group and cast once, ``pre_process_net``
+        replicated.  Returns the whole voxel feature (B, Z, Y, X, C) and
+        the depth and seg of this rank's images, (1, n, h, w, .)."""
+        m = self.mesh
+        B, N = imgs_f.shape[:2]
+        a, b = m.image_block(B * N)
+
+        def mine(t):
+            return t.reshape((1, B * N) + t.shape[2:])[:, a:b]
+        if pool_idx is None:
+            pool_idx = frame_pooling_index(self.cfg, s2k_f, intrin_f,
+                                           post_rot_f, post_tran_f, bda, m)
+        h, w = self.cfg.feat_size
+        points = (b - a) * self.cfg.grid.num_depth_bins * h * w
+        if pool_idx.ranks_depth.shape[0] != points:
+            raise ValueError(
+                f'the pooling index has {pool_idx.ranks_depth.shape[0]} '
+                f'points, this rank\'s {b - a} images {points}: build it '
+                'with the mesh (frame_pooling_index(..., mesh))')
+        with m.draws(m.d * B * N + a, m.n_data * B * N):
+            x = self.image_encoder(mine(imgs_f))
+            voxel, depth, seg = self.img_view_transformer(
+                x, mine(sparse_depth), mine(mlp_input), pool_idx,
+                pool_dtype=torch.float32)
+        voxel = m.sum_spatial(voxel).to(self.cfg.dtype)
+        with m.replicated():
+            voxel = self.pre_process_net(voxel)[0]
+        return voxel, depth, seg
+
+    def local_targets(self, batch: Batch) -> Batch:
+        """The targets of what the training ``forward`` returns: under the
+        hybrid mesh this rank's images of ``sparse_depth`` and ``segs``
+        (1, n, H, W) and its Y rows of ``voxel_semantics`` and
+        ``mask_camera``; ``batch`` itself otherwise."""
+        if self.mesh is None:
+            return batch
+        B, N = batch.sparse_depth.shape[:2]
+        a, b = self.mesh.image_block(B * N)
+
+        def mine(t):
+            return None if t is None else t.reshape(
+                (1, B * N) + t.shape[2:])[:, a:b]
+
+        def rows(t):
+            return None if t is None else self.mesh.y_block(t, 2)
+        return batch._replace(
+            sparse_depth=mine(batch.sparse_depth), segs=mine(batch.segs),
+            voxel_semantics=rows(batch.voxel_semantics),
+            mask_camera=rows(batch.mask_camera))
+
+    def _gather_images(self, t: torch.Tensor, B: int, F_: int
+                       ) -> torch.Tensor:
+        """The key frame's (B, N, ...) of a camera pass over B*F_*N images
+        from the spatial ranks' blocks (1, n, ...)."""
+        N = self.cfg.num_cams
+        t = self.mesh.gather(t, 1, B * F_ * N, 'gather')
+        return t.reshape((B, F_, N) + t.shape[2:])[:, 0]
 
     def _batched_frame_feats(self, batch: Batch,
                              pool_idx: Optional[PoolingIndex] = None):
@@ -253,6 +354,8 @@ class FusionOcc(nn.Module):
             pool_idx)
         voxel = voxel.reshape((B, F_) + voxel.shape[1:])
         feats = [voxel[:, f] for f in range(F_ - 1, -1, -1)]
+        if self.mesh is not None:   # this rank's block of the B*F*N images
+            return feats, depth, seg
         return (feats, depth.reshape((B, F_) + depth.shape[1:])[:, 0],
                 seg.reshape((B, F_) + seg.shape[1:])[:, 0])
 
@@ -264,8 +367,10 @@ class FusionOcc(nn.Module):
             return torch.zeros(batch.imgs.shape[0], gz, gy, gx,
                                cfg.lidar_out_channels, dtype=cfg.dtype,
                                device=batch.imgs.device)
-        return self.lidar_encoder(batch.points,
-                                  batch.points_mask).to(cfg.dtype)
+        with (contextlib.nullcontext() if self.mesh is None
+              else self.mesh.replicated()):
+            return self.lidar_encoder(batch.points,
+                                      batch.points_mask).to(cfg.dtype)
 
     def _trunk(self, fusion: torch.Tensor) -> torch.Tensor:
         return self.img_bev_encoder_neck(self.img_bev_encoder_backbone(fusion))
@@ -273,13 +378,19 @@ class FusionOcc(nn.Module):
     def _head(self, fusion: torch.Tensor) -> torch.Tensor:
         """The fused (B, Z, Y, X, C) volume through the BEV trunk (in
         training with ``remat_bev``, checkpointed), the final conv and the
-        predicter: (B, X, Y, Z, ncls) float32 logits."""
+        predicter: (B, X, Y, Z, ncls) float32 logits; under the hybrid
+        mesh those of this rank's Y rows, from its rows of ``fusion``."""
+        trunk, final = self._trunk, self.final_conv
+        if self.mesh is not None:
+            fusion = self.mesh.y_block(fusion, 2)
+            trunk = functools.partial(spatial.trunk, self)
+            final = functools.partial(spatial.final_conv, self)
         if (self.training and self.cfg.remat_bev
                 and torch.is_grad_enabled()):
-            x = checkpoint(self._trunk, fusion)
+            x = checkpoint(trunk, fusion)
         else:
-            x = self._trunk(fusion)
-        x = self.final_conv(x.permute(0, 4, 1, 2, 3))     # (B, C, Z, Y, X)
+            x = trunk(fusion)
+        x = final(x.permute(0, 4, 1, 2, 3))               # (B, C, Z, Y, X)
         x = x.permute(0, 4, 3, 2, 1)                      # (B, X, Y, Z, C)
         h = F.softplus(self.predicter[0](x))
         return self.predicter[2](h.float())
@@ -296,8 +407,26 @@ class FusionOcc(nn.Module):
         index ``pool_idx_folded`` (``batched_frames_pooling_index``).
 
         Returns occ_logits (B, X, Y, Z, ncls) float32, the key frame's depth
-        softmax (B, N, h, w, D) and seg logits (B, N, h, w, num_seg).
+        softmax (B, N, h, w, D) and seg logits (B, N, h, w, num_seg); under
+        the hybrid mesh gathered over the spatial ranks in eval mode, and
+        this rank's blocks in training (``local_targets``).
         """
+        out = self._outputs(batch, pool_idxs, batch_frames, pool_idx_folded)
+        if self.mesh is None or self.training:
+            return out
+        B, F_ = batch.imgs.shape[:2]
+        F_ = F_ if batch_frames and self.cfg.num_frame > 1 else 1
+        return {'occ_logits': self.mesh.gather(
+                    out['occ_logits'], 2, self.cfg.grid.grid_size[1]),
+                'depth': self._gather_images(out['depth'], B, F_),
+                'seg_logits': self._gather_images(out['seg_logits'], B, F_)}
+
+    def _outputs(self, batch: Batch,
+                 pool_idxs: Optional[Sequence[PoolingIndex]] = None,
+                 batch_frames: bool = False,
+                 pool_idx_folded: Optional[PoolingIndex] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """``forward``'s outputs, under the hybrid mesh this rank's."""
         cfg = self.cfg
         if batch_frames and cfg.num_frame > 1 and not self.training:
             voxel_feats, depth_key, seg_key = self._batched_frame_feats(
@@ -325,10 +454,18 @@ class FusionOcc(nn.Module):
                 batch_frames: bool = False,
                 pool_idx_folded: Optional[PoolingIndex] = None
                 ) -> torch.Tensor:
-        """(B, X, Y, Z) uint8 class ids."""
-        out = self(batch, pool_idxs=pool_idxs, batch_frames=batch_frames,
-                   pool_idx_folded=pool_idx_folded)
-        return out['occ_logits'].argmax(dim=-1).to(torch.uint8)
+        """(B, X, Y, Z) uint8 class ids (under the hybrid mesh each rank's
+        Y rows, gathered)."""
+        out = self._outputs(batch, pool_idxs, batch_frames, pool_idx_folded)
+        return self._gather_rows(
+            out['occ_logits'].argmax(dim=-1).to(torch.uint8))
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every spatial rank's Y rows of (B, X, Y, ...) ``t`` (``t`` itself
+        without the hybrid mesh)."""
+        if self.mesh is None:
+            return t
+        return self.mesh.gather(t, 2, self.cfg.grid.grid_size[1])
 
     # -- streaming inference with a temporal BEV cache ----------------------
     def init_streaming_state(self, batch_size: int = 1) -> StreamingState:
@@ -411,7 +548,12 @@ class FusionOcc(nn.Module):
         dst2src = torch.linalg.inv_ex(state.ego2global.float())[0] @ pose
         logits = self._fused_logits(state.voxel_feat, dst2src, valid, voxel,
                                     self._lidar_feat(batch))
-        pred = logits.argmax(dim=-1).to(torch.uint8)
+        pred = self._gather_rows(logits.argmax(dim=-1).to(torch.uint8))
+        if self.mesh is not None:
+            B = batch.imgs.shape[0]
+            logits = self._gather_rows(logits)
+            depth = self._gather_images(depth, B, 1)
+            seg = self._gather_images(seg, B, 1)
         new_state = StreamingState(voxel, pose, torch.ones_like(valid))
         return pred, {'occ_logits': logits, 'depth': depth,
                       'seg_logits': seg}, new_state
@@ -492,8 +634,8 @@ class FusionOcc(nn.Module):
             dst2src = torch.linalg.inv_ex(pp)[0] @ pose
             logits = self._fused_logits(fold(prev_feat), fold(dst2src),
                                         fold(pv), voxel, lidar)
-            preds.append(logits.argmax(dim=-1).to(torch.uint8)
-                         .reshape((chunk, B) + logits.shape[1:4]))
+            pred = self._gather_rows(logits.argmax(dim=-1).to(torch.uint8))
+            preds.append(pred.reshape((chunk, B) + pred.shape[1:4]))
             prev_voxel, prev_pose = vox_t[-1], pose[-1]
             prev_valid = torch.ones_like(state.valid)
         return torch.cat(preds), StreamingState(

@@ -141,10 +141,12 @@ class CrossModalLSS(nn.Module):
         self.further_fuse = BasicBlock2D(2 * mid)
         self.depth_seg_net = DepthSegNet(2 * mid, cfg, D)
 
-    def forward(self, x, sparse_depth, mlp_input, pool_idx: PoolingIndex):
+    def forward(self, x, sparse_depth, mlp_input, pool_idx: PoolingIndex,
+                pool_dtype=None):
         """x: (B, N, h, w, C_in) image features; sparse_depth: (B, N, H, W);
-        mlp_input: (B, N, 27).  Returns the voxel feature (B, Z, Y, X, C),
-        the depth softmax (B, N, h, w, D) float32 and the seg logits
+        mlp_input: (B, N, 27).  Returns the voxel feature (B, Z, Y, X, C)
+        in ``pool_dtype`` (x's dtype by default; the index's B), the depth
+        softmax (B, N, h, w, D) float32 and the seg logits
         (B, N, h, w, num_seg)."""
         cfg = self.cfg
         B, N, h, w, _ = x.shape
@@ -165,7 +167,7 @@ class CrossModalLSS(nn.Module):
         depth = torch.softmax(depth_logits.float(), dim=1)  # (B*N, D, h, w)
         feature = feature.permute(0, 2, 3, 1).reshape(B, N, h, w, -1)
         voxel = bev_pool(depth.view(B, N, D, h, w), feature, pool_idx,
-                         self.grid, out_dtype=x.dtype)
+                         self.grid, out_dtype=pool_dtype or x.dtype)
         return (voxel,
                 depth.permute(0, 2, 3, 1).reshape(B, N, h, w, D),
                 seg_out.permute(0, 2, 3, 1).reshape(B, N, h, w, -1))

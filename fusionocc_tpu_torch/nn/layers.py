@@ -21,11 +21,13 @@ statistics again in the recompute.
 Inside a process group (``parallel.mesh.data_mesh()``) training is over the
 global batch, as the JAX package's data mesh makes it: the BatchNorms sum
 their statistics over every rank, and each random mask is drawn at the
-global batch's shape, each rank keeping its rows.
+global batch's shape, each rank keeping its rows.  Under the hybrid mesh a
+module that every spatial rank runs on the same samples (the LiDAR
+encoder, ``pre_process_net``) sums its statistics over the data group
+only (``HybridMesh.replicated``), so no sample counts twice.
 """
 from __future__ import annotations
 
-import contextlib
 import contextvars
 
 import torch
@@ -42,18 +44,9 @@ _GENERATOR = contextvars.ContextVar('generator', default=None)
 _FREEZE_STATS = contextvars.ContextVar('freeze_stats', default=False)
 
 
-@contextlib.contextmanager
-def _setting(var: contextvars.ContextVar, value):
-    token = var.set(value)
-    try:
-        yield
-    finally:
-        var.reset(token)
-
-
 def random_scope(generator: torch.Generator):
     """Training draws inside the ``with`` block come from ``generator``."""
-    return _setting(_GENERATOR, generator)
+    return mesh.setting(_GENERATOR, generator)
 
 
 def keep_mask(shape, rate: float, device, batch_axis: int = 0
@@ -63,7 +56,8 @@ def keep_mask(shape, rate: float, device, batch_axis: int = 0
     process group of R ranks the mask is drawn at the global shape (axis
     ``batch_axis`` R times as long) and this rank's block of that axis is
     returned, so R ranks draw what one process at the global batch
-    draws."""
+    draws; under the hybrid mesh the block is this rank's camera images
+    of the global batch's (``parallel.mesh.draw_block``)."""
     g = _GENERATOR.get()
     if g is None:
         raise RuntimeError('a random draw in training needs a generator: '
@@ -71,12 +65,11 @@ def keep_mask(shape, rate: float, device, batch_axis: int = 0
     if g.device.type != torch.device(device).type:
         raise ValueError(f'the generator is on {g.device}, the tensor on '
                          f'{device}')
-    r, n = mesh.rank(), mesh.world()
     shape = list(shape)
     local = shape[batch_axis]
-    shape[batch_axis] = local * n
+    start, shape[batch_axis] = mesh.draw_block(local)
     keep = torch.rand(shape, generator=g, device=device) < 1.0 - rate
-    return keep.narrow(batch_axis, r * local, local)
+    return keep.narrow(batch_axis, start, local)
 
 
 def dropout(x: torch.Tensor, rate: float) -> torch.Tensor:
@@ -104,7 +97,7 @@ def checkpoint(fn, *args):
 
     def run(*a):
         if calls:
-            with _setting(_FREEZE_STATS, True):
+            with mesh.setting(_FREEZE_STATS, True):
                 return fn(*a)
         calls.append(1)
         return fn(*a)
@@ -197,16 +190,17 @@ class BatchNorm(nn.modules.batchnorm._BatchNorm):
         # difference of large sums
         dims = [0] + list(range(2, x.dim()))
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        if mesh.data_mesh() is None:
+        group = mesh.stats_group()
+        if group is None:
             var, mean = torch.var_mean(xf, dim=dims, correction=0,
                                        keepdim=True)
         else:       # over every rank's rows, two passes
             count = xf.new_full((1,), xf.numel() // xf.shape[1])
             sums = mesh.all_reduce_sum(torch.cat([xf.sum(dim=dims), count]),
-                                       'bn')
+                                       'bn', group)
             mean = (sums[:-1] / sums[-1]).view(shape)
             var = (mesh.all_reduce_sum((xf - mean).square().sum(dim=dims),
-                                       'bn') / sums[-1]).view(shape)
+                                       'bn', group) / sums[-1]).view(shape)
         self.update_stats(mean.detach().flatten(), var.detach().flatten())
         inv = torch.rsqrt(var + self.eps) * self.weight.view(shape)
         return ((xf - mean) * inv + self.bias.view(shape)).to(x.dtype)
@@ -266,13 +260,15 @@ class MaskedBatchNorm(BatchNorm):
             return v.reshape(-1, fold, C).sum(dim=(0, 1))
         xf = x.float()
         # the active cells of every rank in a process group
+        group = mesh.stats_group()
         sums = mesh.all_reduce_sum(
-            torch.cat([channel_sum(xf * m), mask.float().sum().view(1)]), 'bn')
+            torch.cat([channel_sum(xf * m), mask.float().sum().view(1)]), 'bn',
+            group)
         cnt = sums[-1].clamp_min(1.0)
         mean = sums[:-1] / cnt
         centred = xf - mean.repeat(fold)
         var = mesh.all_reduce_sum(channel_sum(centred.square() * m),
-                                  'bn') / cnt
+                                  'bn', group) / cnt
         self.update_stats(mean.detach(), var.detach())
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (centred * inv.repeat(fold) + self.bias.repeat(fold)) * m

@@ -30,7 +30,7 @@ index).  With a bf16 ``out_dtype`` the backward sees the cast's cotangent.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -88,12 +88,18 @@ def long_runs(bounds: torch.Tensor, max_short: int,
     return v[order].to(torch.int32)
 
 
-def prepare_pooling_index(coor: torch.Tensor, grid: GridConfig
+def prepare_pooling_index(coor: torch.Tensor, grid: GridConfig,
+                          images: Optional[Tuple[int, int]] = None
                           ) -> PoolingIndex:
     """Quantise (B, N, D, Hf, Wf, 3) ego coordinates, sort by voxel and
-    build the work table."""
+    build the work table.  ``images`` (a, b): only the flattened images
+    a..b-1 of the B*N, each into its own sample's volume, the ranks
+    indexing those images' depth and feature rows (a rank's cameras under
+    the hybrid mesh); the pooled volume still has B samples."""
     B, N, D, H, W, _ = coor.shape
-    P = B * N * D * H * W
+    a, b = images if images is not None else (0, B * N)
+    n = b - a
+    P = n * D * H * W
     gx, gy, gz = grid.grid_size
     num_voxels = B * gz * gy * gx
     if max(P, num_voxels + 1) >= 2 ** 31:
@@ -103,18 +109,20 @@ def prepare_pooling_index(coor: torch.Tensor, grid: GridConfig
     lower = torch.tensor(grid.lower_bound, dtype=torch.float32, device=dev)
     interval = torch.tensor(grid.interval, dtype=torch.float32, device=dev)
 
+    coor = coor.reshape((B * N,) + coor.shape[2:])[a:b]
     v = torch.floor((coor.float() - lower) / interval).to(torch.int32)
-    v = v.reshape(B, N * D * H * W, 3)
+    v = v.reshape(n, D * H * W, 3)
     inside = ((v[..., 0] >= 0) & (v[..., 0] < gx) &
               (v[..., 1] >= 0) & (v[..., 1] < gy) &
               (v[..., 2] >= 0) & (v[..., 2] < gz))
-    batch_idx = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+    batch_idx = torch.div(torch.arange(a, b, dtype=torch.int32, device=dev),
+                          N, rounding_mode='floor')[:, None]
     # rank = ((b * Z + z) * Y + y) * X + x  (the reference's rank layout)
     rank = ((batch_idx * gz + v[..., 2]) * gy + v[..., 1]) * gx + v[..., 0]
     rank = torch.where(inside, rank, num_voxels).reshape(P).to(torch.int32)
 
-    ranks_feat = torch.arange(B * N * H * W, dtype=torch.int32, device=dev)
-    ranks_feat = ranks_feat.reshape(B, N, 1, H, W).expand(B, N, D, H, W)
+    ranks_feat = torch.arange(n * H * W, dtype=torch.int32, device=dev)
+    ranks_feat = ranks_feat.reshape(n, 1, H, W).expand(n, D, H, W)
     rank_s, order = torch.sort(rank, stable=True)
     rf_s = ranks_feat.reshape(P)[order]
     bounds = torch.searchsorted(
@@ -272,14 +280,15 @@ def bev_pool(depth: torch.Tensor, feat: torch.Tensor, idx: PoolingIndex,
     """Pool per-pixel depth-weighted features into the voxel grid.
 
     depth: (B, N, D, Hf, Wf) softmaxed depth, float32; feat: (B, N, Hf, Wf,
-    C) in its own dtype.  Returns (B, Z, Y, X, C) in ``out_dtype``: the fp32
-    sums cast once.  Plain version for CPU tensors, the CUDA kernel
-    otherwise.
+    C) in its own dtype.  Returns (B', Z, Y, X, C) in ``out_dtype``: the
+    fp32 sums cast once, B' the index's samples (B unless the index pools
+    a block of images: ``prepare_pooling_index(images=)``).  Plain version
+    for CPU tensors, the CUDA kernel otherwise.
     """
-    B = depth.shape[0]
     C = feat.shape[-1]
     gx, gy, gz = grid.grid_size
-    num_voxels = B * gz * gy * gx
+    num_voxels = idx.bounds.shape[0] - 1
+    B = num_voxels // (gz * gy * gx)
     out = bev_pool_flat(depth.reshape(-1), feat.reshape(-1, C), idx,
                         num_voxels, out_dtype)
     return out.reshape(B, gz, gy, gx, C)

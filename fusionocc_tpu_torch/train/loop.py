@@ -33,6 +33,13 @@ gradients is already the global one in JAX.  The optimizer, the clipping,
 ``grad_norm`` and the EMA then run alike on every rank, whose parameters
 stay bit-identical.  The logged losses are summed over the ranks: the
 global batch's.
+
+Under the hybrid mesh (``FusionOcc(cfg, mesh=hybrid_mesh(...))``, JAX's
+``create_train_state(..., mesh=)``) each rank's loss is that of its
+cameras' depth and seg and of its Y rows' occupancy, each over the global
+count; the gradients of the modules every spatial rank runs (the LiDAR
+encoder, ``pre_process_net``) are each rank's part through its own Y rows,
+so the same sum over every rank counts each once.
 """
 from __future__ import annotations
 
@@ -163,7 +170,7 @@ def compute_loss(model: FusionOcc, cfg: TrainConfig, batch: Batch,
     model.train()
     with random_scope(generator):
         out = model(batch)
-    return total_loss(out, batch, cfg.model)
+    return total_loss(out, model.local_targets(batch), cfg.model)
 
 
 @torch.no_grad()

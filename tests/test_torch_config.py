@@ -159,7 +159,11 @@ def test_port_imports_no_jax():
         'tools.visualize_torch, '
         'chip_smoke, tools.profile_torch_zwin_micro, '
         'tools.ab_bev_pool_split, tools.eval_torch_streaming_delta, '
-        'tools.profile_torch_predict\n'
+        'tools.profile_torch_predict, fusionocc_tpu_torch.parallel.spatial, '
+        'tools.compute_metrics_torch, tools.bench_loader_torch, '
+        'tools.burnin_torch, tools.analyze_logs_torch, '
+        'tools.analyze_occ_gt_torch, tools.gen_seg_depth_torch, '
+        'tools.probe_torch_gloo\n'
         'bad = [m for m in sys.modules if m in ("jax", "flax", "fusionocc_tpu")'
         ' or m.startswith(("jax.", "flax.", "jaxlib", "fusionocc_tpu."))]\n'
         'print("BAD", bad)\n'

@@ -15,6 +15,7 @@ the loader's host sharding.
     ``tests/test_ondisk.py``: the two shards are disjoint, cover the
     shuffled order, and equal JAX's ``data_loader`` shards index for index.
 """
+import importlib.util
 import json
 import os
 import pickle
@@ -36,7 +37,8 @@ LOSS_RTOL, FIRST_NORM_RTOL, NORM_RTOL = 1e-4, 1e-4, 1e-2
 
 def _train(work_dir, *extra, ranks: int = 1, steps: int = 2):
     args = [TOOL, '--tiny', '--synthetic', '--steps', str(steps), '--device',
-            'cpu', '--work-dir', str(work_dir), *extra]
+            'cpu', '--log-interval', '1', '--work-dir', str(work_dir),
+            *extra]
     if ranks > 1:
         args = ['-m', 'torch.distributed.run', '--standalone',
                 '--nproc_per_node', str(ranks), *args]
@@ -71,7 +73,12 @@ def test_torchrun_two_ranks_write_the_batch2_scalars(tmp_path):
     assert [r['step'] for r in got] == [1, 2]       # rank 0 alone writes
     assert sum(ln.startswith('step ') for ln in stdout.splitlines()) == 2
     _assert_same_steps(got, want)
-    assert sorted(os.listdir(ranks)) == ['scalars.jsonl', 'step_2']
+    # rank 0 alone writes: scalars, the checkpoint, and with tensorboardX
+    # the TensorBoard events (the JAX tool's logger)
+    tensorboard = importlib.util.find_spec('tensorboardX') is not None
+    assert sorted(os.listdir(ranks)) == ['scalars.jsonl', 'step_2'] + (
+        ['tb'] if tensorboard else [])
+    assert not tensorboard or len(os.listdir(ranks / 'tb')) == 1
     _train(ranks, '--resume', str(ranks), ranks=2, steps=3)
     _train(one, '--resume', str(one), '--batch-size', '2', steps=3)
     got, want = _scalars(ranks), _scalars(one)

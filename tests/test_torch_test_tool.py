@@ -137,7 +137,8 @@ def test_train_tool_steps_from_the_tree_and_its_checkpoint_evaluates(
     import tools.train_torch as tr
     root, ann, seg = tree
     tr.main(['--tiny', '--ann-file', ann, '--img-seg-dir', seg, '--steps',
-             '2', '--device', 'cpu', '--work-dir', str(tmp_path)])
+             '2', '--device', 'cpu', '--log-interval', '1', '--work-dir',
+             str(tmp_path)])
     out = capsys.readouterr().out
     steps = [ln for ln in out.splitlines() if ln.startswith('step ')]
     assert [ln.split()[1] for ln in steps] == ['1/2', '2/2']

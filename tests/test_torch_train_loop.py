@@ -311,7 +311,7 @@ def test_checkpoint_round_trip_and_resume(tmp_path, deterministic):
 def test_train_tool_runs_on_cpu(tmp_path):
     cmd = [sys.executable, os.path.join(REPO, 'tools', 'train_torch.py'),
            '--tiny', '--synthetic', '--steps', '2', '--device', 'cpu',
-           '--work-dir', str(tmp_path)]
+           '--log-interval', '1', '--work-dir', str(tmp_path)]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                          cwd=REPO)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -10,7 +10,10 @@ on a rank's rows of a global batch, or on the whole batch outside a group;
 ``metric_run`` apply a layer, the losses and the metric to a rank's part
 of inputs given for every rank (the whole of them outside a group), and
 ``small_checks`` runs the three and compares ``all_reduce_sum`` with
-``torch.distributed.nn.functional.all_reduce``.
+``torch.distributed.nn.functional.all_reduce``.  ``hybrid_checks`` runs
+jobs under ``hybrid_mesh(world // n_spatial, n_spatial)``: the forward,
+``predict``, ``batch_frames``, the streaming modes, a halo exchange's
+gradient and train steps (``train_run`` with ``n_spatial``).
 """
 import copy
 import os
@@ -21,7 +24,8 @@ import torch.distributed.nn.functional
 import torch.multiprocessing as mp
 
 from fusionocc_tpu_torch.eval.metrics import OccupancyMetric
-from fusionocc_tpu_torch.models.fusion_occ import FusionOcc
+from fusionocc_tpu_torch.models.fusion_occ import (
+    FusionOcc, batch_pooling_indices, stack_batches)
 from fusionocc_tpu_torch.nn import layers
 from fusionocc_tpu_torch.parallel import mesh
 from fusionocc_tpu_torch.train import losses, loop
@@ -45,17 +49,21 @@ def spawn(fn, world: int, tmp: str, *args) -> list:
 
 
 def train_run(rank: int, world: int, tc, path: str, steps: int,
-              draws: bool = True) -> dict:
+              draws: bool = True, n_spatial: int = 1) -> dict:
     """``steps`` train steps from the weights and the global batch saved at
     ``path`` ({'model': state dict, 'batch': Batch, optionally 'train': a
     train state dict to start from}), on this rank's rows of it (all of it
     with world 1 outside a group); with ``draws`` False the dropout is the
-    identity.  Returns the logs and gradients of each step and the model
-    and train state after each."""
+    identity; with ``n_spatial`` > 1 under the hybrid mesh, on this data
+    rank's samples.  Returns the logs and gradients of each step and the
+    model and train state after each."""
     saved = torch.load(path, weights_only=False)
-    model = FusionOcc(tc.model, device='cpu')
+    hybrid = (mesh.hybrid_mesh(world // n_spatial, n_spatial)
+              if n_spatial > 1 else None)
+    model = FusionOcc(tc.model, device='cpu', mesh=hybrid)
     model.load_state_dict(saved['model'], strict=True)
-    batch = mesh.shard_batch(saved['batch'], rank, world)
+    batch = (hybrid.shard(saved['batch']) if hybrid is not None
+             else mesh.shard_batch(saved['batch'], rank, world))
     state = loop.create_train_state(model, tc)
     if 'train' in saved:
         state.load_state_dict(saved['train'])
@@ -155,3 +163,100 @@ def small_checks(rank: int, world: int, path: str) -> dict:
         got.append((y.detach(), leaf.grad))
     out['all_reduce'] = got
     return out
+
+
+def _counted(fn):
+    """``fn()`` and the halo rows and collectives it issued on this rank."""
+    mesh.COLLECTIVES.reset()
+    out = fn()
+    c = mesh.COLLECTIVES
+    return out, {'rows': dict(c.rows), 'calls': dict(c.calls),
+                 'bytes': dict(c.kind_bytes)}
+
+
+def halo_run(m) -> dict:
+    """A global (1, 3, 2, Y, 4) volume and cotangents drawn alike on every
+    rank; this rank's block through ``exchange`` to the rows a stride-2
+    conv's output block reads, the backward of sum(window * cotangent):
+    the window and the gradient of this rank's block."""
+    g = torch.Generator().manual_seed(3)
+    n = 7
+    vol = torch.randn(1, 3, 2, n, 4, generator=g, dtype=torch.float64)
+    have = m.rows(n)
+    out = m.rows((n - 1) // 2 + 1)
+    need = [(max(2 * a - 1, 0), min(2 * b, n)) for a, b in out]
+    cots = [torch.randn(1, 3, 2, hi - lo, 4, generator=g,
+                        dtype=torch.float64) for lo, hi in need]
+    a, b = have[m.s]
+    x = vol[:, :, :, a:b].clone().requires_grad_()
+    window = m.exchange(x, 3, have, need, 'probe')
+    (window * cots[m.s]).sum().backward()
+    return {'window': window.detach(), 'grad': x.grad, 'need': need,
+            'have': have}
+
+
+def hybrid_checks(rank: int, world: int, n_spatial: int, tasks) -> list:
+    """Under ``hybrid_mesh(world // n_spatial, n_spatial)``, for each
+    (path, jobs) of ``tasks``, on the inputs saved at ``path`` ({'model':
+    state dict, 'config': model config, 'batch': the global batch,
+    'frames': a clip of global batches, 'resets'}): each job of ``jobs``,
+    'forward' (the eval forward two-pass and with ``batch_frames``,
+    ``predict`` with its own and with given indices of this rank's images,
+    the halo rows and collectives of one forward, and what an index of
+    every image raises),
+    'stream' (``predict_streaming_batch`` at chunk 2 and
+    ``predict_streaming_scan`` on the clip), 'halo' (``halo_run``),
+    'metric' (``OccupancyMetric`` with the mesh and buckets on this data
+    rank's samples of the saved 'pred') or ('train', tc, path, steps)
+    (``train_run``)."""
+    m = mesh.hybrid_mesh(world // n_spatial, n_spatial)
+    results = []
+    for path, jobs in tasks:
+        saved = torch.load(path, weights_only=False) if path else {}
+        out = {'coords': (m.d, m.s)}
+        if 'model' in saved:
+            model = FusionOcc(saved['config'], device='cpu', mesh=m)
+            model.load_state_dict(saved['model'], strict=True)
+        for job in jobs:
+            if job == 'forward':
+                batch = m.shard(saved['batch'])
+                with torch.inference_mode():
+                    two, counts = _counted(lambda: model(batch))
+                    out['forward'] = {
+                        'two_pass': two, 'counts': counts,
+                        'batch_frames': model(batch, batch_frames=True),
+                        'predict': model.predict(batch),
+                        'own_index': model.predict(
+                            batch, batch_pooling_indices(model.cfg, batch,
+                                                         m))}
+                    try:        # an index of every image, not this rank's
+                        model(batch, batch_pooling_indices(model.cfg, batch))
+                    except ValueError as e:
+                        out['forward']['refused'] = str(e)
+            elif job == 'stream':
+                frames = stack_batches([m.shard(f) for f in saved['frames']])
+                b = frames.imgs.shape[1]
+                resets = saved['resets'][:, m.d * b:(m.d + 1) * b]
+                state = model.init_streaming_state(b)
+                out['stream'] = {
+                    'batch': model.predict_streaming_batch(
+                        frames, state, resets=resets, chunk=2),
+                    'scan': model.predict_streaming_scan(frames, state,
+                                                         resets=resets)}
+            elif job == 'halo':
+                out['halo'] = halo_run(m)
+            elif job == 'metric':
+                batch = m.shard(saved['batch'])
+                b = batch.imgs.shape[0]
+                met = OccupancyMetric(grid=saved['config'].grid, mesh=m)
+                met.update(saved['pred'][m.d * b:(m.d + 1) * b],
+                           batch.voxel_semantics,
+                           mask_camera=batch.mask_camera)
+                out['metric'] = {'hist': met.reduced_hist(met.hist),
+                                 'result': met.compute()}
+            else:
+                _, tc, train_path, steps = job
+                out['train'] = train_run(rank, world, tc, train_path, steps,
+                                         n_spatial=n_spatial)
+        results.append(out)
+    return results

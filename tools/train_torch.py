@@ -20,8 +20,11 @@ schedule's epoch is the dataset's length over the batch size.  With
 ``--synthetic`` every step trains on the synthetic batch of seed 0 and the
 epoch is ``--steps`` long.  ``--load-from`` warm-starts the image backbone
 from an official Swin checkpoint (``weights.load_official_swin``).
-``--steps 0`` runs the whole schedule.  Scalars go to
-``<work-dir>/scalars.jsonl``; with ``--render-interval N`` a BEV render of
+The defaults are the JAX tool's: ``--steps 0`` runs the whole schedule
+(with ``--synthetic``, an epoch of one step), ``--log-interval 50`` logs
+the first step and every 50th.  Scalars go to ``<work-dir>/scalars.jsonl``
+and, when ``tensorboardX`` is installed, to TensorBoard under
+``<work-dir>/tb``; with ``--render-interval N`` a BEV render of
 the EMA prediction of the step's batch goes to
 ``<work-dir>/images/train_bev_pred_<step>.png`` every N steps
 (``MetricLogger.log_image``); checkpoints to ``<work-dir>/step_<n>`` every
@@ -99,7 +102,7 @@ def main(argv=None) -> None:
                     help='named preset of fusionocc_tpu_torch.configs')
     ap.add_argument('--synthetic', action='store_true')
     ap.add_argument('--tiny', action='store_true', help='tiny model (debug)')
-    ap.add_argument('--steps', type=int, default=10,
+    ap.add_argument('--steps', type=int, default=0,
                     help='stop after N steps (0 = the whole schedule)')
     ap.add_argument('--batch-size', type=int, default=1)
     ap.add_argument('--epochs', type=int, default=None)
@@ -111,7 +114,7 @@ def main(argv=None) -> None:
     ap.add_argument('--resume', default=None)
     ap.add_argument('--ckpt-interval-steps', type=int, default=0,
                     help='0 = once per epoch')
-    ap.add_argument('--log-interval', type=int, default=1)
+    ap.add_argument('--log-interval', type=int, default=50)
     ap.add_argument('--render-interval', type=int, default=0,
                     help='log a BEV render of the EMA prediction every N '
                          'steps as a PNG (0 = off)')
@@ -201,8 +204,7 @@ def train(args, device, rank: int, world: int) -> None:
         say(f'resumed from {path} at step {state.step}', flush=True)
     total = args.steps or cfg.optim.max_epochs * cfg.optim.iters_per_epoch
     ckpt_every = args.ckpt_interval_steps or cfg.optim.iters_per_epoch
-    mlog = (MetricLogger(args.work_dir, use_tensorboard=False)
-            if rank == 0 else None)
+    mlog = MetricLogger(args.work_dir) if rank == 0 else None
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     gen = batches()
     t0, first = time.perf_counter(), state.step
