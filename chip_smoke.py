@@ -155,7 +155,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``FusionOcc(cfg, mesh=)``; gloo stages every collective through the
    host, so these times are no scaling figures).  The parent computes one
    process's references.  (a) Midsize fp32: the two-pass forward at (2, 2)
-   and (1, 2) within HYB_TOL of one process; at (2, 2)
+   and (1, 2) within HYB_TOL of one process, and at (1, 4) on one sample
+   (the same 4 ranks: 2 cameras leave ranks 2 and 3 none, the last Y
+   level's 5 rows rank 3 none; XLA pads such blocks); at (2, 2)
    ``predict_streaming_batch`` on a 4-frame clip with a reset (agreement
    at least 0.999, state within 5e-3) and one train step with the draws
    on, held as phase 9a holds a step, the 4 ranks' parameters and EMA
@@ -167,6 +169,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    one process (printed), launches gated 48 / 2 / 9 with rank 0's every
    launch held against its plain version (``KernelCheck``), and 1 + 2
    train steps (s/iter, launches gated as phase 7c's).
+
+12. FLOPs and density: ``utils/flops.count_flops`` of a two-pass
+   predict, a streamed frame and a train step at full size (bf16), each
+   with the kernels (their formulas) and without them, by op; each
+   kernel's FLOPs counted through its op at phase 3's shapes, equal to
+   those its bound used; the two-pass predict's achieved TFLOP/s and its
+   share of the bf16 peak; ``tools/density_sweep_torch.py`` at 1x, 1.5x and
+   2x ``point_capacity``: the rows each capacity cut keeps and drops and
+   the LiDAR encoder's device ms.
 
 Phases 5 and 8 also print the rows each static capacity cut of the LiDAR
 encoder drops (``capacity_cuts``, ROADMAP Queue C's C2), and the script
@@ -182,7 +193,8 @@ launches per full-size train step, its backward's ms, its launches in
 phase 8's two-pass evaluation of 9 samples, per rank per step of phase
 9c, per int8 predict, per run of the loaded two-pass and streaming
 programs and per base view transformer call of phase 10, and per rank per
-full-size predict of phase 11b) and the result JSON.
+full-size predict of phase 11b, and the FLOPs phase 3 bounded it by and
+counted through its op) and the result JSON.
 Needs a CUDA GPU; on a machine without one it exits 1 before doing anything.
 """
 from __future__ import annotations
@@ -294,12 +306,22 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 class Bound:
     """Summed least time of a kernel's launches: per launch the larger of
-    flops / peak and bytes / memory rate."""
+    flops / peak and bytes / memory rate.  ``flops`` sums the FLOPs each
+    launch was bounded by, ``counted`` those that ``utils/flops.py``
+    counts for the same launch through its op (``count``)."""
 
     def __init__(self):
         self.ms = {'bytes': 0.0, 'operations': 0.0}
+        self.flops = self.counted = 0
+
+    def count(self, op, *args) -> None:
+        """Count the op's FLOPs on one launch's inputs (it launches the
+        kernel once more)."""
+        from fusionocc_tpu_torch.utils.flops import counted
+        self.counted += counted(lambda: op(*args))['total']
 
     def add(self, flops: float, nbytes: float, dtype) -> float:
+        self.flops += flops
         t_ops = flops / PEAK_FLOPS[dtype] * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         by = 'bytes' if t_bytes >= t_ops else 'operations'
@@ -321,7 +343,7 @@ def phase_device() -> str:
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ''
-    print('[1/11] device: nvidia-smi name, power.limit:')
+    print('[1/12] device: nvidia-smi name, power.limit:')
     print(card)
     from fusionocc_tpu_torch.ops.kernels import find_nvcc
     nvcc = subprocess.run([find_nvcc(), '--version'], capture_output=True,
@@ -365,7 +387,7 @@ def phase_build() -> None:
     took = time.perf_counter() - t0
     how = ('compiled' if KERNELS.build_seconds is not None
            else 'found built')
-    print(f'[2/11] build: {how} {path.name} in {took:.1f} s')
+    print(f'[2/12] build: {how} {path.name} in {took:.1f} s')
     for line in KERNELS.build_log.splitlines():
         if 'Used' in line or 'Compiling entry' in line or 'spill' in line:
             print('  ptxas' + line.split('ptxas', 1)[-1])
@@ -473,13 +495,15 @@ def check_window_attn(cfg, g) -> dict:
                   + f'; fastest {best}', flush=True)
             bound.add(4 * bn * heads * n * n * d,
                       4 * bn * n * c * 2 + heads * n * n * 4, torch.bfloat16)
+            bound.count(wa.window_attn_op, *args)
     bound_ms, bound_by = bound.total()
     print(f'  window_attn summed over the 8 shapes: kernel {ms:.4f} ms, '
           f'plain {plain_ms:.4f} ms, sdpa (fastest backend per shape) '
           f'{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}',
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+                bound_by=bound_by, library_ms=lib_ms, flops=bound.flops,
+                counted_flops=bound.counted)
 
 
 def embedding_bag_pool(depth_flat, feat_flat, ranks_depth, ranks_feat,
@@ -571,11 +595,15 @@ def check_bev_pool(cfg, batch0, g) -> dict:
         print(f'    {name} out:', flush=True)
         bound.add(2 * n_in * C, n_in * 12 + f_in.numel() * f_in.element_size()
                   + table + nvox * C * es, torch.float32)
-        bounds_ms[name] = bound.total()
-    bound_ms, bound_by = bounds_ms['bf16']
+        bound.count(bp.bev_pool_op, depth, f_in, idx.ranks_depth,
+                    idx.ranks_feat, idx.ranks_bev, idx.bounds,
+                    idx.long_voxels, nvox, idx.max_short, f_in.dtype)
+        bounds_ms[name] = bound.total() + (bound.flops, bound.counted)
+    bound_ms, bound_by, flops, counted_flops = bounds_ms['bf16']
     return dict(max_abs_err=cases[torch.bfloat16, torch.bfloat16], ms=t_k,
                 plain_ms=t_p, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=t_lib, fp32_max_abs_err=cases[torch.float32,
+                library_ms=t_lib, flops=flops, counted_flops=counted_flops,
+                fp32_max_abs_err=cases[torch.float32,
                                                          torch.float32],
                 fp32_ms=t_k32, fp32_bound_ms=bounds_ms['fp32'][0],
                 zero_fill_ms=t_fill, fp32_zero_fill_ms=t_fill32)
@@ -626,6 +654,7 @@ def check_zwin(cfg, batch0) -> dict:
         bound.add(2 * macs, feats.numel() * es + nbr.numel() * 4
                   + mask_out.numel() + 27 * cin * cout * es
                   + B * s_out * f_out * cout * es, feats.dtype)
+        bound.count(zw.zwin_conv_op, *args)
         if stride == 2:
             stage += 1
     if len(calls) != 9:
@@ -639,7 +668,8 @@ def check_zwin(cfg, batch0) -> dict:
     stage1 = micro.stage1_subm(calls)
     micro.report(micro.run(stage1), stage1, indent='    ')
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None)
+                bound_by=bound_by, library_ms=None, flops=bound.flops,
+                counted_flops=bound.counted)
 
 
 @torch.no_grad()
@@ -734,6 +764,7 @@ def check_zwin_fused(cfg, batch0) -> dict:
                   + mask_out.numel() + 27 * cin * cout * es
                   + B * s_out * f_out * cout * es + epi[2].numel()
                   + 2 * f_out * cout * 4, feats.dtype)
+        bound.count(zw.zwin_conv_epi_op, *args)
     if len(launches) != 9:
         fail(f'the fused encoder made {len(launches)} zwin calls, not 9')
     bound_ms, bound_by = bound.total()
@@ -742,7 +773,8 @@ def check_zwin_fused(cfg, batch0) -> dict:
           f'{bound_ms:.4f} ms by {bound_by}', flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, fp32_max_abs_err=err32,
-                unfused_chain_ms=chain_ms)
+                unfused_chain_ms=chain_ms, flops=bound.flops,
+                counted_flops=bound.counted)
 
 
 def check_edge_shapes(g) -> None:
@@ -787,7 +819,7 @@ def check_edge_shapes(g) -> None:
 
 @torch.inference_mode()
 def phase_kernels(cfg, batch0) -> dict:
-    print('[3/11] kernels vs plain versions at main-path shapes')
+    print('[3/12] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
     measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
                 'zwin_conv_fwd_epi': check_zwin_fused(cfg, batch0),
@@ -805,7 +837,7 @@ def phase_reference() -> None:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
     from fusionocc_tpu_torch.ops.kernels import KERNELS
-    print('[4/11] reference: midsize multi-modal fp32, card vs CPU plain '
+    print('[4/12] reference: midsize multi-modal fp32, card vs CPU plain '
           'versions')
     cfg = midsize_model_config(use_lidar=True)
     g = torch.Generator().manual_seed(7)
@@ -1147,7 +1179,7 @@ def phase_slice(batches) -> dict:
     kernel's launches on the path that runs it."""
     from fusionocc_tpu_torch.config import (full_model_config,
                                             image_only_model_config)
-    print('[5/11] slice: full-size predict, bf16')
+    print('[5/12] slice: full-size predict, bf16')
     paths = []
     for label, cfg in (('image-only', image_only_model_config()),
                        ('default multi-modal', full_model_config()),
@@ -1547,7 +1579,7 @@ def phase_streaming(batches) -> None:
     from fusionocc_tpu_torch.config import full_model_config
     from fusionocc_tpu_torch.models.fusion_occ import map_batch, stack_batches
     from tools.eval_torch_streaming_delta import clip_frames
-    print('[6/11] streaming: full-size default config, a clip of '
+    print('[6/12] streaming: full-size default config, a clip of '
           f'{CLIP_FRAMES} frames, a reset at frame {CLIP_RESET}')
     t0 = time.perf_counter()
     clip = stack_batches(clip_frames(full_model_config(), 0, CLIP_FRAMES,
@@ -1909,7 +1941,7 @@ def phase_training(batches) -> tuple:
     train step card vs CPU, (c) the full-size train steps.  Returns (the
     launches per full-size step, backward ms by kernel)."""
     from fusionocc_tpu_torch.config import full_model_config
-    print('[7/11] training: kernel Functions, midsize card vs CPU, '
+    print('[7/12] training: kernel Functions, midsize card vs CPU, '
           'full-size train steps (bf16)')
     bwd_ms = train_functions(full_model_config(), batches[0])
     torch.cuda.empty_cache()
@@ -2154,40 +2186,13 @@ SYNTHETIC_RAYS = 32 * 1100 * 8     # beam_lidar_cloud's rays: beams, azimuths, s
 
 def capacity_cuts(label, cfg, points, points_mask, generated) -> None:
     """ROADMAP Queue C's C2: the rows each static cut of the LiDAR encoder
-    drops, per sample, counted from the inputs by the port's own index
-    builds run once at their capacity and once without one.  ``generated``
-    holds each sample's points before the cut to ``point_capacity``.  The
-    cuts: points at ``point_capacity``; voxels at ``voxel_capacity[0]``
-    (``ops/voxelize.py``); super rows at ``zfold_capacity[0]``
-    (``ops/zfold.py``); each sparse stage's stride-2 outputs at
-    ``zfold_capacity[i + 1]`` (``ops/sparse_conv._downsample_keys``), each
-    stage from the set the previous cut left."""
-    from fusionocc_tpu_torch.ops.sparse_conv import (_downsample_keys,
-                                                     out_shape_strided)
-    from fusionocc_tpu_torch.ops.voxelize import voxelize_mean
-    from fusionocc_tpu_torch.ops.zfold import super_shape, zfold_regroup
-    lc, grid = cfg.lidar, cfg.grid
-    cells = lc.sparse_shape(grid)
-    args = (points, points_mask, grid.point_cloud_range, lc.voxel_size,
-            cells)
-    every = math.prod(cells)
-    fold = min(lc.zfold, cells[2])
-    sp = voxelize_mean(*args, lc.voxel_capacity[0])
-    zf = zfold_regroup(sp, cells, lc.zfold_capacity[0], fold)
-    cuts = [('points', torch.as_tensor(generated), lc.point_capacity),
-            ('voxels', voxelize_mean(*args, every).mask.sum(1),
-             lc.voxel_capacity[0]),
-            ('super rows', zfold_regroup(sp, cells, every // fold,
-                                         fold).mask.sum(1),
-             lc.zfold_capacity[0])]
-    coords, mask, shape = zf.coords, zf.mask, super_shape(cells, fold)
-    for i in range(min(lc.dense_from, len(lc.encoder_channels) - 1)):
-        shape = out_shape_strided(shape)
-        cap = lc.zfold_capacity[i + 1]
-        cuts.append((f'stage {i} stride-2 outputs',
-                     _downsample_keys(coords, mask, shape,
-                                      math.prod(shape))[2].sum(1), cap))
-        coords, _, mask = _downsample_keys(coords, mask, shape, cap)
+    drops, per sample: points at ``point_capacity`` (``generated`` holds
+    each sample's points before that cut), then the index builds' cuts
+    (``models.lidar_encoder.capacity_cuts``, counted by the port's own
+    builds run with and without each capacity)."""
+    from fusionocc_tpu_torch.models.lidar_encoder import capacity_cuts as cut
+    cuts = [('points', torch.as_tensor(generated), cfg.lidar.point_capacity)
+            ] + cut(cfg, points, points_mask)
     for b in range(points.shape[0]):
         print(f'  C2 {label} sample {b}: rows before each cut, capacity, '
               'dropped: ' + '; '.join(
@@ -2252,7 +2257,7 @@ def phase_eval() -> dict:
     from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc,
                                                        frame_pooling_index,
                                                        spread_weights)
-    print(f'[8/11] evaluation: a written scene of {EVAL_SAMPLES} samples at '
+    print(f'[8/12] evaluation: a written scene of {EVAL_SAMPLES} samples at '
           'full raw size through tools/test_torch.py, bf16, batch 1')
     cfg = full_model_config()
     with tempfile.TemporaryDirectory(prefix='fusionocc_eval_') as root:
@@ -2761,7 +2766,7 @@ def phase_dist(batches) -> dict:
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.eval.metrics import OccupancyMetric
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
-    print(f'[9/11] data-parallel training: {DIST_WORLD} ranks on the one '
+    print(f'[9/12] data-parallel training: {DIST_WORLD} ranks on the one '
           'card exchange CUDA tensors over gloo (NCCL refuses two ranks on '
           'one device; gloo stages each collective through the host, so '
           'these times measure neither NCCL nor a second card and are no '
@@ -3139,7 +3144,7 @@ def phase_serving(batches) -> dict:
     the int8 predict, the loaded two-pass program and a base view
     transformer."""
     from fusionocc_tpu_torch.config import full_model_config
-    print('[10/11] serving: int8 products, int8_dense and --int8-weights '
+    print('[10/12] serving: int8 products, int8_dense and --int8-weights '
           'predicts, torch.export round trips, base view transformers; '
           'full size, bf16', flush=True)
     cfg = full_model_config()
@@ -3290,7 +3295,25 @@ def hybrid_full_task(rank, world, tmp) -> dict:
     return out
 
 
-HYB_TASKS = {'mid': hybrid_mid_task, 'full': hybrid_full_task}
+def hybrid_mid14_task(rank, world, tmp) -> dict:
+    """11a at (1, 4) on one rank of the same 4: the midsize two-pass forward
+    of the first sample alone, so that ranks 2 and 3 hold no camera and
+    rank 3 no row of the last Y level (XLA pads those blocks)."""
+    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, map_batch
+    from fusionocc_tpu_torch.parallel import mesh
+    saved = torch.load(f'{tmp}/hmid.pt', weights_only=False)
+    m = mesh.hybrid_mesh(1, 4)
+    model = FusionOcc(dist_midsize_config().model, device=DEV, mesh=m)
+    model.load_state_dict(saved['model'])
+    batch = to_card(map_batch(lambda a: a[:1], saved['batch']))
+    with torch.inference_mode():
+        return {'coords': (m.d, m.s), 'images': m.image_block(
+                    batch.imgs.shape[0] * batch.imgs.shape[2]),
+                'logits': model(batch)['occ_logits'].cpu()}
+
+
+HYB_TASKS = {'mid': hybrid_mid_task, 'full': hybrid_full_task,
+             'mid14': hybrid_mid14_task}
 
 
 def hybrid_rank(rank, world, tasks, tmp, port) -> None:
@@ -3306,8 +3329,10 @@ def hybrid_rank(rank, world, tasks, tmp, port) -> None:
     KERNELS.load()
     try:
         for task in tasks:
-            torch.save(HYB_TASKS[task](rank, world, tmp),
-                       f'{tmp}/h{task}_{world}_{rank}.pt')
+            t = time.perf_counter()
+            out = HYB_TASKS[task](rank, world, tmp)
+            out['seconds'] = time.perf_counter() - t
+            torch.save(out, f'{tmp}/h{task}_{world}_{rank}.pt')
     finally:
         dist.destroy_process_group()
 
@@ -3346,6 +3371,9 @@ def hybrid_mid_references(tmp) -> dict:
     ref = {'tc': tc, 'batch': batch, 'train': train}
     with torch.inference_mode():
         ref['logits'] = model(to_card(batch))['occ_logits'].cpu()
+        ref['logits14'] = model(to_card(
+            type(batch)(*(None if a is None else a[:1] for a in batch)))
+        )['occ_logits'].cpu()
         stacked = to_card(stack_batches(frames))
         preds, state = model.predict_streaming_batch(
             stacked, model.init_streaming_state(HYB_BATCH),
@@ -3380,9 +3408,24 @@ def hybrid_full_references(tmp, ref) -> dict:
 
 
 def hybrid_midsize(ref, square, row) -> None:
-    """11a: every rank's forward within HYB_TOL of one process's, the
-    streamed clip as tests/test_sharding.py:162-171 holds JAX's, the
-    train step as phase 9a holds the data mesh's."""
+    """11a: every rank's forward within HYB_TOL of one process's (at (1, 4)
+    on the first sample), the streamed clip as
+    tests/test_sharding.py:162-171 holds JAX's, the train step as phase
+    9a holds the data mesh's."""
+    worst = 0.0
+    for r in square:
+        got = r['mid14']
+        ok, err, _ = within(got['logits'], ref['logits14'], **HYB_TOL)
+        worst = max(worst, err)
+        if not ok:
+            fail(f'11a (1, 4) rank {got["coords"]}: logits {err:.3e} from '
+                 'one process')
+    print(f'  11a (1, 4) midsize fp32 two-pass forward, batch 1 (camera '
+          f'blocks {[r["mid14"]["images"] for r in square]}, the last Y '
+          f'level\'s 5 rows as 2 + 2 + 1 + 0): every rank\'s logits within '
+          f'{HYB_TOL} of one process (max abs {worst:.3e}); the task took '
+          f'{max(r["mid14"]["seconds"] for r in square):.1f} s per rank',
+          flush=True)
     for label, ranks in (('(2, 2)', square), ('(1, 2)', row)):
         b = HYB_BATCH * HYB_SPATIAL // len(ranks)
         worst = 0.0
@@ -3480,7 +3523,7 @@ def phase_hybrid() -> dict:
     card.  Returns one rank's launches per full-size predict."""
     import shutil
     import tempfile
-    print('[11/11] hybrid data x spatial mesh: ranks on the one card over '
+    print('[11/12] hybrid data x spatial mesh: ranks on the one card over '
           'gloo (NCCL refuses two ranks on one device; gloo stages each '
           'collective through the host, so these times are no scaling '
           'figures)', flush=True)
@@ -3488,17 +3531,84 @@ def phase_hybrid() -> dict:
     tmp = tempfile.mkdtemp(prefix='fusionocc_hybrid_')
     ref = hybrid_full_references(tmp, hybrid_mid_references(tmp))
     t1 = time.perf_counter()
-    square = spawn_hybrid(2 * HYB_SPATIAL, ['mid', 'full'], tmp)
+    square = spawn_hybrid(2 * HYB_SPATIAL, ['mid', 'mid14', 'full'], tmp)
     t2 = time.perf_counter()
     row = spawn_hybrid(HYB_SPATIAL, ['mid'], tmp)
     t3 = time.perf_counter()
     hybrid_midsize(ref, square, row)
     launches = hybrid_fullsize(ref, square)
     shutil.rmtree(tmp, ignore_errors=True)
-    print(f'  phase 11: references {t1 - t0:.1f} s, (2, 2) ranks '
+    print(f'  phase 11: references {t1 - t0:.1f} s, (2, 2) and (1, 4) ranks '
           f'{t2 - t1:.1f} s, (1, 2) ranks {t3 - t2:.1f} s, checks '
           f'{time.perf_counter() - t3:.1f} s', flush=True)
     return launches
+
+
+# -- phase 12: FLOPs per path and the density sweep ---------------------------
+FLOP_REPS = 3                       # timed two-pass predicts
+
+
+def report_flops(label, got) -> None:
+    print(f'  {label}: {got["total"] / 1e9:.2f} GFLOP with the kernels, '
+          f'{got["outside"] / 1e9:.2f} without them; kernels (GFLOP) '
+          + ', '.join(f'{k} {v / 1e9:.4f}' for k, v in got['kernels'].items())
+          + f'; by op (GFLOP) '
+          + ', '.join(f'{k} {v / 1e9:.3f}' for k, v in got['by_op'].items()),
+          flush=True)
+
+
+def phase_flops(cfg, batches, measured) -> None:
+    """Phase 12: the FLOPs of a two-pass predict, a streamed frame and a
+    train step at full size (``utils/flops.count_flops``, the kernels by
+    their formulas), each kernel's counted FLOPs at phase 3's shapes
+    against those its bound used, the achieved TFLOP/s of the two-pass
+    predict, and ``tools/density_sweep_torch.py``'s three densities."""
+    from fusionocc_tpu_torch.config import TrainConfig
+    from fusionocc_tpu_torch.models.fusion_occ import (
+        FusionOcc, batch_pooling_indices, init_weights)
+    from fusionocc_tpu_torch.utils.flops import count_flops
+    from tools import density_sweep_torch as sweep
+    print('[12/12] FLOPs per path (torch.utils.flop_counter, the kernels by '
+          'their formulas) and the density sweep', flush=True)
+    t0 = time.perf_counter()
+    for name, m in measured.items():
+        ok = m['flops'] == m['counted_flops']
+        print(f'  {name} at phase 3\'s shapes: counted {m["counted_flops"]} '
+              f'FLOPs, its bound used {m["flops"]}: '
+              f'{"equal" if ok else "DIFFER"}', flush=True)
+        if not ok:
+            fail(f'{name}: counted FLOPs differ from its bound\'s')
+    model = init_weights(FusionOcc(cfg, device=DEV),
+                         torch.Generator().manual_seed(0))
+    got = {mode: count_flops(model, batches[0], mode, TrainConfig(model=cfg))
+           for mode in ('predict', 'streaming', 'train')}
+    for mode, label in (('predict', 'two-pass predict'),
+                        ('streaming', 'streamed frame (predict_streaming)'),
+                        ('train', 'train step (forward, backward, '
+                                  'optimizer)')):
+        report_flops(label, got[mode])
+    idx = batch_pooling_indices(cfg, batches[0])
+    model.predict(batches[0], idx)
+    ms = statistics.median(event_ms(lambda: model.predict(batches[0], idx),
+                                    FLOP_REPS))
+    rate = got['predict']['total'] / ms / 1e9
+    print(f'  two-pass predict with its pooling indices built once (the main '
+          f'path, as phase 5 runs it; the count above builds them in the '
+          f'call): {ms:.2f} ms (CUDA events, median of {FLOP_REPS}), '
+          f'{rate:.2f} TFLOP/s achieved, '
+          f'{rate * 1e12 / PEAK_FLOPS[torch.bfloat16]:.4f} of the '
+          f'{PEAK_FLOPS[torch.bfloat16] / 1e12:.0f} TFLOP/s bf16 peak',
+          flush=True)
+    del model, idx
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    for row in sweep.sweep(cfg, DEV, say=lambda line: print(
+            f'  {line}', flush=True)):
+        if row['ms'] is None:
+            fail(f'density x{row["scale"]}: no encoder time on the card')
+    t2 = time.perf_counter()
+    print(f'  phase 12: FLOPs {t1 - t0:.1f} s, density sweep {t2 - t1:.1f} s',
+          flush=True)
 
 
 def main() -> None:
@@ -3521,6 +3631,7 @@ def main() -> None:
     dist_launches = phase_dist(batches)
     serving = phase_serving(batches)
     hybrid = phase_hybrid()
+    phase_flops(cfg, batches, measured)
     sources = {
         'window_attn_fwd': ('fusionocc_tpu_torch/csrc/window_attn.cu',
                             'fusionocc_tpu/ops/pallas/window_attn.py:79'),

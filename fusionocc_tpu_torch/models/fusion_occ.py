@@ -248,7 +248,7 @@ class FusionOcc(nn.Module):
         if self.cfg.swin.return_stereo_feat:
             feats = feats[1:]
         y = self.img_neck(feats)
-        return y.reshape(B, N, y.shape[1], y.shape[2], -1)
+        return y.reshape(B, N, *y.shape[1:])
 
     def _frame_voxel_feat(self, imgs_f, s2k_f, s2k_key, intrin_f, post_rot_f,
                           post_tran_f, bda, sparse_depth,
@@ -278,30 +278,44 @@ class FusionOcc(nn.Module):
         this rank's block of the B*N images (its random masks that block
         of the global batch's draw), K1's partial float32 volume summed
         over the spatial group and cast once, ``pre_process_net``
-        replicated.  Returns the whole voxel feature (B, Z, Y, X, C) and
-        the depth and seg of this rank's images, (1, n, h, w, .)."""
-        m = self.mesh
+        replicated.  A rank whose block is empty (XLA pads it) skips the
+        camera branch in eval and adds a zero volume to the sum; in
+        training it runs the branch on no images, so that it joins the
+        collectives of the branch's BatchNorms.  Returns the
+        whole voxel feature (B, Z, Y, X, C) and the depth and seg of this
+        rank's images, (1, n, h, w, .)."""
+        m, cfg = self.mesh, self.cfg
         B, N = imgs_f.shape[:2]
         a, b = m.image_block(B * N)
-
-        def mine(t):
-            return t.reshape((1, B * N) + t.shape[2:])[:, a:b]
-        if pool_idx is None:
-            pool_idx = frame_pooling_index(self.cfg, s2k_f, intrin_f,
-                                           post_rot_f, post_tran_f, bda, m)
-        h, w = self.cfg.feat_size
-        points = (b - a) * self.cfg.grid.num_depth_bins * h * w
-        if pool_idx.ranks_depth.shape[0] != points:
+        h, w = cfg.feat_size
+        D = cfg.grid.num_depth_bins
+        if pool_idx is not None and pool_idx.ranks_depth.shape[0] != (
+                b - a) * D * h * w:
             raise ValueError(
                 f'the pooling index has {pool_idx.ranks_depth.shape[0]} '
-                f'points, this rank\'s {b - a} images {points}: build it '
-                'with the mesh (frame_pooling_index(..., mesh))')
-        with m.draws(m.d * B * N + a, m.n_data * B * N):
-            x = self.image_encoder(mine(imgs_f))
-            voxel, depth, seg = self.img_view_transformer(
-                x, mine(sparse_depth), mine(mlp_input), pool_idx,
-                pool_dtype=torch.float32)
-        voxel = m.sum_spatial(voxel).to(self.cfg.dtype)
+                f'points, this rank\'s {b - a} images {(b - a) * D * h * w}:'
+                ' build it with the mesh (frame_pooling_index(..., mesh))')
+        if a == b and not self.training:
+            gx, gy, gz = cfg.grid.grid_size
+            dev = imgs_f.device
+            voxel = torch.zeros(B, gz, gy, gx, cfg.vt.feature_channels,
+                                device=dev)
+            depth = torch.zeros(1, 0, h, w, D, device=dev)
+            seg = torch.zeros(1, 0, h, w, cfg.vt.seg_num_classes,
+                              dtype=cfg.dtype, device=dev)
+        else:
+            def mine(t):
+                return t.reshape((1, B * N) + t.shape[2:])[:, a:b]
+            if pool_idx is None:
+                pool_idx = frame_pooling_index(cfg, s2k_f, intrin_f,
+                                               post_rot_f, post_tran_f, bda,
+                                               m)
+            with m.draws(m.d * B * N + a, m.n_data * B * N):
+                x = self.image_encoder(mine(imgs_f))
+                voxel, depth, seg = self.img_view_transformer(
+                    x, mine(sparse_depth), mine(mlp_input), pool_idx,
+                    pool_dtype=torch.float32)
+        voxel = m.sum_spatial(voxel).to(cfg.dtype)
         with m.replicated():
             voxel = self.pre_process_net(voxel)[0]
         return voxel, depth, seg

@@ -36,15 +36,18 @@ directly.
 """
 from __future__ import annotations
 
+import math
+from typing import List, Tuple
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..config import GridConfig, SparseEncoderConfig
+from ..config import GridConfig, ModelConfig, SparseEncoderConfig
 from ..nn.layers import MaskedBatchNorm
 from ..ops.dense_conv import dense_conv3d, dense_from_zfold, strided_out_mask
-from ..ops.sparse_conv import (out_shape_strided, sparse_conv1x1_apply,
-                               stage_indices_table)
+from ..ops.sparse_conv import (_downsample_keys, out_shape_strided,
+                               sparse_conv1x1_apply, stage_indices_table)
 from ..ops.voxelize import voxelize_mean
 from ..ops.zfold import (ZFoldVoxels, as_sparse, strided_lane_mask,
                          super_shape, zfold_regroup)
@@ -160,3 +163,39 @@ class SparseEncoder(nn.Module):
         # x is exact zero at inactive cells: conv_out needs no re-mask
         y = x @ self.conv_out[0].kernel().to(x.dtype)
         return y.permute(0, 3, 2, 1, 4)
+
+
+def capacity_cuts(cfg: ModelConfig, points: torch.Tensor,
+                  points_mask: torch.Tensor
+                  ) -> List[Tuple[str, torch.Tensor, int]]:
+    """The static cuts of the encoder's index builds on a padded cloud
+    (B, P, 5): per cut its name, each sample's rows before it (B,) and its
+    capacity, in the encoder's order: voxels at ``voxel_capacity[0]``
+    (``voxelize_mean``), super rows at ``zfold_capacity[0]``
+    (``zfold_regroup``), each sparse stage's stride-2 outputs at
+    ``zfold_capacity[i + 1]`` (``stage_indices_table``).  Each count comes
+    from the port's own builds run without the capacity, on the set the
+    previous cut left; a cut keeps min(rows, capacity)."""
+    lc, grid = cfg.lidar, cfg.grid
+    cells = lc.sparse_shape(grid)
+    fold = min(lc.zfold, cells[2])
+    every = math.prod(cells)
+    args = (points, points_mask, grid.point_cloud_range, lc.voxel_size,
+            cells)
+    sp = voxelize_mean(*args, lc.voxel_capacity[0])
+    zf = zfold_regroup(sp, cells, lc.zfold_capacity[0], fold)
+    cuts = [('voxels', voxelize_mean(*args, every).mask.sum(1),
+             lc.voxel_capacity[0]),
+            ('super rows', zfold_regroup(sp, cells, every // fold,
+                                         fold).mask.sum(1),
+             lc.zfold_capacity[0])]
+    coords, mask = zf.coords, zf.mask
+    for i in range(min(lc.dense_from, len(lc.encoder_channels) - 1)):
+        shape = out_shape_strided(super_shape(cells, fold))
+        cap = lc.zfold_capacity[i + 1]
+        cuts.append((f'stage {i} stride-2 outputs', _downsample_keys(
+            coords, mask, shape, math.prod(shape))[2].sum(1), cap))
+        coords, _, mask = _downsample_keys(coords, mask, shape, cap)
+        cells = out_shape_strided(cells)
+        fold = min(lc.zfold, cells[2])
+    return cuts

@@ -157,17 +157,19 @@ class CrossModalLSS(nn.Module):
             keep = keep_mask((B * N,), cfg.depth_drop_rate, onehot.device)
             onehot = onehot * keep.view(B, N, 1, 1, 1).float()
         di = onehot.to(x.dtype).reshape(B * N, h, w, D).permute(0, 3, 1, 2)
-        img = x.reshape(B * N, h, w, -1).permute(0, 3, 1, 2)
+        img = x.reshape(B * N, h, w, x.shape[-1]).permute(0, 3, 1, 2)
         f_c = self.img_reduce_conv(img)
         f_d = self.depth_encoder(di)
         c2d, d2c = self.cross_model_fusion(f_c, f_d)
         fused = self.further_fuse(torch.cat([c2d, d2c], dim=1))
         depth_logits, feature, seg_out = self.depth_seg_net(
-            fused, mlp_input.reshape(B * N, -1))
+            fused, mlp_input.reshape(B * N, mlp_input.shape[-1]))
         depth = torch.softmax(depth_logits.float(), dim=1)  # (B*N, D, h, w)
-        feature = feature.permute(0, 2, 3, 1).reshape(B, N, h, w, -1)
+        feature = feature.permute(0, 2, 3, 1).reshape(B, N, h, w,
+                                                      feature.shape[1])
         voxel = bev_pool(depth.view(B, N, D, h, w), feature, pool_idx,
                          self.grid, out_dtype=pool_dtype or x.dtype)
         return (voxel,
                 depth.permute(0, 2, 3, 1).reshape(B, N, h, w, D),
-                seg_out.permute(0, 2, 3, 1).reshape(B, N, h, w, -1))
+                seg_out.permute(0, 2, 3, 1).reshape(B, N, h, w,
+                                                   seg_out.shape[1]))

@@ -217,9 +217,10 @@ class SwinTransformer(nn.Module):
                 else:
                     x = blk(x, hw, keep)
             if i == 0 and cfg.return_stereo_feat:
-                outs.append(x.view(B, *hw, -1))
+                outs.append(x.view(B, *hw, x.shape[-1]))
             if i in cfg.out_indices:
-                outs.append(getattr(self, f'norm{i}')(x).view(B, *hw, -1))
+                outs.append(getattr(self, f'norm{i}')(x).view(
+                    B, *hw, x.shape[-1]))
             if stage.downsample is not None:
                 x, hw = stage.downsample(x, hw)
         return outs

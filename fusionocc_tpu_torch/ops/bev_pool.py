@@ -205,7 +205,8 @@ def bev_pool_bwd(depth_flat: torch.Tensor, feat_flat: torch.Tensor,
     d_depth = torch.empty_like(d_sorted).index_put_((rd,), d_sorted)
     rows = feat_flat.shape[0]
     contrib = (depth_pts[:, None] * g_pts)[idx.order_by_feat.long()]
-    d_feat = contrib.reshape(rows, rd.numel() // rows, -1).sum(dim=1)
+    per_row = rd.numel() // rows if rows else 0     # D; no rows: no images
+    d_feat = contrib.reshape(rows, per_row, g.shape[1]).sum(dim=1)
     return d_depth.to(depth_flat.dtype), d_feat.to(feat_flat.dtype)
 
 

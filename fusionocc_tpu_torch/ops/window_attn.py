@@ -116,6 +116,8 @@ def window_attention_cuda(q, k, v, bias, nWh: int, nWw: int, w: int,
     if bias.shape != (heads, n, n) or bias.device != q.device:
         raise ValueError(f'bias must be ({heads}, {n}, {n}) on {q.device}')
     out = torch.empty((bn, n, c), dtype=q.dtype, device=q.device)
+    if bn == 0:         # a rank with no images (the hybrid mesh): no grid
+        return out
     with torch.cuda.device(q.device):
         KERNELS.launch(
             'window_attn_fwd', q.data_ptr(), k.data_ptr(), v.data_ptr(),

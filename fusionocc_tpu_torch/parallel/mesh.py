@@ -299,17 +299,12 @@ def draw_block(local: int) -> Tuple[int, int]:
     return rank() * local, local * world()
 
 
-def split(n: int, parts: int, what: str = 'axis') -> List[Tuple[int, int]]:
+def split(n: int, parts: int) -> List[Tuple[int, int]]:
     """XLA's blocks of an axis of length ``n`` over ``parts`` ranks: rows
-    [i*c, (i+1)*c) with c = ceil(n / parts), the last ones short.  A rank
-    left with none raises, naming the shapes."""
+    [i*c, (i+1)*c) with c = ceil(n / parts), the last ones short and, where
+    (parts - 1) * c >= n, empty (XLA pads them)."""
     c = -(-n // parts)
-    blocks = [(min(i * c, n), min((i + 1) * c, n)) for i in range(parts)]
-    for i, (a, b) in enumerate(blocks):
-        if a == b:
-            raise ValueError(f'{what}: {n} over {parts} ranks leaves rank {i} '
-                             f'none (blocks {blocks})')
-    return blocks
+    return [(min(i * c, n), min((i + 1) * c, n)) for i in range(parts)]
 
 
 def _via_host(device: torch.device, group) -> bool:
@@ -372,11 +367,11 @@ class HybridMesh:
 
     def image_block(self, n: int) -> Tuple[int, int]:
         """This rank's block of a data rank's ``n`` camera images."""
-        return split(n, self.n_spatial, 'camera images')[self.s]
+        return split(n, self.n_spatial)[self.s]
 
     def rows(self, n: int) -> List[Tuple[int, int]]:
         """Every spatial rank's block of ``n`` Y rows."""
-        return split(n, self.n_spatial, 'Y rows')
+        return split(n, self.n_spatial)
 
     def y_block(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's Y rows of ``x`` (axis ``dim``)."""
@@ -407,7 +402,7 @@ class HybridMesh:
         """The spatial ranks' blocks of an axis of length ``n`` (axis
         ``dim``), concatenated: every rank gets the whole.  Not
         differentiable (inference)."""
-        blocks = split(n, self.n_spatial, 'gathered axis')
+        blocks = split(n, self.n_spatial)
         a, b = blocks[self.s]
         if x.shape[dim] != b - a:
             raise ValueError(f'rank {self.s} holds {x.shape[dim]} of axis '
@@ -485,6 +480,8 @@ class HybridMesh:
         COLLECTIVES.rows[label] = COLLECTIVES.rows.get(label, 0) + rows
         parts = [x.narrow(dim, lo - a, hi - lo) if r == self.s else next(got)
                  for r, lo, hi in take]
+        if not parts:           # no rows needed here (an empty block)
+            return x.narrow(dim, 0, 0)
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
     def _exchange_back(self, g, dim, have, need, shape):

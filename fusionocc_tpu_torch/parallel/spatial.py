@@ -12,7 +12,10 @@ modules run their own weights on this rank's Y rows, written out:
   the conv's zero padding).  A 3x3x3 conv at stride 1 takes one row from
   each neighbour; a stride-2 conv takes what its output block reads, which
   with uneven blocks may be a row on one side only; a 1x1x1 conv takes
-  none;
+  none.  Where (ranks - 1) * ceil(n / ranks) >= n the last blocks are
+  empty (XLA pads them): such a rank sends nothing and no rank reads a
+  row from it, so no padded row passes through a layer; it still enters
+  every exchange and collective, in the same order as the others;
 - the FPN's trilinear upsample (``align_corners=True``) maps each output
   row to a global source position, i*(n_in-1)/(n_out-1): each rank
   gathers the source rows its output rows read, interpolates Z and X with
@@ -37,20 +40,29 @@ Y = 3       # the Y axis of an NCDHW volume
 def conv(m: HybridMesh, x: torch.Tensor, mod: torch.nn.Conv3d, n: int,
          name: str) -> Tuple[torch.Tensor, int]:
     """``mod`` (a Conv3d computing in the input's dtype) on this rank's
-    block of an axis of ``n`` rows: (output block, output length)."""
+    block of an axis of ``n`` rows: (output block, output length).  A rank
+    with no output rows reads none and returns an empty block, made by the
+    same ops as a full one, so that every rank's backward runs its
+    collectives in one order."""
     k, s, p = mod.kernel_size[1], mod.stride[1], mod.padding[1]
     n_out = (n + 2 * p - k) // s + 1
     have, out = m.rows(n), m.rows(n_out)
     reads = [(oa * s - p, (ob - 1) * s - p + k) for oa, ob in out]
-    need = [(max(lo, 0), min(hi, n)) for lo, hi in reads]
+    need = [(max(lo, 0), min(hi, n)) if ob > oa else (ha, ha)
+            for (lo, hi), (oa, ob), (ha, _) in zip(reads, out, have)]
     if need != have:
         x = m.exchange(x, Y, have, need, name)
-    lo, hi = reads[m.s]
-    x = F.pad(x, (0, 0, max(-lo, 0), max(hi - n, 0)))
+    oa, ob = out[m.s]
+    if oa == ob:    # no output rows: a conv of k zero rows, then none kept
+        x, pad = x.narrow(Y, 0, 0), (k, 0)
+    else:
+        lo, hi = reads[m.s]
+        pad = (max(-lo, 0), max(hi - n, 0))
+    x = F.pad(x, (0, 0) + pad)
     bias = None if mod.bias is None else mod.bias.to(x.dtype)
     y = F.conv3d(x, mod.weight.to(x.dtype), bias, mod.stride,
                  (mod.padding[0], 0, mod.padding[2]))
-    return y, n_out
+    return (y if ob > oa else y.narrow(Y, 0, 0)), n_out
 
 
 def conv_bn(m: HybridMesh, mod, x: torch.Tensor, n: int, name: str):
@@ -91,16 +103,19 @@ def upsample(m: HybridMesh, x: torch.Tensor, n: int, scale: int,
     n_out = n * scale
     step = torch.tensor((n - 1) / (n_out - 1) if n_out > 1 else 0.0,
                         dtype=torch.float32)
-    taps = []
+    have, taps = m.rows(n), []
     for oa, ob in m.rows(n_out):
         pos = torch.arange(oa, ob, dtype=torch.float32) * step
         h0 = pos.long()
         taps.append((h0, torch.clamp(h0 + 1, max=n - 1), pos - h0))
-    need = [(int(h0[0]), int(h1[-1]) + 1) for h0, h1, _ in taps]
-    if need != m.rows(n):
-        x = m.exchange(x, Y, m.rows(n), need, name)
+    need = [(int(h0[0]), int(h1[-1]) + 1) if len(h0) else (ha, ha)
+            for (h0, h1, _), (ha, _) in zip(taps, have)]
+    if need != have:
+        x = m.exchange(x, Y, have, need, name)
     h0, h1, lam = (t.to(x.device) for t in taps[m.s])
     lo = need[m.s][0]
+    if not len(h0):     # no output rows: one zero row, none selected
+        x, lo = F.pad(x.narrow(Y, 0, 0), (0, 0, 0, 1)), 0
     D, W = x.shape[2], x.shape[4]
     x = F.interpolate(x.float(), size=(D * scale, x.shape[Y], W * scale),
                       mode='trilinear', align_corners=True)

@@ -21,6 +21,7 @@ import pytest
 from fusionocc_tpu import config as jcfg
 from fusionocc_tpu.configs import get_config
 from fusionocc_tpu_torch import config as tcfg
+from torch_threads import ONE_THREAD, one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -130,6 +131,7 @@ def test_entry_points_default_to_the_card():
 def _run(code_or_args, cwd, env_extra=None):
     env = dict(os.environ)
     env['PYTHONPATH'] = REPO
+    env.update(ONE_THREAD)
     env.update(env_extra or {})
     return subprocess.run(code_or_args, cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=300)
@@ -163,7 +165,8 @@ def test_port_imports_no_jax():
         'tools.compute_metrics_torch, tools.bench_loader_torch, '
         'tools.burnin_torch, tools.analyze_logs_torch, '
         'tools.analyze_occ_gt_torch, tools.gen_seg_depth_torch, '
-        'tools.probe_torch_gloo\n'
+        'tools.probe_torch_gloo, fusionocc_tpu_torch.utils.flops, '
+        'tools.get_flops_torch, tools.density_sweep_torch\n'
         'bad = [m for m in sys.modules if m in ("jax", "flax", "fusionocc_tpu")'
         ' or m.startswith(("jax.", "flax.", "jaxlib", "fusionocc_tpu."))]\n'
         'print("BAD", bad)\n'

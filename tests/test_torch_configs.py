@@ -15,6 +15,7 @@ from fusionocc_tpu_torch import config as tcfg
 from fusionocc_tpu_torch import configs as tconfigs
 
 from test_configs import REFERENCE_FILE_TO_PRESET
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize('name', sorted(jconfigs.CONFIGS))

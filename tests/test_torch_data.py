@@ -37,21 +37,13 @@ from fusionocc_tpu_torch.data import dataset as tds
 from fusionocc_tpu_torch.data import masks as tmasks
 from fusionocc_tpu_torch.data import pipeline as tpl
 from fusionocc_tpu_torch.models.fusion_occ import Batch
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POSE_TOL = dict(rtol=1e-6, atol=1e-6)
 EXACT = ('imgs', 'segs', 'sparse_depth', 'points', 'points_mask',
          'voxel_semantics', 'mask_camera', 'bda', 'intrins', 'post_rots',
          'post_trans')
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """One torch thread: the suite runs several test processes at once."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

@@ -37,18 +37,10 @@ from fusionocc_tpu_torch.config import GridConfig as TGrid
 from fusionocc_tpu_torch.eval import calibration as tcal
 from fusionocc_tpu_torch.eval import metrics as tm
 from fusionocc_tpu_torch.eval import ray_metrics as tray
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 GRID = dict(x=(-40.0, 40.0, 4.0), y=(-40.0, 40.0, 4.0), z=(-1.0, 5.4, 0.8),
             depth=(1.0, 45.0, 0.5))
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """One torch thread: the suite runs several test processes at once."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _occ(seed, shape, free=0.7):

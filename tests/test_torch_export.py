@@ -36,15 +36,7 @@ from fusionocc_tpu_torch.ops import voxelize  # noqa: E402
 from fusionocc_tpu_torch.ops import window_attn as wa  # noqa: E402
 from fusionocc_tpu_torch.ops import zwin_conv as zw  # noqa: E402
 from tools import export_torch as et  # noqa: E402
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """One torch thread: the suite runs several test processes at once."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _tiny(**lidar):

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from fusionocc_tpu.config import GridConfig, ViewTransformerConfig
 from fusionocc_tpu.train import torch_import as ti
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 class TorchBasicBlock(nn.Module):

@@ -2,8 +2,9 @@
 
 ``parallel.mesh.hybrid_mesh(n_data, n_spatial)`` with
 ``FusionOcc(cfg, mesh=)``, the tiny config, fp32.  Two spawns
-(``torch_parallel_ranks.hybrid_checks``): 4 ranks at (2, 2) and 2 ranks at
-(1, 2), each running every check of this file in turn.  At 2 spatial ranks
+(``torch_parallel_ranks.hybrid_checks``): 4 ranks at (2, 2), 2 ranks at
+(1, 2) and 4 ranks at (1, 4), each running every check of this file in
+turn.  At 2 spatial ranks
 the tiny trunk's Y levels 20, 10 and 5 split 10 + 10, 5 + 5 and 3 + 2: the
 last level is uneven at both meshes.
 
@@ -39,7 +40,18 @@ last level is uneven at both meshes.
     draw on, against one process at batch 2 by phase 9's noise rule
     (``test_torch_parallel.assert_takes_the_step``), the 4 ranks
     bit-identical after it.
-(g) A block with no rows raises, naming the shapes.
+(g) XLA's blocks where the last ones are empty (5 rows over 4 ranks, 6
+    cameras over 4 and 5, 50 rows over 11), and a 3x3x3 conv at stride 1
+    and 2 and the FPN's upsample, each rank's block of them computed in
+    one process with the rows it reads, against the whole volume's.
+(i) The hybrid mesh at (1, 4) on a batch of 1, which JAX runs (XLA pads
+    the empty blocks): the tiny model's 2 cameras leave ranks 2 and 3
+    none, and its last Y level of 5 rows leaves rank 3 none.  The
+    image-only forward against JAX's under its (1, 4) mesh within 5e-3 and
+    the port's one process within 1e-4; the multi-modal two-pass and
+    ``batch_frames`` forwards and ``predict`` against one process as in
+    (b); one train step, draws on, against one process by (f)'s rule, the
+    4 ranks bit-identical.
 (h) ``OccupancyMetric(grid=, mesh=)`` at (2, 2): each rank updates with
     its data rank's samples of one process's predictions and takes its Y
     rows; the matrix summed over the 4 ranks and ``compute()`` (buckets
@@ -61,9 +73,10 @@ from fusionocc_tpu_torch import config as tcfg
 from fusionocc_tpu_torch.data.synthetic import synthetic_batch
 from fusionocc_tpu_torch.eval.metrics import OccupancyMetric
 from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc, init_weights,
-                                                   spread_weights,
+                                                   map_batch, spread_weights,
                                                    stack_batches)
-from fusionocc_tpu_torch.parallel import mesh
+from fusionocc_tpu_torch.ops.grid_sample import resize_trilinear
+from fusionocc_tpu_torch.parallel import mesh, spatial
 from fusionocc_tpu_torch.weights import state_dict_from_flax
 
 import test_torch_parallel as ttp
@@ -71,6 +84,7 @@ import torch_parallel_ranks as tpr
 from test_torch_lidar_model import _snap
 from test_torch_slice import _init_fn
 from test_torch_streaming import spread_variables, to_jax
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 JAX_TOL = dict(rtol=5e-3, atol=5e-3)    # tests/test_sharding.py:44
 ONE_TOL = dict(rtol=1e-4, atol=1e-4)    # fp32 sums in another order
@@ -78,14 +92,6 @@ STATE_TOL = dict(rtol=5e-3, atol=5e-3)  # tests/test_sharding.py:168-169
 MIN_AGREE = 0.999
 MESHES = {'2x2': (2, 2), '1x2': (1, 2)}
 B = 2
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def multimodal_config():
@@ -110,20 +116,27 @@ def image_only_inputs(tmp):
     model = FusionOcc(tc, device='cpu')
     model.load_state_dict(state_dict_from_flax(
         variables['params'], variables['batch_stats'], tc), strict=True)
-    jmesh = j_hybrid_mesh(2, 2)
-    repl, dsh = NamedSharding(jmesh, P()), NamedSharding(jmesh, P('data'))
-    jbatch = jax.tree_util.tree_map(lambda x: jax.device_put(x, dsh),
-                                    to_jax(batch))
-    sharded = JFusionOcc(jc, mesh=jmesh)
-    jax_logits = np.asarray(jax.jit(
-        lambda v, b: sharded.apply(v, b, train=False)['occ_logits'],
-        in_shardings=(repl, dsh))(jax.device_put(variables, repl), jbatch))
-    with torch.inference_mode():
-        one = model(batch)['occ_logits']
-    path = os.path.join(tmp, 'image_only.pt')
-    torch.save({'model': model.state_dict(), 'config': tc, 'batch': batch},
-               path)
-    return path, {'jax': jax_logits, 'one': one}
+    first = map_batch(lambda a: a[:1], batch)
+    ref = {}
+    for name, (nd, ns), b in (('2x2', (2, 2), batch), ('1x4', (1, 4), first)):
+        jmesh = j_hybrid_mesh(nd, ns)
+        repl = NamedSharding(jmesh, P())
+        dsh = NamedSharding(jmesh, P('data'))
+        jbatch = jax.tree_util.tree_map(lambda x: jax.device_put(x, dsh),
+                                        to_jax(b))
+        sharded = JFusionOcc(jc, mesh=jmesh)
+        with torch.inference_mode():
+            one = model(b)['occ_logits']
+        ref[name] = {'jax': np.asarray(jax.jit(
+            lambda v, b: sharded.apply(v, b, train=False)['occ_logits'],
+            in_shardings=(repl, dsh))(jax.device_put(variables, repl),
+                                      jbatch)), 'one': one}
+    paths = {}
+    for name, b in (('2x2', batch), ('1x4', first)):
+        paths[name] = os.path.join(tmp, f'image_only_{name}.pt')
+        torch.save({'model': model.state_dict(), 'config': tc, 'batch': b},
+                   paths[name])
+    return paths, ref
 
 
 def multimodal_inputs(tmp):
@@ -154,23 +167,30 @@ def multimodal_inputs(tmp):
     torch.save({'model': model.state_dict(), 'config': cfg, 'batch': batch,
                 'frames': frames, 'resets': resets,
                 'pred': one['predict']}, path)
-    return path, one
+    first = map_batch(lambda a: a[:1], batch)
+    with torch.inference_mode():
+        one['1x4'] = {'two_pass': model(first),
+                      'batch_frames': model(first, batch_frames=True)}
+    path14 = os.path.join(tmp, 'multimodal_1x4.pt')
+    torch.save({'model': model.state_dict(), 'config': cfg, 'batch': first},
+               path14)
+    return path, path14, one
 
 
-def train_inputs(tmp):
+def train_inputs(tmp, batch_size: int = B, tag: str = 'train'):
     """(f): the draws config's start and one process's step from it, as it
     is and moved twice (``test_torch_parallel``'s noise rule)."""
     tc = ttp.draws_config(1)
     model = init_weights(FusionOcc(tc.model, device='cpu'),
                          torch.Generator().manual_seed(0))
     saved = {'model': model.state_dict(),
-             'batch': synthetic_batch(tc.model, B, 0, device='cpu')}
-    path = os.path.join(tmp, 'train.pt')
+             'batch': synthetic_batch(tc.model, batch_size, 0, device='cpu')}
+    path = os.path.join(tmp, f'{tag}.pt')
     torch.save(saved, path)
     imgs = saved['batch'].imgs
     moved = imgs * (1 + ttp.NOISE * torch.randn(
         imgs.shape, generator=torch.Generator().manual_seed(5)))
-    paths = [path] + [ttp._perturbed(tmp, f'train_{w}', saved, moved, w)
+    paths = [path] + [ttp._perturbed(tmp, f'{tag}_{w}', saved, moved, w)
                       for w in (False, True)]
     return tc, path, [[tpr.train_run(0, 1, tc, p, 1) for p in paths]]
 
@@ -178,19 +198,26 @@ def train_inputs(tmp):
 @pytest.fixture(scope='module')
 def runs(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp('hybrid'))
-    img_path, img_ref = image_only_inputs(tmp)
-    mm_path, mm_ref = multimodal_inputs(tmp)
+    img_paths, img_ref = image_only_inputs(tmp)
+    mm_path, mm14_path, mm_ref = multimodal_inputs(tmp)
     tc, train_path, train_refs = train_inputs(tmp)
+    _, train14_path, train14_refs = train_inputs(tmp, 1, 'train_1x4')
     square = tpr.spawn(tpr.hybrid_checks, 4, os.path.join(tmp, 'r22'), 2, [
-        (img_path, ['forward']),
+        (img_paths['2x2'], ['forward']),
         (mm_path, ['forward', 'stream', 'halo', 'metric']),
         (None, [('train', tc, train_path, 1)])])
     row = tpr.spawn(tpr.hybrid_checks, 2, os.path.join(tmp, 'r12'), 2, [
         (mm_path, ['forward', 'halo'])])
-    return {'img': (img_ref, [r[0] for r in square]),
-            'mm': {'2x2': [r[1] for r in square], '1x2': [r[0] for r in row]},
+    quad = tpr.spawn(tpr.hybrid_checks, 4, os.path.join(tmp, 'r14'), 4, [
+        (img_paths['1x4'], ['forward']), (mm14_path, ['forward']),
+        (None, [('train', tc, train14_path, 1)])])
+    return {'img': (img_ref['2x2'], [r[0] for r in square]),
+            'img14': (img_ref['1x4'], [r[0] for r in quad]),
+            'mm': {'2x2': [r[1] for r in square], '1x2': [r[0] for r in row],
+                   '1x4': [r[1] for r in quad]},
             'mm_ref': mm_ref,
-            'train': (tc, train_refs, [r[2]['train'] for r in square])}
+            'train': (tc, train_refs, [r[2]['train'] for r in square]),
+            'train14': (tc, train14_refs, [r[2]['train'] for r in quad])}
 
 
 def rows_of(ranks, n_data):
@@ -207,6 +234,41 @@ def test_forward_matches_jax_hybrid_mesh(runs):
         got = r['forward']['two_pass']['occ_logits'].numpy()
         np.testing.assert_allclose(got, ref['jax'][rows], **JAX_TOL)
         np.testing.assert_allclose(got, ref['one'][rows].numpy(), **ONE_TOL)
+
+
+def test_forward_matches_jax_hybrid_mesh_1x4(runs):
+    """(i): every rank returns the whole batch's logits."""
+    ref, ranks = runs['img14']
+    assert [r['coords'] for r in ranks] == [(0, s) for s in range(4)]
+    for r in ranks:
+        got = r['forward']['two_pass']['occ_logits'].numpy()
+        np.testing.assert_allclose(got, ref['jax'], **JAX_TOL)
+        np.testing.assert_allclose(got, ref['one'].numpy(), **ONE_TOL)
+
+
+@pytest.mark.parametrize('mode', ['two_pass', 'batch_frames'])
+def test_forward_1x4_matches_one_process(runs, mode):
+    """(i): the multi-modal model on a batch of 1; ranks 2 and 3 hold no
+    camera, rank 3 no row of the last Y level."""
+    ranks, ref = runs['mm']['1x4'], runs['mm_ref']
+    want = ref['1x4'][mode]
+    for r in ranks:
+        for key, w in want.items():
+            np.testing.assert_allclose(r['forward'][mode][key].numpy(),
+                                       w.numpy(), err_msg=key, **ONE_TOL)
+        agree = (r['forward']['predict'] == ref['1x4']['two_pass'][
+            'occ_logits'].argmax(-1)).float().mean().item()
+        assert agree >= MIN_AGREE, agree
+        assert torch.equal(r['forward']['own_index'], r['forward']['predict'])
+        assert 'build it with the mesh' in r['forward']['refused']
+        assert r['forward']['counts']['calls']['pool'] == 2
+
+
+def test_train_step_1x4_matches_one_process(runs):
+    """(i)"""
+    tc, refs, ranks = runs['train14']
+    ttp.assert_ranks_identical(ranks)
+    ttp.assert_takes_the_step(tc, refs, ranks[0])
 
 
 @pytest.mark.parametrize('mesh_name', list(MESHES))
@@ -341,7 +403,51 @@ def test_train_step_matches_one_process(runs):
 
 
 def test_a_block_without_rows_raises():
-    """(g): 5 rows over 4 ranks leave the last none."""
+    """(g): the shapes that left a rank no block run.  XLA's blocks of 5
+    rows over 4 ranks, 6 cameras over 4 and 5 and 50 rows over 11 end in
+    empty ones; a conv and the upsample computed block by block, each rank
+    reading the rows it needs, equal the whole volume's."""
     assert mesh.split(5, 2) == [(0, 3), (3, 5)]
-    with pytest.raises(ValueError, match='5 over 4 ranks leaves rank 3 none'):
-        mesh.split(5, 4, 'Y rows')
+    assert mesh.split(5, 4) == [(0, 2), (2, 4), (4, 5), (5, 5)]
+    assert mesh.split(6, 4) == [(0, 2), (2, 4), (4, 6), (6, 6)]
+    assert mesh.split(6, 5) == [(0, 2), (2, 4), (4, 6), (6, 6), (6, 6)]
+    assert mesh.split(50, 11)[-1] == (50, 50)
+    g = torch.Generator().manual_seed(0)
+    for n, ranks in ((5, 4), (10, 4), (50, 11)):
+        vol = torch.randn(1, 3, 2, n, 4, generator=g, dtype=torch.float64)
+        for stride in (1, 2):
+            mod = torch.nn.Conv3d(3, 2, 3, stride, 1).double()
+            want = mod(vol)
+            got = [spatial.conv(RankView(ranks, s, vol), block(vol, ranks, s),
+                                mod, n, 'conv')[0] for s in range(ranks)]
+            torch.testing.assert_close(torch.cat(got, 3), want, rtol=0,
+                                       atol=1e-12)
+        want = resize_trilinear(vol.float(), 2)
+        got = [spatial.upsample(RankView(ranks, s, vol),
+                                block(vol, ranks, s), n, 2, 'up')
+               for s in range(ranks)]
+        torch.testing.assert_close(torch.cat(got, 3), want,
+                                   rtol=0, atol=1e-6)
+
+
+def block(vol, ranks: int, s: int):
+    """Rank ``s``'s Y rows of ``vol`` (NCDHW)."""
+    a, b = mesh.split(vol.shape[3], ranks)[s]
+    return vol[:, :, :, a:b]
+
+
+class RankView:
+    """Spatial rank ``s`` of ``n_spatial`` in one process: its exchange
+    reads the rows it needs from the whole volume ``vol`` (NCDHW) of the
+    level it holds, so a layer's block computation runs without a group."""
+
+    def __init__(self, n_spatial: int, s: int, vol):
+        self.n_spatial, self.s, self.vol = n_spatial, s, vol
+
+    def rows(self, n: int):
+        return mesh.split(n, self.n_spatial)
+
+    def exchange(self, x, dim, have, need, label):
+        assert have == self.rows(self.vol.shape[dim])
+        lo, hi = need[self.s]
+        return self.vol.narrow(dim, lo, hi - lo)

@@ -12,6 +12,7 @@ from fusionocc_tpu.config import tiny_model_config
 from fusionocc_tpu.data.synthetic import synthetic_batch
 from fusionocc_tpu.models.fusion_occ import FusionOcc
 from fusionocc_tpu.train import torch_import as ti
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope='module')

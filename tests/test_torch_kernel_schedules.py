@@ -58,6 +58,7 @@ if REPO not in sys.path:
 
 from chip_smoke import POOL_BF16_TOL, WA_TOL  # noqa: E402
 from tools import profile_torch_zwin_micro as micro  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ROWS = 32
 

@@ -29,6 +29,7 @@ from fusionocc_tpu_torch.ops import voxelize as tvox
 from fusionocc_tpu_torch.ops import zfold as tzf
 
 from test_torch_lidar_ops import _same_nbr, _snap, _t
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ZFOLD_CAPACITY = (400, 260, 80, 30)      # the first sample overflows each
 

@@ -44,6 +44,7 @@ from fusionocc_tpu_torch.models.lidar_encoder import SparseEncoder
 from fusionocc_tpu_torch.weights import flatten_tree, state_dict_from_flax
 
 from test_torch_slice import _init_fn, random_variables
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ENC_TOL = dict(rtol=1e-4, atol=1e-4)
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)

@@ -44,6 +44,7 @@ from fusionocc_tpu_torch.ops import zfold as tzf
 from fusionocc_tpu_torch.ops import zwin_conv as tzw
 
 from test_sparse_conv import _random_sparse
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -27,6 +27,7 @@ from fusionocc_tpu_torch.ops.bev_pool import prepare_pooling_index
 from fusionocc_tpu_torch.weights import lss_base_rules, state_dict_from_rules
 
 from test_torch_slice import random_variables
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRID = dict(x=(-4, 4, 1.0), y=(-4, 4, 1.0), z=(-1, 3, 1.0),

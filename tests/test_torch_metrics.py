@@ -18,6 +18,7 @@ import torch
 
 from fusionocc_tpu.eval import metrics as jm
 from fusionocc_tpu_torch.eval import metrics as tm
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPE = (2, 20, 20, 4)

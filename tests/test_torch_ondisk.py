@@ -30,18 +30,10 @@ from fusionocc_tpu_torch.models.fusion_occ import FusionOcc
 from fusionocc_tpu_torch.weights import state_dict_from_flax
 
 from test_torch_slice import _init_fn, random_variables
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """One torch thread: the suite runs several test processes at once."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _zfold(mod):

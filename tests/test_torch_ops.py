@@ -56,6 +56,7 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 from chip_smoke import embedding_bag_pool  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _t(x):

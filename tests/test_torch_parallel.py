@@ -64,6 +64,7 @@ from fusionocc_tpu_torch.train import loop, losses
 import test_torch_train_step as tts
 import torch_parallel_ranks as tpr
 from test_torch_train_layers import _jax_train, _stats
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 WORLD = 2
 NOISE, SPREAD = 1e-6, 3.0
@@ -73,15 +74,6 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 SUM_RTOL = 1e-6
 GRID = dict(x=(-40.0, 40.0, 4.0), y=(-40.0, 40.0, 4.0), z=(-1.0, 5.4, 0.8),
             depth=(1.0, 45.0, 0.5))
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """One torch thread: the suite runs several test processes at once."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def draws_config(accumulate: int):

@@ -29,6 +29,7 @@ from fusionocc_tpu import config as jcfg
 from fusionocc_tpu.data import dataset as jds
 from fusionocc_tpu_torch import config as tcfg
 from fusionocc_tpu_torch.data import dataset as tds
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOL = os.path.join(REPO, 'tools', 'train_torch.py')

@@ -42,6 +42,7 @@ from fusionocc_tpu_torch.weights import (flatten_tree, slice_rules,
                                          state_dict_from_flax)
 
 from test_torch_slice import _init_fn, random_variables
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LIDAR = dict(backend='zfold', zconv='zband')
 

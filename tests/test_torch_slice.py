@@ -31,6 +31,7 @@ from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc,
                                                    batch_pooling_indices)
 from fusionocc_tpu_torch.weights import (flatten_tree, slice_rules,
                                          state_dict_from_flax)
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 DEPTH_TOL = dict(rtol=1e-5, atol=1e-5)

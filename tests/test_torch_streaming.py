@@ -51,6 +51,7 @@ from fusionocc_tpu_torch.weights import flatten_tree, state_dict_from_flax
 
 from test_torch_lidar_model import _snap
 from test_torch_slice import _init_fn, random_variables, unflatten_tree
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 STATE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -118,17 +119,6 @@ class Pair:
     def j_init_state(self):
         return self.jmodel.apply(self.variables, 1,
                                  method=JFusionOcc.init_streaming_state)
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """The port's tiny models on one thread: the suite runs several test
-    processes at once, and each torch process would otherwise start a
-    thread per core."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')

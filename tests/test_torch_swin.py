@@ -25,6 +25,7 @@ from fusionocc_tpu_torch.nn.swin import SwinTransformer
 from fusionocc_tpu_torch.weights import state_dict_from_flax
 
 from test_torch_slice import random_variables
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize('preset,hw,fused', [

@@ -21,17 +21,9 @@ import sys
 import numpy as np
 import pytest
 import torch
+from torch_threads import ONE_THREAD, one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """One torch thread: the suite runs several test processes at once."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')
@@ -65,7 +57,7 @@ def jax_keys(tree):
          '--ann-file', ann, '--img-seg-dir', seg, '--tiny', '--buckets',
          '--rayiou', '--max-samples', '2', '--warmup', '0'],
         capture_output=True, text=True, timeout=600, cwd=REPO,
-        env=dict(os.environ, JAX_PLATFORMS='cpu'))
+        env=dict(os.environ, JAX_PLATFORMS='cpu', **ONE_THREAD))
     assert proc.returncode == 0, proc.stderr[-2000:]
     return list(_lines(proc.stdout)[1])
 

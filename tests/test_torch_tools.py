@@ -22,6 +22,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import ONE_THREAD, one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,7 +32,7 @@ def run_tool(name: str, *args: str) -> str:
     out = subprocess.run(
         [sys.executable, os.path.join(REPO, 'tools', f'{name}.py'), *args],
         capture_output=True, text=True, timeout=300, cwd=REPO,
-        env={**os.environ, 'JAX_PLATFORMS': 'cpu'})
+        env={**os.environ, 'JAX_PLATFORMS': 'cpu', **ONE_THREAD})
     assert out.returncode == 0, out.stderr[-2000:]
     return out.stdout
 

@@ -35,6 +35,7 @@ from fusionocc_tpu_torch.models.lss import CrossModalLSS
 from fusionocc_tpu_torch.nn import layers
 from fusionocc_tpu_torch.nn.swin import SwinTransformer
 from fusionocc_tpu_torch.train import loop
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -52,6 +52,7 @@ from fusionocc_tpu_torch.models.fusion_occ import Batch, FusionOcc, init_weights
 from fusionocc_tpu_torch.nn import layers
 from fusionocc_tpu_torch.train import checkpoint as ckpt
 from fusionocc_tpu_torch.train import losses, loop
+from torch_threads import ONE_THREAD, one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_TOL = dict(rtol=1e-5, atol=1e-7)
@@ -312,8 +313,9 @@ def test_train_tool_runs_on_cpu(tmp_path):
     cmd = [sys.executable, os.path.join(REPO, 'tools', 'train_torch.py'),
            '--tiny', '--synthetic', '--steps', '2', '--device', 'cpu',
            '--log-interval', '1', '--work-dir', str(tmp_path)]
+    env = dict(os.environ, **ONE_THREAD)
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
-                         cwd=REPO)
+                         cwd=REPO, env=env)
     assert out.returncode == 0, out.stderr[-2000:]
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith('step ')]
     assert [ln.split()[1] for ln in lines] == ['1/2', '2/2']
@@ -324,7 +326,7 @@ def test_train_tool_runs_on_cpu(tmp_path):
         assert all(np.isfinite(float(v)) for v in vals.values())
     assert os.path.isfile(tmp_path / 'step_2' / ckpt.STATE_FILE)
     real = subprocess.run(cmd[:2] + ['--tiny'], capture_output=True,
-                          text=True, timeout=300, cwd=REPO)
+                          text=True, timeout=300, cwd=REPO, env=env)
     assert real.returncode != 0 and '--ann-file' in real.stderr
 
 

@@ -51,6 +51,7 @@ from fusionocc_tpu_torch.weights import state_dict_from_flax
 from test_sparse_conv import _random_sparse
 from test_torch_lidar_ops import ZWIN_CASES
 from test_torch_ops import _random_pool_problem
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -58,6 +58,7 @@ from fusionocc_tpu_torch.train import loop
 from fusionocc_tpu_torch.weights import state_dict_from_flax
 
 from test_torch_slice import _init_fn, random_variables
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 LIDAR = dict(backend='zfold', zconv='zband')
 OPTIM = dict(lr=3e-3)

@@ -18,6 +18,7 @@ import torch
 
 from fusionocc_tpu.utils import visualization as jvis
 from fusionocc_tpu_torch.utils import visualization as tvis
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

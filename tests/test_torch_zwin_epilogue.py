@@ -47,6 +47,7 @@ from test_sparse_conv import _random_sparse
 from test_torch_lidar_model import ENC_TOL, _snap
 from test_torch_lidar_ops import ZWIN_CASES, _t
 from test_torch_slice import random_variables
+from torch_threads import one_torch_thread  # noqa: E402,F401
 
 EPI_TOL = {'float32': dict(atol=1e-5, rtol=1e-4),
            'bfloat16': dict(atol=1e-5, rtol=2 ** -7)}
