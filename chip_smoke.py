@@ -7,26 +7,31 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. device: the card (nvidia-smi name and power limit), CUDA and nvcc
    versions, TF32 switched off for matmuls and cuDNN.
 2. build: compiles ``fusionocc_tpu_torch/csrc/*.cu`` with nvcc, one process
-   per source, all started together (timed), prints ptxas's registers and
-   spills, and counts the tensor-core instructions (``HMMA``/``HGMMA``) of
-   every kernel body in the library with ``cuobjdump --dump-sass``: the bf16
-   bodies of K2 and K3 (K3's with the fused epilogue too) must have some.
+   per source, all started together (timed), prints ptxas's registers,
+   spills and wgmma serialization notes, and counts per kernel body in the
+   library, with ``cuobjdump --dump-sass``, Hopper's warpgroup products
+   (``HGMMA``), the sm_80 tensor-core products (``HMMA``), TMA loads
+   (``UTMALDG``) and cp.async (``LDGSTS``): the bf16 bodies of K2 and K3
+   (K3's with the fused epilogue too) must have HGMMA and UTMALDG.
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    full-size main path gives it, with errors, tolerances, times and bounds:
    window attention (K2) at the four Swin-B stage shapes, shift 0 and 6,
-   bf16 (tensor cores), beside ``scaled_dot_product_attention`` on the same
+   bf16 (tensor cores), two launches bit-identical, each shape's share of
+   its bound, and the time and bound per two-pass predict weighted by each
+   shape's launches, beside ``scaled_dot_product_attention`` on the same
    inputs (each backend that takes them, the fastest reported as the library
    time); frustum pooling (K1) on the full-size pooling index of the
    synthetic rig, bf16 features to bf16 voxels (the main path) and fp32 to
    fp32, two launches bit-identical, beside ``embedding_bag`` on the same
    inputs and the kernel on an index with no in-grid point (the zero-fill
    alone); the zwin sparse conv (K3) at the 9 launches of the
-   full-size LiDAR encoder, bf16 (tensor cores), with the inputs that the
-   port's encoder (seeded random weights) gives it on the full-size
-   synthetic cloud; K3 with its fused eval epilogue (``zwin_conv_fwd_epi``,
-   ``zwin_fuse=True``) at the same 9 launches of an encoder whose
-   BatchNorms are away from the identity, bf16 and fp32, each launch timed
-   beside the unfused chain it replaces (K3, MaskedBatchNorm, ReLU); then
+   full-size LiDAR encoder, bf16 (tensor cores), two launches
+   bit-identical, with the inputs that the port's encoder (seeded random
+   weights) gives it on the full-size synthetic cloud; K3 with its fused
+   eval epilogue (``zwin_conv_fwd_epi``, ``zwin_fuse=True``) at the same 9
+   launches of an encoder whose BatchNorms are away from the identity, bf16
+   and fp32, each launch timed beside the unfused chain it replaces (K3,
+   MaskedBatchNorm, ReLU), which it must beat over the 9; then
    K3's microbenchmark (``tools/profile_torch_zwin_micro.py``) once at
    stage 1's SubM launch; then both bf16 bodies at small shapes the main
    path does not give them (K2 with N = 49 and 100, padded to 144; K3,
@@ -238,28 +243,35 @@ MAIN_KERNELS = ('window_attn_fwd', 'bev_pool_fwd', 'zwin_conv_fwd',
 # where an encoder pass may wait for the card: voxelize, regroup, each
 # sparse stage's table build (3), densify
 SYNC_SITES = 6
-# mangled-name part of each kernel body -> (C entry, body); the bodies that
-# must use the tensor cores are marked True
+# a pattern of each kernel body's mangled name -> (C entry, body, whether
+# it must run on Hopper's tensor cores and load by TMA); the zwin bodies are
+# instantiated per n8 tile count of the Cout part
 KERNEL_BODIES = {
-    'window_attn_mma_kernel': ('window_attn_fwd', 'bf16', True),
-    'window_attn_fp32_kernel': ('window_attn_fwd', 'fp32', False),
-    'zwin_conv_mma_kernelILb0ELb0E': ('zwin_conv_fwd', 'bf16', True),
-    'zwin_conv_mma_kernelILb1ELb0E': ('zwin_conv_null', 'bf16, no products',
+    r'window_attn_wgmma_kernelILb\dE': ('window_attn_fwd', 'bf16', True),
+    r'window_attn_fp32_kernel': ('window_attn_fwd', 'fp32', False),
+    r'zwin_conv_wgmma_kernelILi\dELi\dELb0ELb0E': ('zwin_conv_fwd', 'bf16',
+                                                   True),
+    r'zwin_conv_wgmma_kernelILi\dELi\dELb1ELb0E': ('zwin_conv_null',
+                                                   'bf16, no products',
+                                                   False),
+    r'zwin_conv_wgmma_kernelILi\dELi\dELb0ELb1E': ('zwin_conv_fwd_epi',
+                                                   'bf16, fused epilogue',
+                                                   True),
+    r'zwin_conv_fp32_kernelILb0E': ('zwin_conv_fwd', 'fp32', False),
+    r'zwin_conv_fp32_kernelILb1E': ('zwin_conv_fwd_epi',
+                                    'fp32, fused epilogue', False),
+    r'bev_pool_fwd_kernelILb1ELb1E': ('bev_pool_fwd', 'bf16 feat, bf16 out',
                                       False),
-    'zwin_conv_mma_kernelILb0ELb1E': ('zwin_conv_fwd_epi',
-                                      'bf16, fused epilogue', True),
-    'zwin_conv_fp32_kernelILb0E': ('zwin_conv_fwd', 'fp32', False),
-    'zwin_conv_fp32_kernelILb1E': ('zwin_conv_fwd_epi',
-                                   'fp32, fused epilogue', False),
-    'bev_pool_fwd_kernelILb1ELb1E': ('bev_pool_fwd', 'bf16 feat, bf16 out',
-                                     False),
-    'bev_pool_fwd_kernelILb1ELb0E': ('bev_pool_fwd', 'bf16 feat, fp32 out',
-                                     False),
-    'bev_pool_fwd_kernelILb0ELb1E': ('bev_pool_fwd', 'fp32 feat, bf16 out',
-                                     False),
-    'bev_pool_fwd_kernelILb0ELb0E': ('bev_pool_fwd', 'fp32 feat, fp32 out',
-                                     False),
+    r'bev_pool_fwd_kernelILb1ELb0E': ('bev_pool_fwd', 'bf16 feat, fp32 out',
+                                      False),
+    r'bev_pool_fwd_kernelILb0ELb1E': ('bev_pool_fwd', 'fp32 feat, bf16 out',
+                                      False),
+    r'bev_pool_fwd_kernelILb0ELb0E': ('bev_pool_fwd', 'fp32 feat, fp32 out',
+                                      False),
 }
+# SASS opcodes counted per body: Hopper's warpgroup products, the sm_80
+# tensor-core products, TMA loads, cp.async
+SASS_OPS = ('HGMMA', 'HMMA', 'UTMALDG', 'LDGSTS')
 
 
 def fail(msg: str) -> None:
@@ -360,9 +372,10 @@ def phase_device() -> str:
     return card
 
 
-def sass_mma_counts(lib) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) per kernel function of the
-    built library, from ``cuobjdump --dump-sass``."""
+def sass_counts(lib) -> dict:
+    """Per kernel function of the built library, the count of each opcode
+    of SASS_OPS, from ``cuobjdump --dump-sass``."""
+    import re
     from pathlib import Path
     from fusionocc_tpu_torch.ops.kernels import find_nvcc
     cuobjdump = Path(find_nvcc()).with_name('cuobjdump')
@@ -373,13 +386,16 @@ def sass_mma_counts(lib) -> dict:
     for line in sass.splitlines():
         if 'Function :' in line:
             name = line.split('Function :', 1)[1].strip()
-            counts[name] = 0
-        elif name is not None and ('HMMA' in line or 'HGMMA' in line):
-            counts[name] += 1
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name is not None:
+            m = re.search(r'\b(' + '|'.join(SASS_OPS) + r')\b', line)
+            if m:
+                counts[name][m.group(1)] += 1
     return counts
 
 
 def phase_build() -> None:
+    import re
     from fusionocc_tpu_torch.ops.kernels import KERNELS
     t0 = time.perf_counter()
     path = KERNELS.build()
@@ -389,19 +405,23 @@ def phase_build() -> None:
            else 'found built')
     print(f'[2/12] build: {how} {path.name} in {took:.1f} s')
     for line in KERNELS.build_log.splitlines():
-        if 'Used' in line or 'Compiling entry' in line or 'spill' in line:
+        if ('Used' in line or 'Compiling entry' in line or 'spill' in line
+                or 'Performance Loss' in line):
             print('  ptxas' + line.split('ptxas', 1)[-1])
-    counts = sass_mma_counts(path)
-    print('  tensor-core instructions (HMMA/HGMMA) per kernel body, '
-          'cuobjdump --dump-sass:')
-    for key, (entry, body, needs_mma) in KERNEL_BODIES.items():
-        found = [n for n in counts if key in n]
+    counts = sass_counts(path)
+    print('  per kernel body, cuobjdump --dump-sass: '
+          + ', '.join(SASS_OPS) + ' (summed over instantiations)')
+    for key, (entry, body, hopper) in KERNEL_BODIES.items():
+        found = [n for n in counts if re.search(key, n)]
         if not found:
             fail(f'kernel body {key} ({entry}) not in the library')
-        mma = sum(counts[n] for n in found)
-        print(f'    {entry} {body} ({key}): {mma}', flush=True)
-        if needs_mma and mma == 0:
-            fail(f'the {body} body of {entry} has no tensor-core instruction')
+        total = {op: sum(counts[n][op] for n in found) for op in SASS_OPS}
+        print(f'    {entry} {body} ({key}, {len(found)} instantiations): '
+              + ', '.join(f'{op} {total[op]}' for op in SASS_OPS),
+              flush=True)
+        if hopper and (total['HGMMA'] == 0 or total['UTMALDG'] == 0):
+            fail(f'the {body} body of {entry} has no wgmma (HGMMA) or no '
+                 'TMA load (UTMALDG)')
     sys.stdout.flush()
 
 
@@ -460,12 +480,19 @@ def sdpa_times(q, k, v, bias, nWh, nWw, w, shift, heads, want):
 
 
 def check_window_attn(cfg, g) -> dict:
-    """K2 at the 8 stage/shift shapes, beside SDPA on the same inputs."""
+    """K2 at the 8 stage/shift shapes, beside SDPA on the same inputs; two
+    launches bit-identical; each shape's share of its bound, and the time
+    and bound per two-pass predict weighted by the launches of each
+    shape."""
     from fusionocc_tpu_torch.ops import window_attn as wa
     w = cfg.swin.window_size
     n = w * w
     err, ms, plain_ms, lib_ms, bound = 0.0, 0.0, 0.0, 0.0, Bound()
-    for nWh, nWw, c, heads in stage_shapes(cfg):
+    predict_ms = predict_bound = 0.0
+    # launches of a stage's shape (one shift) per two-pass predict: two
+    # camera passes whose blocks alternate shift 0 and w // 2
+    per_predict = list(cfg.swin.depths)
+    for stage, (nWh, nWw, c, heads) in enumerate(stage_shapes(cfg)):
         bn = cfg.num_cams * nWh * nWw
         d = c // heads
         qkv = torch.randn(bn, n, 3 * c, device=DEV, generator=g
@@ -480,6 +507,8 @@ def check_window_attn(cfg, g) -> dict:
             name = (f'window_attn Bn={bn} C={c} heads={heads} '
                     f'grid={nWh}x{nWw} shift={shift}')
             err = max(err, check_close(name, got, want, **WA_TOL))
+            if not torch.equal(got, wa.window_attention_cuda(*args)):
+                fail(f'{name}: two launches differ')
             t_k = cuda_ms(lambda: wa.window_attention_cuda(*args))
             t_p = cuda_ms(lambda: wa.window_attention_plain(*args))
             sdpa = sdpa_times(*args, want)
@@ -493,17 +522,28 @@ def check_window_attn(cfg, g) -> dict:
                   + ', '.join(f'{b} {t:.4f} {e:.2e}'
                               for b, (t, e) in sdpa.items())
                   + f'; fastest {best}', flush=True)
-            bound.add(4 * bn * heads * n * n * d,
-                      4 * bn * n * c * 2 + heads * n * n * 4, torch.bfloat16)
+            b_ms = bound.add(4 * bn * heads * n * n * d,
+                             4 * bn * n * c * 2 + heads * n * n * 4,
+                             torch.bfloat16)
+            print(f'    two launches bit-identical; {b_ms / t_k:.3f} of the '
+                  f'bound; {per_predict[stage]} launches per two-pass '
+                  'predict', flush=True)
+            predict_ms += per_predict[stage] * t_k
+            predict_bound += per_predict[stage] * b_ms
             bound.count(wa.window_attn_op, *args)
     bound_ms, bound_by = bound.total()
     print(f'  window_attn summed over the 8 shapes: kernel {ms:.4f} ms, '
           f'plain {plain_ms:.4f} ms, sdpa (fastest backend per shape) '
           f'{lib_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}',
           flush=True)
+    print(f'  window_attn per two-pass predict ({2 * sum(per_predict)} '
+          f'launches): kernel {predict_ms:.4f} ms, bound '
+          f'{predict_bound:.4f} ms ({predict_bound / predict_ms:.3f} of it)',
+          flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=lib_ms, flops=bound.flops,
-                counted_flops=bound.counted)
+                counted_flops=bound.counted, predict_ms=predict_ms,
+                predict_bound_ms=predict_bound)
 
 
 def embedding_bag_pool(depth_flat, feat_flat, ranks_depth, ranks_feat,
@@ -609,6 +649,21 @@ def check_bev_pool(cfg, batch0, g) -> dict:
                 zero_fill_ms=t_fill, fp32_zero_fill_ms=t_fill32)
 
 
+def zwin_plan(name, weight, f_in, f_out, stride) -> tuple:
+    """The bf16 body's (zb, Cout parts, stages) at this launch, as the built
+    library picks it; fails unless ``ops/zwin_conv.bf16_plan``, the copy
+    that the CPU tests and tools read, picks the same."""
+    from fusionocc_tpu_torch.ops import zwin_conv as zw
+    cin, cout = weight.shape[1], weight.shape[2]
+    nzi_max = max(n for _, n in zw.z_bands(f_in, f_out, stride))
+    built = zw.built_bf16_plan(cin, cout, nzi_max)
+    copy = zw.bf16_plan(cin, cout, nzi_max)
+    if copy != built:
+        fail(f'{name}: ops/zwin_conv.bf16_plan gives {copy}, the library '
+             f'launches {built}')
+    return built
+
+
 def check_zwin(cfg, batch0) -> dict:
     """K3 at the full-size encoder's 9 launches, then its microbenchmark
     at stage 1's SubM launch."""
@@ -640,11 +695,15 @@ def check_zwin(cfg, batch0) -> dict:
         want = zw.zwin_conv_plain(*args)
         torch.cuda.synchronize()
         err = max(err, check_close(name, got, want, **ZWIN_TOL))
+        if not torch.equal(got, zw.zwin_conv_cuda(*args)):
+            fail(f'{name}: two launches differ')
+        plan = zwin_plan(name, weight, f_in, f_out, stride)
         t_k = cuda_ms(lambda: zw.zwin_conv_cuda(*args))
         t_p = cuda_ms(lambda: zw.zwin_conv_plain(*args))
         ms, plain_ms = ms + t_k, plain_ms + t_p
-        print(f'    kernel {t_k:.4f} ms, plain {t_p:.4f} ms, no single '
-              f'PyTorch call', flush=True)
+        print(f'    two launches bit-identical; plan (zb, Cout parts, '
+              f'stages) {plan}, as bf16_plan; kernel {t_k:.4f} ms, plain '
+              f'{t_p:.4f} ms, no single PyTorch call', flush=True)
         # found taps of active rows, each over its band's nonzero
         # (zi, zo) cell pairs; feats, nbr, mask and weight read, out written
         found = ((nbr < s_in) & mask_out[..., None]).sum(dim=(0, 1)).tolist()
@@ -771,6 +830,8 @@ def check_zwin_fused(cfg, batch0) -> dict:
     print(f'  zwin fused summed over the 9 launches: kernel {ms:.4f} ms, '
           f'plain {plain_ms:.4f} ms, unfused chain {chain_ms:.4f} ms, bound '
           f'{bound_ms:.4f} ms by {bound_by}', flush=True)
+    if ms >= chain_ms:
+        fail('the fused K3 is not faster than the unfused chain it replaces')
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, fp32_max_abs_err=err32,
                 unfused_chain_ms=chain_ms, flops=bound.flops,
@@ -805,9 +866,13 @@ def check_edge_shapes(g) -> None:
         mask = torch.rand(B, s_out, device=DEV, generator=g) > 0.2
         weight = 0.1 * torch.randn(27, cin, cout, device=DEV, generator=g)
         args = (feats, mask, nbr, weight, f_in, f_out, stride)
-        check_close(f'edge zwin B={B} Cin {cin}->{cout} f {f_in}->{f_out} '
-                    f'stride {stride}', zw.zwin_conv_cuda(*args),
+        name = (f'edge zwin B={B} Cin {cin}->{cout} f {f_in}->{f_out} '
+                f'stride {stride}')
+        check_close(name, zw.zwin_conv_cuda(*args),
                     zw.zwin_conv_plain(*args), **ZWIN_TOL)
+        print(f'    plan (zb, Cout parts, stages) '
+              f'{zwin_plan(name, weight, f_in, f_out, stride)}, as '
+              'bf16_plan', flush=True)
         epi = (0.5 + torch.rand(f_out * cout, device=DEV, generator=g),
                0.2 * torch.randn(f_out * cout, device=DEV, generator=g),
                torch.rand(B, s_out, f_out, device=DEV, generator=g) > 0.3)

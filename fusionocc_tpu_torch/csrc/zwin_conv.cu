@@ -14,9 +14,10 @@
 //                          * weight[t - ds + dz, ci, co]
 //
 // summed in fp32 over all taps and cast to the output type once; masked
-// rows are exact zeros.  weight is the (27, Cin, Cout) cell kernel.  The in
-// lanes a tap reads form the band (zi_lo, nzi) of its z shift ds, the
-// nonzero rows of the lifted weight (z_bands in ops/zwin_conv.py).
+// rows are exact zeros.  weight is the (27, Cin, Cout) cell kernel; the bf16
+// body takes it transposed, (27, Cout, Cin) (the wrapper makes that copy).
+// The in lanes a tap reads form the band (zi_lo, nzi) of its z shift ds,
+// the nonzero rows of the lifted weight (z_bands in ops/zwin_conv.py).
 //
 // The TPU kernel streamed contiguous windows of rows and picked each tap's
 // rows with one-hot matmuls, because Mosaic had no dynamic gather.  Here the
@@ -25,26 +26,48 @@
 //
 // Two bodies, chosen by dtype:
 //
-// bf16 (the main path): an implicit gather-GEMM on the tensor cores
-// (mma.sync m16n8k16).  One CTA per ROWS = 32 consecutive output rows of the
-// flattened B*S_out, one warp per out cell zo (f_out <= 8 warps).  For a tap
-// t and a dz, the out cells zo whose in cell zi is valid form a GEMM of
-// (32 rows) x Cin by Cin x Cout against the cell kernel t - ds + dz; the
-// warp of out cell zo runs it for its 32 rows (2 m-tiles) when its zi is
-// valid, so only valid (zo, zi) pairs are multiplied and every warp does 3
-// cell GEMMs per (dx, dy).  Per tap that some active row of the block finds,
-// 16-byte cp.async copies gather the band cells of the 32 neighbour rows
-// (misses and masked or past-the-end rows zero-filled) and the tap's used
-// cell kernels into a shared-memory stage; the stage is double-buffered, so
-// the next tap's gather is in flight while this tap multiplies.  A fragments
-// come by ldmatrix from the gathered rows (each lane points at its row's
-// cell zi, so the cell pick costs nothing), B fragments by ldmatrix.trans
-// from the staged kernel.  Row strides are padded by 16 bytes, so every
-// ldmatrix phase hits 32 banks.  The fp32 accumulators (2 m-tiles x Cout/8
-// n-tiles x 4 per thread) stay in registers over all 27 taps; the epilogue
-// applies mask_out, casts once and stores.  The NULL_BODY instantiation
-// (entry zwin_conv_null) runs the same gathers and stores with the products
-// left out: the cost of the data movement alone.
+// bf16 (the main path): a gather-GEMM for Hopper.  On the H100 the small
+// layers are bound by the bytes they gather and the wide ones (Cin = Cout =
+// 48) by their products; what held the sm_80-style body back was neither:
+// every 32-row CTA re-read the tap's cell kernels and waited at two block
+// barriers per tap.  So:
+// - persistent CTAs, each holding its part of the layer's cell kernel in
+//   shared memory for the whole launch, loaded once by TMA (a 3-D tensor
+//   map over the transposed weight, box 16 ci x Cout part x 27 cells,
+//   32-byte swizzle: wgmma's K-major B layout);
+// - m64 blocks of ZB out cells zo and 64 / ZB rows of a tile: for a tap t
+//   and a dz a block's cells take part where their zi is valid.  ZB = 1
+//   (tiles of 64 rows) unless the whole kernel does not fit beside a ring of
+//   3 stages; then ZB = 2 or 4 (tiles of 32 or 16 rows, stages a half or a
+//   quarter of the size), which keeps 48 -> 48 and 48 -> 64 whole.  What
+//   still would not fit splits Cout into parts of a multiple of 8 across the
+//   grid's rows (blockIdx.y; the gathers are repeated per part, from L2);
+// - a producer warpgroup: three of its warps read each tile's (row, tap)
+//   neighbour table coalesced into one of two tables in shared memory (the
+//   next tile's while this one's gathers are issued) with the taps some
+//   active row finds; the fourth warp skips the other taps and gathers each
+//   found (row, tap)'s band (nzi * Cin bf16, contiguous, up to 1 KB) with
+//   one cp.async.bulk into a ring of at least 3 tap stages (rows padded by
+//   16 bytes, so ldmatrix is free of bank conflicts), each completed on an
+//   mbarrier, with a 16-byte stage header of the tap and the found rows.
+//   Consumers wait on the stage's mbarrier and hand it back on another;
+//   there is no block-wide barrier per tap.  (Hopper's TMA has no row
+//   gather; 16-byte cp.async by the whole warpgroup, each thread's copies
+//   completing the stage's mbarrier, measured slower on the H100.)
+// - two consumer warpgroups split the blocks; per (dz, k16 step) with a
+//   valid (zo, zi) in a warpgroup's blocks, it takes the A fragments of its
+//   blocks by ldmatrix from the gathered rows (a lane of a row whose tap
+//   was not found, or of a cell without a valid zi, reads a zero row) and
+//   runs wgmma m64nNk16 (N = the Cout part) on each with B from the
+//   resident kernel: a wgmma under a per-block condition is one that ptxas
+//   cannot prove uniform over the warpgroup, and it serializes them, which
+//   cost more than the zero products;
+// - the fp32 accumulators (up to 4 blocks x N / 2 per thread) stay in
+//   registers over all the taps of the tile; the epilogue applies mask_out,
+//   casts once and stores while the producer gathers the next tile.
+// The NULL_BODY instantiation (entry zwin_conv_null) runs the same loads,
+// gathers, waits and stores with the products left out: the cost of the
+// data movement alone.
 //
 // fp32: the CUDA-core body.  One CTA per 32 output rows, one thread per
 // output lane c = zo*Cout + co; per tap the band cells of the 32 neighbour
@@ -64,23 +87,35 @@
 // The product and the sum round separately (no FMA), as the plain version
 // does.  What it saves is the unfused chain's passes over the output: the
 // BatchNorm's fp32 copy, its masked affine and cast, and the ReLU.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
 
-#include "tensor_core.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int ROWS = 32;
-constexpr int MAX_FOUT = 8;      // bf16 body: one warp per out cell
-constexpr int MAX_NT = 8;        // bf16 body: Cout <= 64, n8 tiles
-constexpr int MAX_CIN = 64;      // bf16 body: Cin <= 64, k16 steps
+constexpr int ROWS = 32;         // fp32 body: output rows per CTA
+constexpr int TILE = 64;         // bf16 body: the M of a product, and the
+                                 // output rows of a tile of single-cell blocks
+constexpr int CONSUMERS = 2;     // bf16 body: consumer warpgroups
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // and a producer warpgroup
+constexpr int MAX_FOUT = 8;
+
+constexpr int MAX_NT = 8;        // Cout <= 64, n8 tiles
+constexpr int MAX_CIN = 64;      // k16 steps
+constexpr int MIN_STAGES = 3, MAX_STAGES = 8;
+constexpr int HEADER = 16;       // stage header: tap, last, found rows
+// the producer's two tables of a tile: (TILE, 27) feats rows (-1: not
+// found) and the found taps of each of its three builder warps
+constexpr int TABLE_BYTES = 2 * (TILE * 27 * 4 + 16);
+constexpr int BUILDERS = 3;      // producer warps that build the tables
+constexpr int SMEM_MAX = 232448; // dynamic shared memory a block may use
 
 struct Bands {
   int zi_lo[3];   // first input lane (in cells) of the band of z shift ds
   int nzi[3];     // band height in cells; 0 = no tap of this ds
-  int dz_used[3]; // bit dz set when some out cell reads dz in band ds
 };
 
 // operands of the fused eval epilogue; unused by the plain instantiations
@@ -89,6 +124,13 @@ struct Epilogue {
   const float* shift;    // (L_out,) BatchNorm shift
   const uint8_t* lane;   // (B*S_out, f_out) cell lane mask
   int f_out;
+};
+
+// what the producer tells the consumers about a stage
+struct StageHeader {
+  int tap;             // -1: a tile no active row of which finds any tap
+  int last;            // the tile's last stage
+  uint32_t found[2];   // rows 0-31, 32-63 of the tile whose tap was found
 };
 
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
@@ -100,158 +142,243 @@ __device__ __forceinline__ float affine_relu(float acc, float inv,
 
 // ---------------------------------------------------------------- bf16 body
 
-template <bool NULL_BODY, bool EPI>
-__global__ void __launch_bounds__(MAX_FOUT * 32, 2)
-    zwin_conv_mma_kernel(const __nv_bfloat16* __restrict__ feats,
-                         const int32_t* __restrict__ nbr,
-                         const uint8_t* __restrict__ mask_out,
-                         const __nv_bfloat16* __restrict__ weight,
-                         __nv_bfloat16* __restrict__ out, int S_in, int S_out,
-                         int total_rows, int cin, int cout, int f_in,
-                         int stride, int L_in, int L_out, Bands bands,
-                         int g_bytes, int w_bytes, Epilogue epi) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  int* src_s = reinterpret_cast<int*>(smem);       // (ROWS, 27) feats rows
-  uint32_t* hits_s = reinterpret_cast<uint32_t*>(smem + ROWS * 27 * 4);
-  uint8_t* gbuf = smem + ROWS * 27 * 4 + 16;        // [2] gathered bands
-  uint8_t* wbuf = gbuf + 2 * g_bytes;               // [2] cell kernels
+// NT: n8 tiles of the Cout part; ZB: out cells of an m64 block (its rows:
+// TILE / ZB output rows of the tile).
+template <int NT, int ZB, bool NULL_BODY, bool EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+    zwin_conv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
+                           const __nv_bfloat16* __restrict__ feats,
+                           const int32_t* __restrict__ nbr,
+                           const uint8_t* __restrict__ mask_out,
+                           __nv_bfloat16* __restrict__ out, int S_in,
+                           int S_out, int total_rows, int cin, int cout,
+                           int f_in, int f_out, int stride, int L_in,
+                           int L_out, Bands bands, int stages, int row_pitch,
+                           int stage_bytes, int w_bytes, Epilogue epi) {
+  constexpr int BOX_BYTES = 27 * NT * 8 * 32;   // one k16 slab of the kernel
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* w_s =
+      smem_raw + ((1024 - (hw::smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* ring = w_s + w_bytes;
+  uint32_t* zero = reinterpret_cast<uint32_t*>(ring + stages * stage_bytes);
+  int* src_s = reinterpret_cast<int*>(zero + 8);       // [2] (TILE, 27)
+  uint32_t* taps_s = reinterpret_cast<uint32_t*>(src_s + 2 * TILE * 27);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(zero) + 32 + TABLE_BYTES);
+  uint64_t* empty = full + stages;
+  uint64_t* w_full = empty + stages;
+  uint64_t* table_full = w_full + 1;    // [2]
+  uint64_t* table_empty = w_full + 3;   // [2]
 
-  const int tid = threadIdx.x, lane = tid & 31, zo = tid >> 5;
-  const int nthreads = blockDim.x;
-  const int row0 = blockIdx.x * ROWS;
-  if (tid == 0) *hits_s = 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int co0 = blockIdx.y * NT * 8;          // this CTA's Cout part
+  constexpr int rows_t = TILE / ZB;             // output rows of a tile
+  constexpr int BPW = MAX_FOUT / CONSUMERS / ZB;  // m64 blocks a warpgroup
+  const int tiles = (total_rows + rows_t - 1) / rows_t;
+  const int k_steps = cin / 16;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hw::mbar_init(&full[s], 1);
+      hw::mbar_init(&empty[s], CONSUMERS * 4);   // every consumer warp
+    }
+    hw::mbar_init(w_full, 1);
+    for (int b = 0; b < 2; ++b) {
+      hw::mbar_init(&table_full[b], BUILDERS);
+      hw::mbar_init(&table_empty[b], 1);
+    }
+    hw::fence_barrier_init();
+  }
+  if (tid < 8) zero[tid] = 0u;
   __syncthreads();
 
-  // the feats row (b * S_in + nbr) of each (row, tap), -1 for a miss or an
-  // inactive row; the taps that some row finds
-  uint32_t hits = 0;
-  for (int i = tid; i < ROWS * 27; i += nthreads) {
-    const int r = row0 + i / 27, t = i % 27;
-    int src = -1;
-    if (r < total_rows && mask_out[r]) {
-      const int n = nbr[(int64_t)r * 27 + t];
-      if (n < S_in && bands.nzi[t % 3] > 0) {
-        src = (r / S_out) * S_in + n;
-        hits |= 1u << t;
+  if (warp == CONSUMERS * 4) {
+    // ------------------------------------------- producer: the issuing warp
+    if (lane == 0) {
+      hw::mbar_arrive_expect_tx(w_full, BOX_BYTES * k_steps);
+      for (int kb = 0; kb < k_steps; ++kb)
+        hw::tma_load_3d(w_s + kb * BOX_BYTES, &tm_w, w_full, kb * 16, co0, 0);
+    }
+    int it = 0, k = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+      const int b = k & 1;
+      hw::mbar_wait(&table_full[b], (k >> 1) & 1);
+      const int* src_t = src_s + b * TILE * 27;
+      uint32_t taps = taps_s[4 * b] | taps_s[4 * b + 1] | taps_s[4 * b + 2];
+      do {
+        const int t = taps ? __ffs(taps) - 1 : -1;
+        taps &= taps - 1;
+        const int s = it % stages;
+        if (it >= stages) hw::mbar_wait(&empty[s], (it / stages - 1) & 1);
+        uint8_t* st = ring + s * stage_bytes;
+        const int src0 = t >= 0 && lane < rows_t ? src_t[lane * 27 + t] : -1;
+        const int src1 =
+            t >= 0 && lane + 32 < rows_t ? src_t[(lane + 32) * 27 + t] : -1;
+        const uint32_t m0 = __ballot_sync(0xffffffffu, src0 >= 0);
+        const uint32_t m1 = __ballot_sync(0xffffffffu, src1 >= 0);
+        const int ds = t >= 0 ? t % 3 : 0;
+        const uint32_t band = bands.nzi[ds] * cin * 2;
+        if (lane == 0) {
+          StageHeader* hd = reinterpret_cast<StageHeader*>(st);
+          hd->tap = t;
+          hd->last = taps == 0;
+          hd->found[0] = m0;
+          hd->found[1] = m1;
+          hw::mbar_arrive_expect_tx(&full[s],
+                                    (__popc(m0) + __popc(m1)) * band);
+        }
+        __syncwarp();
+        const __nv_bfloat16* lo = feats + bands.zi_lo[ds] * cin;
+        uint8_t* rows = st + HEADER;
+        if (src0 >= 0)
+          hw::bulk_load(rows + lane * row_pitch, lo + (int64_t)src0 * L_in,
+                        band, &full[s]);
+        if (src1 >= 0)
+          hw::bulk_load(rows + (lane + 32) * row_pitch,
+                        lo + (int64_t)src1 * L_in, band, &full[s]);
+        ++it;
+      } while (taps);
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(&table_empty[b]);   // the table is free
+    }
+    return;
+  }
+  if (warp > CONSUMERS * 4) {
+    // ---------------------- producer: the warps that build the row tables
+    const int bw = warp - CONSUMERS * 4 - 1;        // 0..BUILDERS - 1
+    const int q = bw * 32 + lane;
+    int k = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++k) {
+      const int b = k & 1;
+      if (k >= 2) hw::mbar_wait(&table_empty[b], ((k >> 1) - 1) & 1);
+      const int row0 = tile * rows_t;
+      int* src_t = src_s + b * TILE * 27;
+      uint32_t mine = 0;
+      for (int idx = q; idx < rows_t * 27; idx += BUILDERS * 32) {
+        const int r = row0 + idx / 27, t = idx % 27;
+        int src = -1;
+        if (r < total_rows && bands.nzi[t % 3] > 0 && mask_out[r]) {
+          const int n = __ldg(nbr + (int64_t)row0 * 27 + idx);
+          if (n < S_in) {
+            src = (r / S_out) * S_in + n;
+            mine |= 1u << t;
+          }
+        }
+        src_t[idx] = src;
+      }
+      mine = __reduce_or_sync(0xffffffffu, mine);
+      if (lane == 0) {
+        taps_s[4 * b + bw] = mine;
+        hw::mbar_arrive(&table_full[b]);
       }
     }
-    src_s[i] = src;
+    return;
   }
-  hits = __reduce_or_sync(0xffffffffu, hits);
-  if (lane == 0 && hits) atomicOr(hits_s, hits);
-  __syncthreads();
-  hits = *hits_s;
 
-  const uint32_t g_addr = tc::smem_addr(gbuf);
-  const uint32_t w_addr = tc::smem_addr(wbuf);
-  const int w_row = cout * 2 + 16;                  // staged kernel row, bytes
-
-  auto issue = [&](int t, int buf) {
-    const int ds = t % 3, nzi = bands.nzi[ds];
-    const int chunks = nzi * cin / 8;               // 16-byte chunks a row
-    const int g_row = nzi * cin * 2 + 16;
-    const __nv_bfloat16* band = feats + bands.zi_lo[ds] * cin;
-    for (int idx = tid; idx < ROWS * chunks; idx += nthreads) {
-      const int i = idx / chunks, c = idx - i * chunks;
-      const int src = src_s[i * 27 + t];
-      tc::cp_async16(g_addr + buf * g_bytes + i * g_row + c * 16,
-                     src >= 0 ? band + (int64_t)src * L_in + c * 8 : feats,
-                     src >= 0 ? 16 : 0);
-    }
-    const int w_chunks = cout / 8;
-    for (int idx = tid; idx < 3 * cin * w_chunks; idx += nthreads) {
-      const int dz = idx / (cin * w_chunks);
-      if (!((bands.dz_used[ds] >> dz) & 1)) continue;
-      const int rem = idx - dz * cin * w_chunks;
-      const int ci = rem / w_chunks, c = rem - ci * w_chunks;
-      tc::cp_async16(
-          w_addr + buf * w_bytes + (dz * cin + ci) * w_row + c * 16,
-          weight + ((int64_t)(t - ds + dz) * cin + ci) * cout + c * 8, 16);
-    }
-  };
-
-  float acc[2][MAX_NT][4];
+  // -------------------------------------------------------------- consumers
+  // m64 block j holds out cells j*ZB .. j*ZB + ZB - 1, rows_t rows each;
+  // warpgroup wg takes blocks wg*bpw .. wg*bpw + bpw - 1
+  const int wg = warp >> 2, wq = warp & 3;
+  const int g = lane >> 2, qd = lane & 3;
+  const int nblk = (f_out + ZB - 1) / ZB;
+  const int bpw = (nblk + 1) / 2;
+  const int am = wq * 16 + (lane & 15);         // this lane's ldmatrix row
+  const int arow = am % rows_t, asub = am / rows_t;
+  const uint32_t w_addr = hw::smem_addr(w_s);
+  const uint32_t zero_a = hw::smem_addr(zero) + (lane >> 4) * 16;
+  hw::mbar_wait(w_full, 0);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float acc[BPW][NT * 4];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+    for (int z = 0; z < BPW; ++z)
 #pragma unroll
-    for (int n = 0; n < MAX_NT; ++n)
-      acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
-
-  const int n_tiles = cout / 8, k_steps = cin / 16;
-  int t = hits ? __ffs(hits) - 1 : -1;
-  int buf = 0;
-  if (t >= 0) issue(t, 0);
-  tc::cp_async_commit();
-  while (t >= 0) {
-    const uint32_t later = hits & ~((2u << t) - 1u);
-    const int t_next = later ? __ffs(later) - 1 : -1;
-    if (t_next >= 0) issue(t_next, buf ^ 1);
-    tc::cp_async_commit();
-    tc::cp_async_wait<1>();
-    __syncthreads();
-
-    if (!NULL_BODY) {
-      const int ds = t % 3, nzi = bands.nzi[ds];
-      const int g_row = nzi * cin * 2 + 16;
-      const uint32_t ga = g_addr + buf * g_bytes;
-      const uint32_t wa = w_addr + buf * w_bytes;
-      for (int dz = 0; dz < 3; ++dz) {
-        const int zi = stride * zo + dz - 1 - (ds - 1) * f_in;
-        if (zi < 0 || zi >= f_in) continue;         // uniform over the warp
-        const int z = zi - bands.zi_lo[ds];         // cell within the band
-        for (int kk = 0; kk < k_steps; ++kk) {
-          uint32_t a[2][4];
+      for (int e = 0; e < NT * 4; ++e) acc[z][e] = 0.f;
+    int last;
+    do {
+      const int s = it % stages;
+      hw::mbar_wait(&full[s], (it / stages) & 1);
+      const uint8_t* st = ring + s * stage_bytes;
+      const StageHeader hd = *reinterpret_cast<const StageHeader*>(st);
+      last = hd.last;
+      if (!NULL_BODY && hd.tap >= 0) {
+        const int t = hd.tap, ds = t % 3;
+        const bool found = (hd.found[arow >> 5] >> (arow & 31)) & 1;
+        const uint32_t a_row = hw::smem_addr(st + HEADER + arow * row_pitch) +
+                               (lane >> 4) * 16 - bands.zi_lo[ds] * cin * 2;
+        const int zoff = 1 + (ds - 1) * f_in;   // zi = stride*zo + dz - zoff
+        for (int dz = 0; dz < 3; ++dz) {
+          // the in cell of this lane's out cell in each of this warpgroup's
+          // blocks (-1: none); whether some block has a valid (zo, zi)
+          int zi[BPW];
+          bool any = false;
 #pragma unroll
-          for (int m = 0; m < 2; ++m)
-            tc::ldmatrix_x4(a[m], ga + (m * 16 + (lane & 15)) * g_row +
-                                      z * cin * 2 + kk * 32 +
-                                      (lane >> 4) * 16);
-          const int ci = kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+          for (int z = 0; z < BPW; ++z) {
+            const int j = wg * bpw + z;
 #pragma unroll
-          for (int np = 0; np < MAX_NT / 2; ++np) {
-            if (2 * np < n_tiles) {
-              uint32_t b[4];
-              tc::ldmatrix_x4_trans(b, wa + (dz * cin + ci) * w_row +
-                                           (np * 16 + (lane >> 4) * 8) * 2);
-#pragma unroll
-              for (int m = 0; m < 2; ++m) {
-                tc::mma_bf16(acc[m][2 * np], a[m], b[0], b[1]);
-                tc::mma_bf16(acc[m][2 * np + 1], a[m], b[2], b[3]);
-              }
+            for (int u = 0; u < ZB; ++u) {
+              const int zo = j * ZB + u, zu = stride * zo + dz - zoff;
+              any |= z < bpw && j < nblk && zo < f_out && zu >= 0 &&
+                     zu < f_in;
             }
+            const int zo = j * ZB + asub;
+            zi[z] = stride * zo + dz - zoff;
+            if (zo >= f_out || zi[z] < 0 || zi[z] >= f_in) zi[z] = -1;
+          }
+          if (!any) continue;
+          // every block's product, the invalid cells reading zeros: a
+          // product under a condition ptxas cannot prove uniform over the
+          // warpgroup is serialized (C7520), which cost more than the zeros
+          for (int kk = 0; kk < k_steps; ++kk) {
+            uint32_t a[BPW][4];
+#pragma unroll
+            for (int z = 0; z < BPW; ++z)
+              hw::ldmatrix_x4(a[z], found && zi[z] >= 0
+                                          ? a_row + zi[z] * cin * 2 + kk * 32
+                                          : zero_a);
+            const uint64_t db = hw::make_desc(
+                w_addr + kk * BOX_BYTES + (t - ds + dz) * NT * 8 * 32, 16, 256,
+                hw::SWIZZLE_32B);
+            hw::wgmma_fence();
+#pragma unroll
+            for (int z = 0; z < BPW; ++z)
+              hw::wgmma_rs<NT, 0>(acc[z], a[z], db, 1);
+            hw::wgmma_commit();
+            hw::wgmma_wait<0>();
           }
         }
       }
-    }
-    __syncthreads();                  // this stage is refilled next tap
-    t = t_next;
-    buf ^= 1;
-  }
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(&empty[s]);   // the stage may refill
+      ++it;
+    } while (!last);
 
-  const int g = lane >> 2, qd = lane & 3;
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
+    for (int z = 0; z < BPW; ++z) {
+      const int j = wg * bpw + z;
+      if (z >= bpw || j >= nblk) continue;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = row0 + m * 16 + half * 8 + g;
-      if (r >= total_rows) continue;
-      const bool keep =
-          mask_out[r] != 0 &&
-          (!EPI || epi.lane[(int64_t)r * epi.f_out + zo] != 0);
-      __nv_bfloat16* orow = out + (int64_t)r * L_out + zo * cout;
+      for (int half = 0; half < 2; ++half) {
+        const int m = wq * 16 + half * 8 + g;     // this thread's M row
+        const int zo = j * ZB + m / rows_t;
+        const int r = tile * rows_t + m % rows_t;
+        if (zo >= f_out || r >= total_rows) continue;
+        const bool keep =
+            mask_out[r] != 0 &&
+            (!EPI || epi.lane[(int64_t)r * epi.f_out + zo] != 0);
+        __nv_bfloat16* orow = out + (int64_t)r * L_out + zo * cout + co0;
 #pragma unroll
-      for (int n = 0; n < MAX_NT; ++n) {
-        if (n < n_tiles) {
-          float v0 = keep ? acc[m][n][2 * half] : 0.f;
-          float v1 = keep ? acc[m][n][2 * half + 1] : 0.f;
+        for (int j8 = 0; j8 < NT; ++j8) {
+          float v0 = keep ? acc[z][4 * j8 + 2 * half] : 0.f;
+          float v1 = keep ? acc[z][4 * j8 + 2 * half + 1] : 0.f;
           if (EPI && keep) {
-            const int c = zo * cout + n * 8 + 2 * qd;
+            const int c = zo * cout + co0 + j8 * 8 + 2 * qd;
             v0 = affine_relu(v0, __ldg(epi.inv + c), __ldg(epi.shift + c));
             v1 = affine_relu(v1, __ldg(epi.inv + c + 1),
                              __ldg(epi.shift + c + 1));
           }
-          *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * qd) =
-              tc::pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(orow + j8 * 8 + 2 * qd) =
+              hw::pack_bf16(v0, v1);
         }
       }
     }
@@ -353,6 +480,7 @@ __global__ void zwin_conv_fp32_kernel(const float* __restrict__ feats,
 }
 
 // ------------------------------------------------------------------ launch
+// ------------------------------------------------------------------ launch
 
 template <bool EPI>
 int launch_fp32(const void* feats, const void* nbr, const void* mask_out,
@@ -381,37 +509,120 @@ int launch_fp32(const void* feats, const void* nbr, const void* mask_out,
   return (int)cudaGetLastError();
 }
 
+
+template <int NT, bool NULL_BODY, bool EPI>
+int launch_bf16_nt(const CUtensorMap& tm_w, const void* feats,
+                   const void* nbr, const void* mask_out, void* out,
+                   int S_in, int S_out, int total_rows, int cin, int cout,
+                   int f_in, int f_out, int stride, int L_in, int L_out,
+                   const Bands& bands, int zb, int nsplit, int stages,
+                   int row_pitch, int stage_bytes, int w_bytes,
+                   const Epilogue& epi, cudaStream_t stream) {
+  auto kernel = zb == 1   ? zwin_conv_wgmma_kernel<NT, 1, NULL_BODY, EPI>
+                : zb == 2 ? zwin_conv_wgmma_kernel<NT, 2, NULL_BODY, EPI>
+                          : zwin_conv_wgmma_kernel<NT, 4, NULL_BODY, EPI>;
+  const size_t smem = 1024 + (size_t)w_bytes + (size_t)stages * stage_bytes +
+                      32 + TABLE_BYTES + (2 * stages + 5) * 8;
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = hw::resident_ctas(
+      reinterpret_cast<const void*>(kernel), THREADS, smem, &sms, &per_sm);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  // persistent: the resident CTAs of each Cout part share its row tiles
+  const int tiles = (total_rows + TILE / zb - 1) / (TILE / zb);
+  const int ctas = sms * per_sm / nsplit;
+  const dim3 grid(ctas < 1 ? 1 : (ctas < tiles ? ctas : tiles), nsplit);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      tm_w, (const __nv_bfloat16*)feats, (const int32_t*)nbr,
+      (const uint8_t*)mask_out, (__nv_bfloat16*)out, S_in, S_out,
+      total_rows, cin, cout, f_in, f_out, stride, L_in, L_out, bands, stages,
+      row_pitch, stage_bytes, w_bytes, epi);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 body's launch plan.
+struct Plan {
+  int zb, nsplit, stages, w_bytes, stage_bytes, row_pitch;
+};
+
+// The plan for Cin, Cout and the widest band of nzi_max in cells: per block
+// size zb (m64 blocks of zb out cells and 64 / zb rows of a tile: the stage
+// shrinks with the tile), the fewest Cout parts whose resident kernel fits
+// beside MIN_STAGES stages, then as many stages as fit; the smallest zb of
+// the fewest parts.  False when none fits.
+bool pick_plan(int cin, int cout, int nzi_max, Plan* plan) {
+  // a gathered row padded by 16 bytes: an odd number of 16-byte chunks, so
+  // the 8 rows of an ldmatrix phase hit different banks
+  const int row_pitch = (nzi_max > 0 ? nzi_max : 1) * cin * 2 + 16;
+  const int nt_all = cout / 8;
+  Plan p{0, 0, 0, 0, 0, row_pitch};
+  for (int b = 1; b <= 4; b *= 2) {
+    const int sb = (HEADER + TILE / b * row_pitch + 15) & ~15;
+    for (int ns = 1; ns <= nt_all && (p.nsplit == 0 || ns < p.nsplit); ++ns) {
+      if (nt_all % ns) continue;
+      const int wb = (27 * cin * (cout / ns) * 2 + 1023) & ~1023;
+      const long long room = (long long)SMEM_MAX - 1024 - wb - 32 -
+                             TABLE_BYTES - (2 * MAX_STAGES + 5) * 8;
+      const long long fit = room / sb;
+      if (fit >= MIN_STAGES) {
+        p.zb = b;
+        p.nsplit = ns;
+        p.w_bytes = wb;
+        p.stage_bytes = sb;
+        p.stages = fit < MAX_STAGES ? (int)fit : MAX_STAGES;
+        break;
+      }
+    }
+  }
+  *plan = p;
+  return p.nsplit > 0;
+}
+
+// weight_t: the (27, Cout, Cin) transposed cell kernel.
 template <bool NULL_BODY, bool EPI>
 int launch_bf16(const void* feats, const void* nbr, const void* mask_out,
-                const void* weight, void* out, int S_in, int S_out,
+                const void* weight_t, void* out, int S_in, int S_out,
                 int total_rows, int cin, int cout, int f_in, int f_out,
                 int stride, int L_in, int L_out, const Bands& bands,
                 const Epilogue& epi, cudaStream_t stream) {
-  // k16 steps over Cin, n8 tiles over Cout, one warp per out cell, 16-byte
-  // copies of band cells and kernel rows
-  const bool aligned =
-      ((uintptr_t)feats | (uintptr_t)weight) % 16 == 0 && (uintptr_t)out % 4 == 0;
+  // k16 steps over Cin, n8 tiles over Cout, at most two warpgroups of four
+  // out cells; 16-byte aligned bands for the bulk copies
+  const bool aligned = (uintptr_t)feats % 16 == 0 && (uintptr_t)out % 4 == 0;
   if (cin % 16 != 0 || cin > MAX_CIN || cout % 8 != 0 ||
       cout > MAX_NT * 8 || f_out > MAX_FOUT || !aligned)
     return (int)cudaErrorInvalidValue;
   int nzi_max = 0;
   for (int ds = 0; ds < 3; ++ds)
     nzi_max = bands.nzi[ds] > nzi_max ? bands.nzi[ds] : nzi_max;
-  const int g_bytes = ROWS * (nzi_max * cin * 2 + 16);
-  const int w_bytes = 3 * cin * (cout * 2 + 16);
-  const size_t smem = (size_t)ROWS * 27 * 4 + 16 + 2 * (size_t)g_bytes +
-                      2 * (size_t)w_bytes;
-  auto kernel = zwin_conv_mma_kernel<NULL_BODY, EPI>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (total_rows + ROWS - 1) / ROWS;
-  kernel<<<blocks, f_out * 32, smem, stream>>>(
-      (const __nv_bfloat16*)feats, (const int32_t*)nbr,
-      (const uint8_t*)mask_out, (const __nv_bfloat16*)weight,
-      (__nv_bfloat16*)out, S_in, S_out, total_rows, cin, cout, f_in, stride,
-      L_in, L_out, bands, g_bytes, w_bytes, epi);
-  return (int)cudaGetLastError();
+  Plan plan;
+  if (!pick_plan(cin, cout, nzi_max, &plan)) return (int)cudaErrorInvalidValue;
+  const int nt = cout / 8 / plan.nsplit;
+  CUtensorMap tm_w;
+  const uint64_t dims[3] = {(uint64_t)cin, (uint64_t)cout, 27};
+  const uint64_t strides[2] = {(uint64_t)cin * 2, (uint64_t)cout * cin * 2};
+  const uint32_t box[3] = {16, (uint32_t)nt * 8, 27};
+  if (!hw::encode_bf16_3d(&tm_w, weight_t, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_32B))
+    return (int)cudaErrorInvalidValue;
+#define ZWIN_LAUNCH(N)                                                       \
+  case N:                                                                    \
+    return launch_bf16_nt<N, NULL_BODY, EPI>(                                \
+        tm_w, feats, nbr, mask_out, out, S_in, S_out, total_rows, cin, cout, \
+        f_in, f_out, stride, L_in, L_out, bands, plan.zb, plan.nsplit,       \
+        plan.stages, plan.row_pitch, plan.stage_bytes, plan.w_bytes, epi,    \
+        stream);
+  switch (nt) {
+    ZWIN_LAUNCH(1)
+    ZWIN_LAUNCH(2)
+    ZWIN_LAUNCH(3)
+    ZWIN_LAUNCH(4)
+    ZWIN_LAUNCH(5)
+    ZWIN_LAUNCH(6)
+    ZWIN_LAUNCH(7)
+    ZWIN_LAUNCH(8)
+  }
+#undef ZWIN_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 // Checks the fold and fills the band table; false on a bad argument.
@@ -428,12 +639,6 @@ bool make_bands(int cin, int cout, int stride, int L_in, int L_out,
       return false;
     bands->zi_lo[ds] = zi_lo[ds];
     bands->nzi[ds] = nzi[ds];
-    bands->dz_used[ds] = 0;
-    for (int zo = 0; zo < *f_out; ++zo)
-      for (int dz = 0; dz < 3; ++dz) {
-        const int zi = stride * zo + dz - 1 - (ds - 1) * *f_in;
-        if (zi >= 0 && zi < *f_in) bands->dz_used[ds] |= 1 << dz;
-      }
   }
   return true;
 }
@@ -467,6 +672,8 @@ int zwin_conv_run(const void* feats, const void* nbr, const void* mask_out,
 
 }  // namespace
 
+// weight: the cell kernel, (27, Cin, Cout) for dtype 0 (fp32), transposed
+// to (27, Cout, Cin) for dtype 1 (bf16).
 extern "C" int zwin_conv_fwd(const void* feats, const void* nbr,
                              const void* mask_out, const void* weight,
                              void* out, int B, int S_in, int S_out, int cin,
@@ -495,6 +702,18 @@ extern "C" int zwin_conv_fwd_epi(const void* feats, const void* nbr,
                              S_out, cin, cout, stride, L_in, L_out,
                              {zi_lo0, zi_lo1, zi_lo2}, {nzi0, nzi1, nzi2},
                              dtype, (cudaStream_t)stream);
+}
+
+// The bf16 body's launch plan for Cin, Cout and the widest band (nzi_max
+// in cells) as launch_bf16 picks it: plan = (zb, Cout parts, stages).  For
+// checking ops/zwin_conv.bf16_plan, which the CPU tests read, against it.
+extern "C" int zwin_conv_plan(int cin, int cout, int nzi_max, int* plan) {
+  Plan p;
+  if (!pick_plan(cin, cout, nzi_max, &p)) return (int)cudaErrorInvalidValue;
+  plan[0] = p.zb;
+  plan[1] = p.nsplit;
+  plan[2] = p.stages;
+  return (int)cudaSuccess;
 }
 
 // The bf16 body with the products left out (gathers, staging and stores

@@ -50,9 +50,9 @@ SIGNATURES: Dict[str, List] = {
     # nWh, nWw, w, shift, scale, dtype (0 f32, 1 bf16), stream
     'window_attn_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _L,
                         _I, _I, _I, _I, _F, _I, _P],
-    # feats, nbr, mask_out, weight (27, cin, cout), out, B, S_in, S_out, cin, cout, stride,
-    # L_in, L_out, (zi_lo, nzi) for ds = 0, 1, 2, dtype (0 f32, 1 bf16),
-    # stream
+    # feats, nbr, mask_out, weight (27, cin, cout) in fp32, (27, cout, cin)
+    # in bf16, out, B, S_in, S_out, cin, cout, stride, L_in, L_out, (zi_lo,
+    # nzi) for ds = 0, 1, 2, dtype (0 f32, 1 bf16), stream
     'zwin_conv_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -123,7 +123,8 @@ class KernelLibrary:
         for cmd, _, proc in jobs:
             logs.append(proc.communicate()[0])
             if proc.returncode != 0:
-                failed.append(f'{" ".join(cmd)} ({proc.returncode})')
+                failed.append(f'{" ".join(cmd)} ({proc.returncode}):\n'
+                              + logs[-1][-4000:])
         objs = [str(obj) for _, obj, _ in jobs]
         tmp = path.with_suffix(f'.{os.getpid()}.tmp')
         if not failed:
@@ -131,14 +132,14 @@ class KernelLibrary:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             logs.append(proc.stdout + proc.stderr)
             if proc.returncode != 0:
-                failed.append(f'{" ".join(cmd)} ({proc.returncode})')
+                failed.append(f'{" ".join(cmd)} ({proc.returncode}):\n'
+                              + logs[-1][-4000:])
         for obj in objs:
             Path(obj).unlink(missing_ok=True)
         self.build_seconds = time.perf_counter() - t0
         self.build_log = '\n'.join(logs)
         if failed:
-            raise RuntimeError('kernel build failed: ' + '; '.join(failed)
-                               + '\n' + self.build_log[-4000:])
+            raise RuntimeError('kernel build failed: ' + '; '.join(failed))
         os.replace(tmp, path)
         return path
 
@@ -151,6 +152,9 @@ class KernelLibrary:
                 fn.restype = ctypes.c_int
             lib.fo_error_string.argtypes = [ctypes.c_int]
             lib.fo_error_string.restype = ctypes.c_char_p
+            # K3's bf16 launch plan (not a kernel: not counted)
+            lib.zwin_conv_plan.argtypes = [_I, _I, _I, _P]
+            lib.zwin_conv_plan.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 

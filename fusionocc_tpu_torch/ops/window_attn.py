@@ -15,9 +15,11 @@ column have.
 around the custom op ``fusionocc::window_attn`` (``window_attn_op``): its
 CPU implementation is the plain version,
 its CUDA one launches ``csrc/window_attn.cu``; it never falls back.  The kernel
-has two bodies, chosen by dtype: bf16 runs on the tensor cores (N <= 144,
-16-byte aligned q, k, v rows), fp32 on the CUDA cores (N <= 1024).  A bf16
-input that the tensor-core body does not take raises.  Its backward is JAX's
+has two bodies, chosen by dtype: bf16 runs on Hopper's warpgroup products
+with q, k, v loaded by TMA through tensor maps over the strided views (N <=
+144, 16-byte aligned starts, strides a multiple of 8 elements), fp32 on the
+CUDA cores (N <= 1024).  A bf16 input that the Hopper body does not take
+raises.  Its backward is JAX's
 ``_bwd``, the same code on both devices: it saves (q, k, v, bias), recomputes
 the fp32 probabilities P with the shift mask and returns dq, dk, dv in the
 inputs' dtype and dbias summed over windows.
@@ -81,6 +83,13 @@ def window_attention_plain(q, k, v, bias, nWh: int, nWw: int, w: int,
 def window_attention_cuda(q, k, v, bias, nWh: int, nWw: int, w: int,
                           shift: int, heads: int) -> torch.Tensor:
     """Launch ``window_attn_fwd``; q, k, v may be strided column slices."""
+    return _launch('window_attn_fwd', q, k, v, bias, nWh, nWw, w, shift,
+                   heads)
+
+
+def _launch(entry: str, q, k, v, bias, nWh: int, nWw: int, w: int,
+            shift: int, heads: int) -> torch.Tensor:
+    """Check the operands and launch C entry ``entry``."""
     bn, n, c = q.shape
     d = c // heads
     if q.device.type != 'cuda':
@@ -105,7 +114,7 @@ def window_attention_cuda(q, k, v, bias, nWh: int, nWw: int, w: int,
     if q.dtype == torch.bfloat16 and (
             any(t.data_ptr() % 16 for t in (q, k, v))
             or q.stride(0) % 8 or q.stride(1) % 8):
-        raise ValueError('the bf16 body copies 16-byte chunks: q, k, v need '
+        raise ValueError('the bf16 body loads q, k, v by TMA: they need '
                          '16-byte aligned starts and strides that are '
                          f'multiples of 8, got {q.stride()}')
     if bn * n >= 2 ** 31:
@@ -120,7 +129,7 @@ def window_attention_cuda(q, k, v, bias, nWh: int, nWw: int, w: int,
         return out
     with torch.cuda.device(q.device):
         KERNELS.launch(
-            'window_attn_fwd', q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr(), out.data_ptr(), bn, n, c, heads, d, q.stride(0),
             q.stride(1), nWh, nWw, w, shift, d ** -0.5, _DTYPE_CODE[q.dtype],
             stream_ptr(q.device))

@@ -29,10 +29,12 @@ the plain version, its CUDA one launches ``csrc/zwin_conv.cu``; it never
 falls back.  Its backward is JAX's ``_zwin_bwd``, the
 VJP of the plain contract recomputed from the saved (feats, weight), the
 same code on both devices.  The kernel
-has two bodies, chosen by dtype: bf16 runs on the tensor cores (Cin a
-multiple of 16 up to 64, Cout a multiple of 8 up to 64, f_out <= 8), fp32 on
-the CUDA cores (L_out <= 1024).  A bf16 input that the tensor-core body does
-not take raises.
+has two bodies, chosen by dtype: bf16 runs on Hopper's warpgroup products
+(Cin a multiple of 16 up to 64, Cout a multiple of 8 up to 64, f_out <= 8;
+the wrapper hands it the cell kernel transposed, (27, Cout, Cin), which it
+keeps resident in shared memory; ``bf16_plan`` is its launch plan), fp32 on
+the CUDA cores (L_out <= 1024).  A bf16 input that the Hopper body does not
+take raises.
 
 ``zwin_conv_epi`` is the eval path with the BatchNorm fused in
 (``SparseEncoderConfig.zwin_fuse``), the port of JAX's
@@ -45,6 +47,7 @@ reading the compact lane mask, not JAX's (B, S_out, L_out) multiplier.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import List, Tuple
 
 import torch
@@ -56,7 +59,51 @@ from .zfold import expand_lane_mask, expand_weight
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_L_OUT = 1024    # fp32 body: one thread per output lane
 MAX_CHANNELS = 64   # bf16 body: Cin and Cout
-MAX_F_OUT = 8       # bf16 body: one warp per out cell
+MAX_F_OUT = 8       # bf16 body: two warpgroups of at most four out cells
+# the bf16 body's launch plan (csrc/zwin_conv.cu pick_plan), copied for the
+# CPU tests and tools, which have no library; chip_smoke.py holds
+# ``bf16_plan`` to ``built_bf16_plan`` at every launch it checks: the M of a
+# product, the shared memory a block may use, the ring's stages, bytes of a
+# stage header, of the producer's two row tables and of the barriers
+TILE, SMEM_MAX, MIN_STAGES, MAX_STAGES = 64, 232448, 3, 8
+HEADER = 16
+TABLE_BYTES = 2 * (TILE * 27 * 4 + 16)
+BARRIER_BYTES = (2 * MAX_STAGES + 5) * 8
+
+
+def bf16_plan(cin: int, cout: int, nzi_max: int):
+    """The bf16 body's (zb, Cout parts, stages), as ``launch_bf16`` picks
+    them: per block size zb (m64 blocks of zb out cells and 64 / zb rows of
+    a tile), the fewest Cout parts (each a multiple of 8) whose resident
+    cell kernel fits beside MIN_STAGES stages of gathered rows, then as many
+    stages as fit; the smallest zb of the fewest parts."""
+    row_pitch = max(nzi_max, 1) * cin * 2 + 16
+    nt = cout // 8
+    best = None
+    for zb in (1, 2, 4):
+        stage = (HEADER + TILE // zb * row_pitch + 15) // 16 * 16
+        for parts in range(1, nt + 1):
+            if nt % parts or (best and parts >= best[1]):
+                continue
+            w_bytes = (27 * cin * (cout // parts) * 2 + 1023) // 1024 * 1024
+            fit = (SMEM_MAX - 1024 - w_bytes - 32 - TABLE_BYTES
+                   - BARRIER_BYTES) // stage
+            if fit >= MIN_STAGES:
+                best = (zb, parts, min(fit, MAX_STAGES))
+                break
+    if best is None:
+        raise ValueError(f'no bf16 plan for Cin {cin}, Cout {cout}')
+    return best
+
+
+def built_bf16_plan(cin: int, cout: int, nzi_max: int):
+    """The (zb, Cout parts, stages) that the built library's
+    ``launch_bf16`` picks (C entry ``zwin_conv_plan``); needs the built
+    kernels."""
+    plan = (ctypes.c_int * 3)()
+    if KERNELS.load().zwin_conv_plan(cin, cout, nzi_max, plan) != 0:
+        raise ValueError(f'no bf16 plan for Cin {cin}, Cout {cout}')
+    return tuple(plan)
 
 
 def band_pairs(f_in: int, f_out: int, stride: int, ds: int):
@@ -136,7 +183,7 @@ def zwin_conv_epi_plain(feats: torch.Tensor, mask_out: torch.Tensor,
 def zwin_conv_cuda(feats: torch.Tensor, mask_out: torch.Tensor,
                    nbr_idx: torch.Tensor, weight: torch.Tensor,
                    f_in: int, f_out: int, stride: int) -> torch.Tensor:
-    """Launch ``zwin_conv_fwd``: one CTA per 32 output rows."""
+    """Launch ``zwin_conv_fwd``."""
     return _launch('zwin_conv_fwd', feats, mask_out, nbr_idx, weight, f_in,
                    f_out, stride)
 
@@ -214,7 +261,11 @@ def _launch(entry: str, feats, mask_out, nbr_idx, weight, f_in: int,
     feats = feats.contiguous()
     nbr_idx = nbr_idx.contiguous()
     mask_out = mask_out.contiguous()
-    weight = weight.to(dev, feats.dtype).contiguous()
+    weight = weight.to(dev, feats.dtype)
+    if feats.dtype == torch.bfloat16:
+        # the bf16 body keeps the cell kernel K-major in shared memory
+        weight = weight.transpose(1, 2)
+    weight = weight.contiguous()
     bands = [v for band in z_bands(f_in, f_out, stride) for v in band]
     out = torch.empty(B, s_out, l_out, dtype=feats.dtype, device=dev)
     if B * s_out == 0:

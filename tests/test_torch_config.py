@@ -166,7 +166,8 @@ def test_port_imports_no_jax():
         'tools.burnin_torch, tools.analyze_logs_torch, '
         'tools.analyze_occ_gt_torch, tools.gen_seg_depth_torch, '
         'tools.probe_torch_gloo, fusionocc_tpu_torch.utils.flops, '
-        'tools.get_flops_torch, tools.density_sweep_torch\n'
+        'tools.get_flops_torch, tools.density_sweep_torch, '
+        'tools.ab_torch_kernels\n'
         'bad = [m for m in sys.modules if m in ("jax", "flax", "fusionocc_tpu")'
         ' or m.startswith(("jax.", "flax.", "jaxlib", "fusionocc_tpu."))]\n'
         'print("BAD", bad)\n'

@@ -4,24 +4,34 @@ kernels rely on, emulated in plain torch on the CPU.
 The CUDA kernels run only on the card; these tests hold, here, the order of
 work they take and the roundings they add against the plain versions:
 
-- K3 (``csrc/zwin_conv.cu``, bf16 body): the implicit gather-GEMM per (tap,
-  dz) over 32-row blocks.  Per block, the taps that some active row finds;
-  per tap, the band cells of the neighbour rows gathered with misses and
-  inactive rows zero; per out cell zo (one warp) and dz, one cell GEMM of
-  the gathered cell zi = stride*zo + dz - 1 - (ds - 1)*f_in against the cell
-  kernel t - ds + dz, only where 0 <= zi < f_in.  In fp32 it must equal
+- K3 (``csrc/zwin_conv.cu``, bf16 body): the Hopper gather-GEMM.  The
+  launch plan (``ops/zwin_conv.bf16_plan``): m64 blocks of one out cell and
+  64 rows of a tile, or of two (four) cells and 32 (16) rows where that
+  keeps more of the cell kernel resident beside 3 stages; Cout split into
+  parts (a multiple of 8 each) only where it still does not fit (48 -> 48
+  takes two cells a block, 48 -> 64 four, the rest one; none splits).  Per part, per tile, the taps that some active row
+  finds, in order; per tap, the band of each found row gathered (the rest
+  zero); per dz and consumer warpgroup (the first ceil(blocks / 2) blocks
+  and the rest) with a valid (zo, zi) among its cells, per k16 step, one
+  product per block, the cells whose in cell zi = stride*zo + dz - 1 - (ds -
+  1)*f_in is not valid reading zeros.  In fp32 it must equal
   ``zwin_conv_plain`` within 1e-5, at each distinct geometry of the 9
   full-size launches (SubM 16/32/48, stride-2 16->32, 32->48, 48->64, fold
-  8), on small random maps with misses and ``mask_out`` holes.  The same
-  cases check that the valid zo of each (ds, dz) form the contiguous range
-  that ``band_pairs`` gives, and that each out cell runs exactly 3 cell
-  GEMMs per (dx, dy): the warps are balanced.
-- K2 (``csrc/window_attn.cu``, bf16 body): P V as two bf16 products, of
-  P's bf16 high part and of its bf16 low part (P - high), O normalised by
-  the fp32 row sum and cast to bf16.  It must stay within the card check's
-  tolerance (atol 1e-3 + rtol 1e-2 |plain|, one bf16 ulp of the output) of
-  ``window_attention_plain`` at the four Swin-B head counts, shift 0 and 6.
-  P in bf16 alone does not: at 4 heads, shift 6, it is two ulps off.
+  8) and at the two edge geometries of ``chip_smoke.py`` (B = 2, Cout 24,
+  f_out 4, stride 2; Cin 64, Cout 8, f_in 4), on small random maps with
+  misses and ``mask_out`` holes.  Every product it issues is for a found
+  tap and a dz with a valid pair in its warpgroup's cells.  The same cases
+  check that the valid zo of each (ds, dz) form the contiguous range that
+  ``band_pairs`` gives, and that each out cell runs exactly 3 cell GEMMs per
+  (dx, dy).
+- K2 (``csrc/window_attn.cu``, bf16 body): S in three m64 tiles of query
+  rows (the last one padded from 144 to 192 rows, the keys past N at
+  -inf), P V as two bf16 products, of P's bf16 high part and of its bf16
+  low part (P - high), O normalised by the fp32 row sum and cast to bf16.
+  It must stay within the card check's tolerance (atol 1e-3 + rtol 1e-2
+  |plain|, one bf16 ulp of the output) of ``window_attention_plain`` at the
+  four Swin-B head counts, shift 0 and 6, and at N = 49 and 100 (padded to
+  144).  P in bf16 alone does not: at 4 heads, shift 6, it is two ulps off.
 - The microbenchmark's maps (``tools/profile_torch_zwin_micro.py``): the
   contiguous and compute-only maps are neighbour maps with the real map's
   misses, and the plain version on them equals JAX's ``zband_conv_apply``.
@@ -60,13 +70,18 @@ from chip_smoke import POOL_BF16_TOL, WA_TOL  # noqa: E402
 from tools import profile_torch_zwin_micro as micro  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
-ROWS = 32
+ROWS = 32          # the compute-only map's block of rows
+TILE = tzw.TILE    # K3's M of a product
 
 # (Cin, Cout, stride) of the full-size encoder's 9 launches, fold 8 in and
 # out: SubM at stages 0-2, then each stage's stride-2 conv
 FULL_GEOMETRIES = {'subm16': (16, 16, 1), 'subm32': (32, 32, 1),
                    'subm48': (48, 48, 1), 'down16_32': (16, 32, 2),
                    'down32_48': (32, 48, 2), 'down48_64': (48, 64, 2)}
+# chip_smoke.py's edge shapes: (B, S_in, S_out, Cin, Cout, f_in, f_out,
+# stride), at its row counts scaled down
+EDGE_GEOMETRIES = {'edge_b2_cout24_fout4_s2': (2, 30, 20, 16, 24, 8, 4, 2),
+                   'edge_cin64_cout8_fin4': (1, 26, 26, 64, 8, 4, 4, 1)}
 
 
 def random_zwin_inputs(seed, B, s_in, s_out, cin, cout, fold=8):
@@ -82,97 +97,159 @@ def random_zwin_inputs(seed, B, s_in, s_out, cin, cout, fold=8):
 
 
 def k3_schedule(feats, mask_out, nbr, weight, f_in, f_out, stride):
-    """The bf16 body's order of work, in fp32 (see the module docstring)."""
+    """The bf16 body's order of work, in fp32 (see the module docstring);
+    returns the output, the issued products (part, tile, t, warpgroup,
+    block, dz), the tiles' feats rows and the block size."""
     B, s_in, l_in = feats.shape
     s_out = nbr.shape[1]
     cin, cout = weight.shape[1], weight.shape[2]
     bands = tzw.z_bands(f_in, f_out, stride)
+    zb, parts, _ = tzw.bf16_plan(cin, cout, max(n for _, n in bands))
+    rows_t = TILE // zb
+    part = cout // parts
+    nblk = -(-f_out // zb)
+    bpw = -(-nblk // 2)
     rows = B * s_out
     b_of = torch.arange(rows) // s_out
     flat = nbr.reshape(rows, 27).long()
     active = mask_out.reshape(rows)
     src = torch.where((flat < s_in) & active[:, None],
                       b_of[:, None] * s_in + flat, -1)
+    tiles = -(-rows // rows_t)
+    src = torch.cat([src, src.new_full((tiles * rows_t - rows, 27), -1)])
     table = feats.reshape(B * s_in, l_in).float()
-    out = torch.zeros(rows, f_out, cout)
-    for row0 in range(0, rows, ROWS):
-        blk = src[row0:row0 + ROWS]
-        acc = torch.zeros(blk.shape[0], f_out, cout)
-        for t in range(27):
-            ds = t % 3
-            zi_lo, nzi = bands[ds]
-            found = blk[:, t] >= 0
-            if not nzi or not bool(found.any()):
-                continue
-            stage = torch.zeros(blk.shape[0], nzi, cin)
-            stage[found] = table[blk[found, t],
-                                 zi_lo * cin:(zi_lo + nzi) * cin
-                                 ].reshape(-1, nzi, cin)
-            for zo in range(f_out):
+    out = torch.zeros(tiles * rows_t, f_out, cout)
+    issued = []
+    for p in range(parts):
+        co = slice(p * part, (p + 1) * part)
+        for tile in range(tiles):
+            blk = src[tile * rows_t:(tile + 1) * rows_t]
+            acc = torch.zeros(rows_t, f_out, part)
+            for t in range(27):
+                ds = t % 3
+                zi_lo, nzi = bands[ds]
+                found = blk[:, t] >= 0
+                if not nzi or not bool(found.any()):
+                    continue
+                stage = torch.zeros(rows_t, nzi, cin)
+                stage[found] = table[blk[found, t],
+                                     zi_lo * cin:(zi_lo + nzi) * cin
+                                     ].reshape(-1, nzi, cin)
                 for dz in range(3):
-                    zi = stride * zo + dz - 1 - (ds - 1) * f_in
-                    if 0 <= zi < f_in:
-                        acc[:, zo] += stage[:, zi - zi_lo] @ weight[t - ds + dz]
-        out[row0:row0 + ROWS] = acc
-    out = out.reshape(B, s_out, f_out * cout)
-    return torch.where(mask_out[..., None], out, 0)
+                    for wg in range(2):
+                        # the warpgroup's blocks; all of them are issued
+                        # when one has a valid (zo, zi) pair
+                        mine = [wg * bpw + z for z in range(bpw)
+                                if wg * bpw + z < nblk]
+                        cells = [zo for j in mine
+                                 for zo in range(j * zb, (j + 1) * zb)
+                                 if zo < f_out and 0 <= stride * zo + dz - 1
+                                 - (ds - 1) * f_in < f_in]
+                        if not cells:
+                            continue
+                        issued += [(p, tile, t, wg, z, dz)
+                                   for z in range(4 // zb)]
+                        for kk in range(cin // 16):
+                            k16 = slice(kk * 16, (kk + 1) * 16)
+                            for zo in cells:
+                                zi = stride * zo + dz - 1 - (ds - 1) * f_in
+                                acc[:, zo] += (stage[:, zi - zi_lo, k16]
+                                               @ weight[t - ds + dz, k16, co])
+            out[tile * rows_t:(tile + 1) * rows_t, :, co] = acc
+    out = out[:rows].reshape(B, s_out, f_out * cout)
+    return torch.where(mask_out[..., None], out, 0), issued, src, zb
 
 
-@pytest.mark.parametrize('geometry', list(FULL_GEOMETRIES))
+def k3_geometry(name):
+    """(B, S_in, S_out, Cin, Cout, f_in, f_out, stride) of a test case."""
+    if name in EDGE_GEOMETRIES:
+        return EDGE_GEOMETRIES[name]
+    cin, cout, stride = FULL_GEOMETRIES[name]
+    return 2, 45, 45 if stride == 1 else 58, cin, cout, 8, 8, stride
+
+
+@pytest.mark.parametrize('geometry', list(FULL_GEOMETRIES)
+                         + list(EDGE_GEOMETRIES))
 def test_k3_tensor_core_schedule_matches_plain(geometry):
-    cin, cout, stride = FULL_GEOMETRIES[geometry]
-    fold = 8
-    s_in, s_out = 45, 70 if stride == 1 else 58
-    if stride == 1:
-        s_out = s_in
+    B, s_in, s_out, cin, cout, f_in, f_out, stride = k3_geometry(geometry)
     feats, nbr, mask, weight = (torch.from_numpy(x) for x in
-                                random_zwin_inputs(11, 2, s_in, s_out, cin,
-                                                   cout, fold))
-    args = (fold, fold, stride)
+                                random_zwin_inputs(11, B, s_in, s_out, cin,
+                                                   cout, f_in))
+    args = (f_in, f_out, stride)
     want = tzw.zwin_conv_plain(feats, mask, nbr, weight, *args)
-    got = k3_schedule(feats, mask, nbr, weight, *args)
-    assert got.shape == want.shape == (2, s_out, fold * cout)
+    got, issued, src, zb = k3_schedule(feats, mask, nbr, weight, *args)
+    assert got.shape == want.shape == (B, s_out, f_out * cout)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
 
-    for ds, (zi_lo, nzi) in enumerate(tzw.z_bands(fold, fold, stride)):
-        pairs = tzw.band_pairs(fold, fold, stride, ds)
+    # every product is for a tap some row of its tile finds and a dz with
+    # a valid (zo, zi) pair in its warpgroup's out cells, and none is
+    # issued twice per part
+    bands = tzw.z_bands(f_in, f_out, stride)
+    rows_t = TILE // zb
+    half = -(-f_out // (2 * zb)) * zb       # out cells of warpgroup 0
+    for _, tile, t, wg, _, dz in issued:
+        assert bool((src[tile * rows_t:(tile + 1) * rows_t, t] >= 0).any())
+        pairs = tzw.band_pairs(f_in, f_out, stride, t % 3)
+        assert any((zo, dz) in pairs
+                   for zo in range(wg * half, min(f_out, (wg + 1) * half)))
+        assert bands[t % 3][1] > 0
+    assert len(set(issued)) == len(issued)
+    plan = tzw.bf16_plan(cin, cout, max(n for _, n in bands))
+    assert plan[2] >= tzw.MIN_STAGES and (cout // plan[1]) % 8 == 0
+    if geometry in FULL_GEOMETRIES:
+        # (zb, Cout parts): the 48-channel layers take blocks of two and
+        # four cells, so both keep their whole kernel
+        assert plan[:2] == {'subm48': (2, 1), 'down48_64': (4, 1)}.get(
+            geometry, (1, 1))
+
+    for ds, (zi_lo, nzi) in enumerate(bands):
+        pairs = tzw.band_pairs(f_in, f_out, stride, ds)
         for dz in range(3):
-            zos = [zo for zo in range(fold)
-                   if 0 <= stride * zo + dz - 1 - (ds - 1) * fold < fold]
+            zos = [zo for zo in range(f_out)
+                   if 0 <= stride * zo + dz - 1 - (ds - 1) * f_in < f_in]
             assert zos == [zo for zo, d in pairs if d == dz]
             assert zos == list(range(zos[0], zos[-1] + 1)) if zos else True
-    for zo in range(fold):
-        gemms = sum(0 <= stride * zo + dz - 1 - (ds - 1) * fold < fold
-                    for ds in range(3) for dz in range(3))
-        assert gemms == 3
+    if geometry in FULL_GEOMETRIES:
+        for zo in range(f_out):
+            gemms = sum(0 <= stride * zo + dz - 1 - (ds - 1) * f_in < f_in
+                        for ds in range(3) for dz in range(3))
+            assert gemms == 3
 
 
 def split_p_attention(q, k, v, bias, nWh, nWw, w, shift, heads):
-    """The bf16 body's numerics: fp32 scores and softmax, P V as the
-    products of P's bf16 high and low parts, O normalised and cast."""
+    """The bf16 body's numerics: fp32 scores over three m64 tiles of query
+    rows (padded to 192, zero rows) against the keys padded to 144 (zero
+    rows, scored -inf), fp32 softmax, P V as the products of P's bf16 high
+    and low parts, O normalised and cast; the padding rows dropped."""
     bn, n, c = q.shape
     d = c // heads
+    np_, mp = 144, 192
     qh, kh, vh = (t.float().reshape(bn, n, heads, d).transpose(1, 2)
                   for t in (q, k, v))
-    s = qh @ kh.transpose(-1, -2) * d ** -0.5 + bias[None]
+    qp = torch.zeros(bn, heads, mp, d)
+    qp[:, :, :n] = qh
+    kp, vp = (torch.zeros(bn, heads, np_, d) for _ in range(2))
+    kp[:, :, :n], vp[:, :, :n] = kh, vh
+    bp = torch.zeros(heads, mp, np_)
+    bp[:, :n, :n] = bias
+    s = qp @ kp.transpose(-1, -2) * d ** -0.5 + bp[None]
     if shift:
         nw = nWh * nWw
-        m = twa.shift_masks(nWh, nWw, w, shift)
-        s = (s.view(bn // nw, nw, heads, n, n) + m[None, :, None]
-             ).view(bn, heads, n, n)
+        m = torch.zeros(nw, mp, np_)
+        m[:, :n, :n] = twa.shift_masks(nWh, nWw, w, shift)
+        s = (s.view(bn // nw, nw, heads, mp, np_) + m[None, :, None]
+             ).view(bn, heads, mp, np_)
+    s[..., n:] = -torch.inf
     p = torch.exp2((s - s.amax(-1, keepdim=True)) * 1.4426950408889634)
     hi = p.bfloat16().float()
     lo = (p - hi).bfloat16().float()
-    o = (hi @ vh + lo @ vh) / p.sum(-1, keepdim=True)
-    return o.transpose(1, 2).reshape(bn, n, c).bfloat16()
+    o = (hi @ vp + lo @ vp) / p.sum(-1, keepdim=True)
+    return o[:, :, :n].transpose(1, 2).reshape(bn, n, c).bfloat16()
 
 
-@pytest.mark.parametrize('shift', [0, 6])
-@pytest.mark.parametrize('heads', [4, 8, 16, 32])
-def test_k2_split_probabilities_within_card_tolerance(heads, shift):
-    w, nWh, nWw = 12, 2, 2
+def k2_within_tolerance(heads, shift, w, nWh, nWw, seed):
     n, c, bn = w * w, 32 * heads, nWh * nWw
-    rng = np.random.RandomState(heads + shift)
+    rng = np.random.RandomState(seed)
     qkv = torch.from_numpy(rng.randn(bn, n, 3 * c).astype(np.float32)
                            ).bfloat16()
     q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
@@ -183,6 +260,19 @@ def test_k2_split_probabilities_within_card_tolerance(heads, shift):
     bound = WA_TOL['atol'] + WA_TOL['rtol'] * want.abs()
     assert bool(((got - want).abs() <= bound).all()), \
         (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize('shift', [0, 6])
+@pytest.mark.parametrize('heads', [4, 8, 16, 32])
+def test_k2_split_probabilities_within_card_tolerance(heads, shift):
+    k2_within_tolerance(heads, shift, 12, 2, 2, heads + shift)
+
+
+@pytest.mark.parametrize('w,heads,shift', [(7, 2, 0), (7, 2, 3), (10, 4, 0),
+                                           (10, 4, 5)])
+def test_k2_padded_windows_within_card_tolerance(w, heads, shift):
+    # N = 49 and 100: keys padded to 144, query rows to 192
+    k2_within_tolerance(heads, shift, w, 2, 3, w + heads + shift)
 
 
 @pytest.mark.parametrize('kind', ['contiguous', 'compute_only'])

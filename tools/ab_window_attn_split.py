@@ -29,8 +29,7 @@ from fusionocc_tpu_torch.config import full_model_config  # noqa: E402
 from fusionocc_tpu_torch.ops import kernels  # noqa: E402
 from fusionocc_tpu_torch.ops import window_attn as wa  # noqa: E402
 
-LO_PRODUCTS = """        tc::mma_bf16(o[2 * dp], lo, vb[0], vb[1]);
-        tc::mma_bf16(o[2 * dp + 1], lo, vb[2], vb[3]);
+LO_PRODUCTS = """            hw::wgmma_m64n32k16_rs<1>(o_lo, lo[kk], dv, 1);
 """
 
 

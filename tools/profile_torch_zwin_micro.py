@@ -24,8 +24,9 @@ and prints each time (CUDA events over ``--reps`` calls) and its share of
 (b), then the tensor-core work of the call: what the inputs need (each
 found tap of an active row times its band's valid (zo, zi) cell pairs,
 the count of ``chip_smoke.py``'s bound) and what the bf16 body issues
-(every row of a 32-row block for each tap that some active row of the
-block finds).  (b), (e) and (f) compute the contract on their maps and are held
+(for each tap that some active row of a tile finds, each dz and each
+consumer warpgroup with a valid (zo, zi) pair among its out cells, all of
+its m64 blocks, every row of them).  (b), (e) and (f) compute the contract on their maps and are held
 against the plain version within ``chip_smoke.ZWIN_TOL`` (one bf16 ulp);
 (d) is checked to run without a CUDA error.  ``chip_smoke.py`` phase 3 runs it once.  Needs a CUDA
 GPU.
@@ -97,14 +98,26 @@ def tensor_core_work(args):
     from fusionocc_tpu_torch.ops import zwin_conv as zw
     feats, mask_out, nbr, weight, f_in, f_out, stride = args
     cin, cout = weight.shape[1], weight.shape[2]
+    bands = zw.z_bands(f_in, f_out, stride)
+    zb = zw.built_bf16_plan(cin, cout, max(n for _, n in bands))[0]
+    rows_t = zw.TILE // zb
+    half = -(-f_out // (2 * zb)) * zb          # out cells of warpgroup 0
     found = ((nbr < feats.shape[1]) & mask_out[..., None]).reshape(-1, 27)
-    blocks = torch.cat([found, found.new_zeros(-found.shape[0] % 32, 27)]
-                       ).view(-1, 32, 27).any(1)
-    flops = torch.tensor([2 * cin * cout * len(zw.band_pairs(
-        f_in, f_out, stride, t % 3)) for t in range(27)],
-        dtype=torch.float64, device=nbr.device)
-    needed = (found.sum(0).double() * flops).sum().item()
-    issued = (blocks.sum(0).double() * 32 * flops).sum().item()
+    tiles = torch.cat([found, found.new_zeros(-found.shape[0] % rows_t, 27)]
+                      ).view(-1, rows_t, 27).any(1)
+    needed_t, issued_t = [], []
+    for t in range(27):
+        pairs = zw.band_pairs(f_in, f_out, stride, t % 3)
+        needed_t.append(2 * cin * cout * len(pairs))
+        # per dz, each warpgroup with a valid pair runs all its 4 / zb
+        # m64 blocks
+        groups = sum(any((zo, dz) in pairs for zo in
+                         range(wg * half, min(f_out, (wg + 1) * half)))
+                     for dz in range(3) for wg in range(2))
+        issued_t.append(groups * (4 // zb) * zw.TILE * 2 * cin * cout)
+    as_t = lambda x: torch.tensor(x, dtype=torch.float64, device=nbr.device)
+    needed = (found.sum(0).double() * as_t(needed_t)).sum().item()
+    issued = (tiles.sum(0).double() * as_t(issued_t)).sum().item()
     return needed / 1e9, issued / 1e9
 
 
