@@ -1,0 +1,162 @@
+"""LiDAR branch: voxelization and the z-folded sparse 3D conv encoder.
+
+Port of ``fusionocc_tpu/models/lidar_encoder.py``, the ``backend='zfold'``
+path:
+
+    points -> voxelize_mean -> conv_input (1x1) -> zfold_regroup
+    -> stages 0 .. dense_from-1: SubM convs, then a stride-2 conv, each
+       conv (ops/zwin_conv.py, kernel K3) masked to its super rows, then
+       MaskedBatchNorm on the cell lane mask, then ReLU; with
+       ``zwin_fuse`` in eval mode the three are one launch
+       (``zwin_conv_epi``: the BatchNorm's affine, the ReLU and the lane
+       mask in K3's epilogue), as the JAX package's eval path with
+       ``zwin_fuse=True`` runs them; training always runs the chain, the
+       conv through the ``ZwinConv`` autograd Function and the BatchNorm
+       with batch statistics over the active cells
+    -> stages dense_from ..: the masked dense tail (ops/dense_conv.py)
+    -> conv_out (1x1) -> (B, Z, Y, X, C_out), the image voxel layout.
+
+Each stage builds one neighbour table on its super grid, shared by its SubM
+convs and its stride-2 conv.  Stage i keeps ``zfold_capacity[i]`` super
+rows at most, as the JAX package does.  The index builds run on the whole
+batch at once; an encoder pass waits for the card five times, once for
+each padded width (the voxels, the super rows, each sparse stage's
+stride-2 output set), at any batch size.  The dense tail's BatchNorms stay
+unfused, as in JAX.  The encoder is built in eval mode.
+
+The last stage always runs in the dense tail.  It has no stride-2 conv, so
+its active set is the one the stage before it made, and a masked dense SubM
+conv computes on it what the sparse one would: ``dense_from`` = 4 (every
+stage sparse in the JAX package) gives the result of 3.
+
+Module and parameter names are the reference's (``conv_input.0``,
+``encoder_layers.encoder_layer{i}.{j}.{0,1}``, ``conv_out.0``); conv weights
+keep spconv2's (O, k, k, k, I) layout, so a reference ``state_dict`` loads
+directly.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .config import GridConfig, SparseEncoderConfig
+from .layers import MaskedBatchNorm
+from .dense_conv import dense_conv3d, dense_from_zfold, strided_out_mask
+from .sparse_conv import (out_shape_strided, sparse_conv1x1_apply,
+                          stage_indices_table)
+from .voxelize import voxelize_mean
+from .zfold import (ZFoldVoxels, as_sparse, strided_lane_mask,
+                         super_shape, zfold_regroup)
+from .zwin_conv import zwin_conv, zwin_conv_epi
+
+
+class SpConv(nn.Module):
+    """An spconv weight, (O, k, k, k, I); ``kernel()`` gives the JAX layout
+    (27, I, O) for k = 3, (I, O) for k = 1."""
+
+    def __init__(self, cin: int, cout: int, k: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(cout, k, k, k, cin))
+
+    def kernel(self) -> torch.Tensor:
+        O, k = self.weight.shape[0], self.weight.shape[1]
+        w = self.weight.reshape(O, k ** 3, -1).permute(1, 2, 0)
+        return w[0] if k == 1 else w
+
+
+class SparseConvBN(nn.Sequential):
+    """A 3x3x3 conv (key ``0``), masked BN (key ``1``) and ReLU: the JAX
+    package's ``SubMConvBN`` (stride 1) and ``SparseConvBNStride2``, in
+    their z-folded and dense modes.  ``fuse`` runs the z-folded mode as one
+    fused launch (``zwin_fuse``) in eval mode."""
+
+    def __init__(self, cin: int, cout: int, stride: int, fuse: bool = False):
+        super().__init__(SpConv(cin, cout, 3), MaskedBatchNorm(cout))
+        self.stride, self.fuse = stride, fuse
+
+    def zfold(self, feats, mask_out, nbr, lane_mask, f_in: int, f_out: int):
+        """feats (B, S_in, f_in*Cin) -> (B, S_out, f_out*Cout); lane_mask
+        is the output's cell lane mask (B, S_out, f_out)."""
+        w = self[0].kernel()
+        if self.fuse and not self.training:
+            inv, shift = self[1].scale_shift()
+            return zwin_conv_epi(feats, mask_out, nbr, w, f_in, f_out,
+                                 self.stride, inv.repeat(f_out),
+                                 shift.repeat(f_out), lane_mask)
+        y = zwin_conv(feats, mask_out, nbr, w, f_in, f_out, self.stride)
+        return F.relu(self[1](y, lane_mask))
+
+    def dense(self, x, mask):
+        """x (B, X, Y, Z, Cin) -> (B, X', Y', Z', Cout); mask is the
+        output's active set."""
+        return F.relu(self[1](
+            dense_conv3d(x, self[0].kernel(), self.stride), mask))
+
+
+class SparseEncoder(nn.Module):
+    """Points (B, P, 5) + mask (B, P) -> dense (B, Z, Y, X, C_out).
+
+    ``dtype`` is the compute dtype; parameters are float32 on ``device``.
+    """
+
+    def __init__(self, cfg: SparseEncoderConfig, grid: GridConfig,
+                 dtype: torch.dtype = torch.float32, device='cuda'):
+        super().__init__()
+        self.cfg, self.grid, self.dtype = cfg, grid, dtype
+        with torch.device(device):
+            self.conv_input = nn.Sequential(
+                SpConv(cfg.in_channels, cfg.base_channels, 1))
+            layers, cin = {}, cfg.base_channels
+            last = len(cfg.encoder_channels) - 1
+            for i, blocks in enumerate(cfg.encoder_channels):
+                convs = []
+                for j, c in enumerate(blocks):
+                    down = i < last and j == len(blocks) - 1
+                    convs.append(SparseConvBN(cin, c, 2 if down else 1,
+                                              cfg.zwin_fuse))
+                    cin = c
+                layers[f'encoder_layer{i + 1}'] = nn.Sequential(*convs)
+            self.encoder_layers = nn.ModuleDict(layers)
+            self.conv_out = nn.Sequential(
+                SpConv(cin, cfg.output_channels, 1))
+        self.eval()     # inference semantics until train() is called
+
+    def forward(self, points: torch.Tensor,
+                points_mask: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        cells = cfg.sparse_shape(self.grid)
+        sp = voxelize_mean(points, points_mask, self.grid.point_cloud_range,
+                           cfg.voxel_size, cells, cfg.voxel_capacity[0])
+        feats = sparse_conv1x1_apply(sp.feats.to(self.dtype), sp.mask,
+                                     self.conv_input[0].kernel())
+        zf = zfold_regroup(sp._replace(feats=feats), cells,
+                           cfg.zfold_capacity[0], min(cfg.zfold, cells[2]))
+        dense_from = min(cfg.dense_from, len(cfg.encoder_channels) - 1)
+        for i in range(dense_from):
+            layer = self.encoder_layers[f'encoder_layer{i + 1}']
+            nbr, ((oc, okeys, om, snbr), _) = stage_indices_table(
+                as_sparse(zf), super_shape(cells, zf.fold),
+                cfg.zfold_capacity[i + 1])
+            f = zf.feats
+            for conv in layer[:-1]:
+                f = conv.zfold(f, zf.mask, nbr, zf.lane_mask, zf.fold,
+                               zf.fold)
+            cells = out_shape_strided(cells)
+            f_out = min(cfg.zfold, cells[2])
+            lane = strided_lane_mask(zf.lane_mask, om, snbr, zf.fold, f_out)
+            f = layer[-1].zfold(f, om, snbr, lane, zf.fold, f_out)
+            zf = ZFoldVoxels(f, oc, okeys, om, lane, f_out)
+        return self._dense_tail(zf, cells, dense_from)
+
+    def _dense_tail(self, zf: ZFoldVoxels, cells, start: int):
+        """Masked dense convs for stages >= ``start``, then conv_out."""
+        x, mask = dense_from_zfold(zf, cells, zf.feats.shape[-1] // zf.fold)
+        for i in range(start, len(self.cfg.encoder_channels)):
+            for conv in self.encoder_layers[f'encoder_layer{i + 1}']:
+                if conv.stride == 2:
+                    mask = strided_out_mask(mask)
+                x = conv.dense(x, mask)
+        # x is exact zero at inactive cells: conv_out needs no re-mask
+        y = x @ self.conv_out[0].kernel().to(x.dtype)
+        return y.permute(0, 3, 2, 1, 4)
