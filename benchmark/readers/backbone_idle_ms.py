@@ -1,0 +1,11 @@
+"""Device idle ms per unit while the host is inside the camera backbone (the
+device's gaps intersected with the span ``camera.backbone``, every camera
+pass of the unit), in the spans stretch's pass under the profiler (CUDA
+activity alone)."""
+from harness.spans import per_unit
+
+NEEDS_SPANS = True      # the spans stretch (harness/spans.py)
+
+
+def read(data, name):
+    return per_unit(data, 'traced', 'camera.backbone', 'idle_ms')

@@ -15,6 +15,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .utils import profiling
+
 
 # ---------------------------------------------------------------------------
 # Host-side (numpy, float64) pose utilities.
@@ -100,7 +102,8 @@ def make_frustum(depth_cfg: Tuple[float, float, float],
     y = np.linspace(0, h_in - 1, h_feat, dtype=np.float32)
     y = np.broadcast_to(y[None, :, None], (num_d, h_feat, w_feat))
     frustum = np.stack([x, y, d], axis=-1).astype(np.float32)
-    return torch.from_numpy(frustum).to(device)
+    with profiling.wait('frustum.copy'):
+        return torch.from_numpy(frustum).to(device)
 
 
 def frustum_to_ego(frustum: torch.Tensor,
@@ -118,12 +121,15 @@ def frustum_to_ego(frustum: torch.Tensor,
     f32 = torch.float32
     pts = (frustum.to(f32)[None, None]
            - post_trans.to(f32)[:, :, None, None, None, :])
-    inv_post = torch.linalg.inv(post_rots.to(f32))
+    with profiling.wait('frustum.inverse'):
+        inv_post = torch.linalg.inv(post_rots.to(f32))
     pts = torch.einsum('bnij,bndhwj->bndhwi', inv_post, pts)
     # (u*d, v*d, d)
     pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], dim=-1)
+    with profiling.wait('frustum.inverse'):
+        inv_intrins = torch.linalg.inv(intrins.to(f32))
     combine = torch.einsum('bnij,bnjk->bnik', sensor2ego[..., :3, :3].to(f32),
-                           torch.linalg.inv(intrins.to(f32)))
+                           inv_intrins)
     pts = torch.einsum('bnij,bndhwj->bndhwi', combine, pts)
     pts = pts + sensor2ego[..., :3, 3].to(f32)[:, :, None, None, None, :]
     return torch.einsum('bij,bndhwj->bndhwi', bda.to(f32), pts)

@@ -72,6 +72,7 @@ from ..nn.swin import SwinTransformer
 from ..ops.bev_pool import PoolingIndex, prepare_pooling_index
 from ..ops.grid_sample import grid_sample_2d
 from ..parallel import spatial
+from ..utils import profiling
 from .fpn import FPN_LSS, LSSFPN3D, CustomResNet3D
 from .lidar_encoder import SparseEncoder, SpConv
 from .lss import CrossModalLSS
@@ -183,10 +184,14 @@ class FinalConv(nn.Module):
 
 def _inference(fn):
     """Run a ``predict*`` method under ``torch.inference_mode`` with eval
-    semantics, whatever mode the model is in."""
+    semantics, whatever mode the model is in, inside an entry span of its
+    name (``utils/profiling.py``)."""
+    name = fn.__name__
+
     @functools.wraps(fn)
     def run(self, *args, **kwargs):
-        with torch.inference_mode(), self.eval_semantics():
+        with (torch.inference_mode(), self.eval_semantics(),
+              profiling.span(name, entry=True)):
             return fn(self, *args, **kwargs)
     return run
 
@@ -244,10 +249,12 @@ class FusionOcc(nn.Module):
         """(B, N, H, W, 3) -> (B, N, h, w, C_neck)."""
         B, N, H, W, _ = imgs.shape
         x = imgs.reshape(B * N, H, W, 3).to(self.cfg.dtype)
-        feats = self.img_backbone(x)
+        with profiling.span('camera.backbone'):
+            feats = self.img_backbone(x)
         if self.cfg.swin.return_stereo_feat:
             feats = feats[1:]
-        y = self.img_neck(feats)
+        with profiling.span('camera.neck'):
+            y = self.img_neck(feats)
         return y.reshape(B, N, *y.shape[1:])
 
     def _frame_voxel_feat(self, imgs_f, s2k_f, s2k_key, intrin_f, post_rot_f,
@@ -265,11 +272,14 @@ class FusionOcc(nn.Module):
                                             sparse_depth, mlp_input, pool_idx)
         x = self.image_encoder(imgs_f)
         if pool_idx is None:
-            pool_idx = frame_pooling_index(self.cfg, s2k_f, intrin_f,
-                                           post_rot_f, post_tran_f, bda)
-        voxel, depth, seg = self.img_view_transformer(
-            x, sparse_depth, mlp_input, pool_idx)
-        return self.pre_process_net(voxel)[0], depth, seg
+            with profiling.span('camera.pooling_index'):
+                pool_idx = frame_pooling_index(self.cfg, s2k_f, intrin_f,
+                                               post_rot_f, post_tran_f, bda)
+        with profiling.span('camera.view_transformer'):
+            voxel, depth, seg = self.img_view_transformer(
+                x, sparse_depth, mlp_input, pool_idx)
+        with profiling.span('camera.pre_process'):
+            return self.pre_process_net(voxel)[0], depth, seg
 
     def _spatial_voxel_feat(self, imgs_f, s2k_f, intrin_f, post_rot_f,
                             post_tran_f, bda, sparse_depth, mlp_input,
@@ -307,16 +317,18 @@ class FusionOcc(nn.Module):
             def mine(t):
                 return t.reshape((1, B * N) + t.shape[2:])[:, a:b]
             if pool_idx is None:
-                pool_idx = frame_pooling_index(cfg, s2k_f, intrin_f,
-                                               post_rot_f, post_tran_f, bda,
-                                               m)
+                with profiling.span('camera.pooling_index'):
+                    pool_idx = frame_pooling_index(cfg, s2k_f, intrin_f,
+                                                   post_rot_f, post_tran_f,
+                                                   bda, m)
             with m.draws(m.d * B * N + a, m.n_data * B * N):
                 x = self.image_encoder(mine(imgs_f))
-                voxel, depth, seg = self.img_view_transformer(
-                    x, mine(sparse_depth), mine(mlp_input), pool_idx,
-                    pool_dtype=torch.float32)
+                with profiling.span('camera.view_transformer'):
+                    voxel, depth, seg = self.img_view_transformer(
+                        x, mine(sparse_depth), mine(mlp_input), pool_idx,
+                        pool_dtype=torch.float32)
         voxel = m.sum_spatial(voxel).to(cfg.dtype)
-        with m.replicated():
+        with m.replicated(), profiling.span('camera.pre_process'):
             voxel = self.pre_process_net(voxel)[0]
         return voxel, depth, seg
 
@@ -382,7 +394,7 @@ class FusionOcc(nn.Module):
                                cfg.lidar_out_channels, dtype=cfg.dtype,
                                device=batch.imgs.device)
         with (contextlib.nullcontext() if self.mesh is None
-              else self.mesh.replicated()):
+              else self.mesh.replicated()), profiling.span('lidar'):
             return self.lidar_encoder(batch.points,
                                       batch.points_mask).to(cfg.dtype)
 
@@ -399,15 +411,18 @@ class FusionOcc(nn.Module):
             fusion = self.mesh.y_block(fusion, 2)
             trunk = functools.partial(spatial.trunk, self)
             final = functools.partial(spatial.final_conv, self)
-        if (self.training and self.cfg.remat_bev
-                and torch.is_grad_enabled()):
-            x = checkpoint(trunk, fusion)
-        else:
-            x = trunk(fusion)
-        x = final(x.permute(0, 4, 1, 2, 3))               # (B, C, Z, Y, X)
-        x = x.permute(0, 4, 3, 2, 1)                      # (B, X, Y, Z, C)
-        h = F.softplus(self.predicter[0](x))
-        return self.predicter[2](h.float())
+        with profiling.span('head'):
+            with profiling.span('head.trunk'):
+                if (self.training and self.cfg.remat_bev
+                        and torch.is_grad_enabled()):
+                    x = checkpoint(trunk, fusion)
+                else:
+                    x = trunk(fusion)
+            with profiling.span('head.final'):
+                x = final(x.permute(0, 4, 1, 2, 3))       # (B, C, Z, Y, X)
+                x = x.permute(0, 4, 3, 2, 1)              # (B, X, Y, Z, C)
+                h = F.softplus(self.predicter[0](x))
+                return self.predicter[2](h.float())
 
     def forward(self, batch: Batch,
                 pool_idxs: Optional[Sequence[PoolingIndex]] = None,
@@ -425,7 +440,9 @@ class FusionOcc(nn.Module):
         the hybrid mesh gathered over the spatial ranks in eval mode, and
         this rank's blocks in training (``local_targets``).
         """
-        out = self._outputs(batch, pool_idxs, batch_frames, pool_idx_folded)
+        with profiling.span('forward', entry=True):
+            out = self._outputs(batch, pool_idxs, batch_frames,
+                                pool_idx_folded)
         if self.mesh is None or self.training:
             return out
         B, F_ = batch.imgs.shape[:2]
@@ -509,8 +526,12 @@ class FusionOcc(nn.Module):
         grid = self.cfg.grid
         B, Z, Y, X, C = feat.shape
         dev = feat.device
-        lo = torch.tensor(grid.lower_bound, dtype=torch.float32, device=dev)
-        step = torch.tensor(grid.interval, dtype=torch.float32, device=dev)
+        with profiling.wait('warp.constant'):
+            lo = torch.tensor(grid.lower_bound, dtype=torch.float32,
+                              device=dev)
+        with profiling.wait('warp.constant'):
+            step = torch.tensor(grid.interval, dtype=torch.float32,
+                                device=dev)
         xs = lo[0] + (torch.arange(X, device=dev) + 0.5) * step[0]
         ys = lo[1] + (torch.arange(Y, device=dev) + 0.5) * step[1]
         gy, gx = torch.meshgrid(ys, xs, indexing='ij')      # (Y, X)
@@ -529,7 +550,8 @@ class FusionOcc(nn.Module):
     def _fused_logits(self, prev_feat, dst2src, valid, voxel, lidar):
         """Warp the cached features, take the frame's own feature where the
         cache is not valid, fuse as [prev, key, lidar] and run the head."""
-        warped = self._shift_bev(prev_feat, dst2src)
+        with profiling.span('stream.warp'):
+            warped = self._shift_bev(prev_feat, dst2src)
         prev = torch.where(valid[:, None, None, None, None], warped, voxel)
         return self._head(torch.cat([prev, voxel, lidar], dim=-1))
 
@@ -545,11 +567,13 @@ class FusionOcc(nn.Module):
         pool_idx: the key frame's pooling index (``frame_pooling_index``),
         else built in the call.  Returns (pred (B, X, Y, Z) uint8, outputs,
         new_state).  The streaming glue (the pose inverse, ``valid`` and
-        ``reset``, the warp) never waits on the card; the LiDAR encoder
-        waits five times, once per padded width of its index builds
-        (``models/lidar_encoder.py``), and building ``pool_idx`` in the call
-        waits too (``ops/bev_pool.prepare_pooling_index``: its constants
-        copied from the host and ``long_runs``' ``nonzero``).
+        ``reset``) never waits on the card; the warp waits twice (its two
+        constants copied from the host), the LiDAR encoder five times, once
+        per padded width of its index builds (``models/lidar_encoder.py``),
+        and building ``pool_idx`` in the call six times (the frustum copied
+        from the host, two matrix inverses, the two constants of
+        ``ops/bev_pool.prepare_pooling_index`` and ``long_runs``'
+        ``nonzero``).  Each is a ``utils/profiling.wait`` site.
         """
         self._check_streaming(batch)
         valid = state.valid if reset is None else state.valid & ~reset

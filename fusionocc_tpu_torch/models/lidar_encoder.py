@@ -52,6 +52,7 @@ from ..ops.voxelize import voxelize_mean
 from ..ops.zfold import (ZFoldVoxels, as_sparse, strided_lane_mask,
                          super_shape, zfold_regroup)
 from ..ops.zwin_conv import zwin_conv, zwin_conv_epi
+from ..utils import profiling
 
 
 class SpConv(nn.Module):
@@ -123,34 +124,46 @@ class SparseEncoder(nn.Module):
             self.encoder_layers = nn.ModuleDict(layers)
             self.conv_out = nn.Sequential(
                 SpConv(cin, cfg.output_channels, 1))
+        # the spans of each stage's index build and convs (profiling.span)
+        self.stage_spans = [(f'lidar.stage{i}.index', f'lidar.stage{i}.convs')
+                            for i in range(len(cfg.encoder_channels))]
         self.eval()     # inference semantics until train() is called
 
     def forward(self, points: torch.Tensor,
                 points_mask: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         cells = cfg.sparse_shape(self.grid)
-        sp = voxelize_mean(points, points_mask, self.grid.point_cloud_range,
-                           cfg.voxel_size, cells, cfg.voxel_capacity[0])
+        with profiling.span('lidar.voxelize'):
+            sp = voxelize_mean(points, points_mask,
+                               self.grid.point_cloud_range, cfg.voxel_size,
+                               cells, cfg.voxel_capacity[0])
         feats = sparse_conv1x1_apply(sp.feats.to(self.dtype), sp.mask,
                                      self.conv_input[0].kernel())
-        zf = zfold_regroup(sp._replace(feats=feats), cells,
-                           cfg.zfold_capacity[0], min(cfg.zfold, cells[2]))
+        with profiling.span('lidar.regroup'):
+            zf = zfold_regroup(sp._replace(feats=feats), cells,
+                               cfg.zfold_capacity[0],
+                               min(cfg.zfold, cells[2]))
         dense_from = min(cfg.dense_from, len(cfg.encoder_channels) - 1)
         for i in range(dense_from):
             layer = self.encoder_layers[f'encoder_layer{i + 1}']
-            nbr, ((oc, okeys, om, snbr), _) = stage_indices_table(
-                as_sparse(zf), super_shape(cells, zf.fold),
-                cfg.zfold_capacity[i + 1])
-            f = zf.feats
-            for conv in layer[:-1]:
-                f = conv.zfold(f, zf.mask, nbr, zf.lane_mask, zf.fold,
-                               zf.fold)
-            cells = out_shape_strided(cells)
-            f_out = min(cfg.zfold, cells[2])
-            lane = strided_lane_mask(zf.lane_mask, om, snbr, zf.fold, f_out)
-            f = layer[-1].zfold(f, om, snbr, lane, zf.fold, f_out)
+            index_span, convs_span = self.stage_spans[i]
+            with profiling.span(index_span):
+                nbr, ((oc, okeys, om, snbr), _) = stage_indices_table(
+                    as_sparse(zf), super_shape(cells, zf.fold),
+                    cfg.zfold_capacity[i + 1])
+            with profiling.span(convs_span):
+                f = zf.feats
+                for conv in layer[:-1]:
+                    f = conv.zfold(f, zf.mask, nbr, zf.lane_mask, zf.fold,
+                                   zf.fold)
+                cells = out_shape_strided(cells)
+                f_out = min(cfg.zfold, cells[2])
+                lane = strided_lane_mask(zf.lane_mask, om, snbr, zf.fold,
+                                         f_out)
+                f = layer[-1].zfold(f, om, snbr, lane, zf.fold, f_out)
             zf = ZFoldVoxels(f, oc, okeys, om, lane, f_out)
-        return self._dense_tail(zf, cells, dense_from)
+        with profiling.span('lidar.dense_tail'):
+            return self._dense_tail(zf, cells, dense_from)
 
     def _dense_tail(self, zf: ZFoldVoxels, cells, start: int):
         """Masked dense convs for stages >= ``start``, then conv_out."""

@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..config import GridConfig
+from ..utils import profiling
 from .kernels import KERNELS, exporting, stream_ptr
 
 
@@ -82,7 +83,8 @@ def long_runs(bounds: torch.Tensor, max_short: int,
                                  fill_value=-1).flatten()
         key = torch.where(v >= 0, n[v.clamp_min(0)], -1)
     else:
-        v = torch.nonzero(n > max_short).flatten()
+        with profiling.wait('long_runs'):
+            v = torch.nonzero(n > max_short).flatten()
         key = n[v]
     order = torch.sort(key, descending=True, stable=True).indices
     return v[order].to(torch.int32)
@@ -106,8 +108,12 @@ def prepare_pooling_index(coor: torch.Tensor, grid: GridConfig,
         # the ranks and bounds are int32 (the kernel's offsets are int64)
         raise ValueError(f'{P} points or {num_voxels} voxels exceed int32')
     dev = coor.device
-    lower = torch.tensor(grid.lower_bound, dtype=torch.float32, device=dev)
-    interval = torch.tensor(grid.interval, dtype=torch.float32, device=dev)
+    with profiling.wait('pooling_index.constant'):
+        lower = torch.tensor(grid.lower_bound, dtype=torch.float32,
+                             device=dev)
+    with profiling.wait('pooling_index.constant'):
+        interval = torch.tensor(grid.interval, dtype=torch.float32,
+                                device=dev)
 
     coor = coor.reshape((B * N,) + coor.shape[2:])[a:b]
     v = torch.floor((coor.float() - lower) / interval).to(torch.int32)

@@ -28,6 +28,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils import profiling
 from .kernels import exporting
 
 
@@ -81,7 +82,8 @@ def padded_width(n: torch.Tensor, capacity: int) -> int:
     result is the same."""
     if exporting():
         return capacity
-    return int(n.max()) if n.numel() else 0
+    with profiling.wait('padded_width'):
+        return int(n.max()) if n.numel() else 0
 
 
 def key_set(keys: torch.Tensor, mask: torch.Tensor,

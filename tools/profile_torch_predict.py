@@ -1,41 +1,40 @@
 """Where one full-size ``predict`` of the PyTorch port, or one
 ``predict_streaming`` frame, in the default multi-modal configuration,
-spends its time on the GPU.
+spends its time on the GPU, by the program's own spans and waits.
 
     python3 tools/profile_torch_predict.py [--iters 3] [--top 25] [--streaming]
-        [--zwin-fuse] [--int8]
+        [--zwin-fuse] [--int8] [--out-dir work_dirs/profile_torch_predict]
 
 Builds the model as ``chip_smoke.py`` does (bf16, seeded random weights,
-synthetic batch, cached pooling indices), warms up, then over ``--iters``
-steps reports, where a step is one two-pass ``predict`` or, with
-``--streaming``, one ``predict_streaming`` frame on the cache the step
-before left (the same frame each step: the warp costs the same whatever
-the motion):
+synthetic batch), warms up, then reports, where a step is one two-pass
+``predict`` with the key frame's pooling index cached and the adjacent
+frame's built in the call (the evaluation's semantics) or, with
+``--streaming``, one ``predict_streaming`` frame with the key index cached,
+on the cache the step before left (the same frame each step: the warp
+costs the same whatever the motion):
 
-- ms per step and the device time of each top-level submodule (the
-  LiDAR encoder included) and of the view transformer's parts, from CUDA
-  events recorded by forward hooks (each camera pass enters the camera
-  modules once: two per predict, one per streaming frame), with the
-  profiler off;
-- the LiDAR encoder's steps the same way: its functions (voxelization,
-  regroup, index builds, the zwin convs, the dense tail) wrapped in CUDA
-  events for the run, and its masked BatchNorms hooked; with
-  ``--streaming`` also the cache warp (``_shift_bev``); with
-  ``--zwin-fuse`` the encoder runs K3 with its fused epilogue
-  (``zwin_conv_epi``: the sparse stages' BatchNorms and ReLUs are in it,
-  so only the dense tail's two BatchNorms are hooked); with ``--int8``
-  Swin-B's Linears take int8 products (``swin.int8_dense``);
-- then, over as many steps under ``torch.profiler``, the kernels with the
-  most device time and the summed kernel time per step;
-- the device idle share: 1 - kernel time / unprofiled wall time.
+- ms per step with the port's tracing off and on, alternated, without a
+  profiler;
+- over ``--iters`` steps with the port's tracing on
+  (``utils/profiling.tracing``), per step: per span its calls, device ms
+  (its CUDA events), host ms, its waits and their host ms, without a
+  profiler; the device's idle inside it (children included) and its own,
+  under ``torch.profiler`` (CUDA activity alone, the same steps again);
+  the wait sites; the idle no span covers; the clock check
+  (``benchmark/harness/spans.py``'s ``record``, the benchmark's own; the
+  trace with the spans merged in written to ``--out-dir``, for Perfetto);
+- then, over as many steps under ``torch.profiler`` with the host's
+  operations too, the kernels with the most device time.
 
-Needs a CUDA GPU.
+With ``--zwin-fuse`` the encoder runs K3 with its fused epilogue
+(``zwin_conv_epi``); with ``--int8`` Swin-B's Linears take int8 products
+(``swin.int8_dense``).  Needs a CUDA GPU.
 """
 from __future__ import annotations
 
 import argparse
-import collections
 import dataclasses
+import statistics
 import subprocess
 import sys
 import time
@@ -43,80 +42,28 @@ from pathlib import Path
 
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
 from fusionocc_tpu_torch.config import full_model_config  # noqa: E402
 from fusionocc_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
-from fusionocc_tpu_torch.models import lidar_encoder  # noqa: E402
 from fusionocc_tpu_torch.models.fusion_occ import (  # noqa: E402
     FusionOcc, batch_pooling_indices, init_weights)
-from fusionocc_tpu_torch.nn.layers import MaskedBatchNorm  # noqa: E402
-
-MODULES = ('img_backbone', 'img_neck', 'img_view_transformer',
-           'img_view_transformer.img_reduce_conv',
-           'img_view_transformer.depth_encoder',
-           'img_view_transformer.cross_model_fusion',
-           'img_view_transformer.further_fuse',
-           'img_view_transformer.depth_seg_net',
-           'pre_process_net', 'lidar_encoder', 'img_bev_encoder_backbone',
-           'img_bev_encoder_neck', 'final_conv')
-# functions the LiDAR encoder calls, by their names in its module
-ENCODER_STEPS = ('voxelize_mean', 'sparse_conv1x1_apply', 'zfold_regroup',
-                 'stage_indices_table', 'strided_lane_mask', 'zwin_conv',
-                 'zwin_conv_epi', 'dense_from_zfold', 'strided_out_mask',
-                 'dense_conv3d')
+from fusionocc_tpu_torch.utils import profiling  # noqa: E402
 
 
-def _record(events, name):
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    events[name].append([ev, None])
-
-
-def _close(events, name):
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    events[name][-1][1] = ev
-
-
-def module_timer(model):
-    """Forward hooks recording CUDA events around each of MODULES."""
-    events = collections.defaultdict(list)
-    handles = []
-
-    def pre(name):
-        return lambda mod, args: _record(events, name)
-
-    def post(name):
-        return lambda mod, args, out: _close(events, name)
-
-    mods = [(name, model.get_submodule(name)) for name in MODULES]
-    mods += [('  MaskedBatchNorm', m) for m in model.lidar_encoder.modules()
-             if isinstance(m, MaskedBatchNorm)]
-    for name, mod in mods:
-        handles.append(mod.register_forward_pre_hook(pre(name)))
-        handles.append(mod.register_forward_hook(post(name)))
-    originals = {name: getattr(lidar_encoder, name) for name in ENCODER_STEPS}
-
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            _record(events, name)
-            out = fn(*args, **kwargs)
-            _close(events, name)
-            return out
-        return call
-    for name, fn in originals.items():
-        setattr(lidar_encoder, name, timed(f'  {name}', fn))
-    # the streaming cache's warp, a method of the model
-    model._shift_bev = timed('_shift_bev (cache warp)', model._shift_bev)
-
-    def remove():
-        for h in handles:
-            h.remove()
-        for name, fn in originals.items():
-            setattr(lidar_encoder, name, fn)
-        del model._shift_bev
-    return events, remove
+def step_ms(step, pairs: int):
+    """Median ms of a synchronised step with the tracing off and on,
+    alternated ``pairs`` times."""
+    ms = {'off': [], 'on': []}
+    for _ in range(pairs):
+        for mode in ms:
+            t0 = time.perf_counter()
+            with profiling.tracing() if mode == 'on' else profiling.NOOP:
+                step()
+                torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in ms.items()}
 
 
 def main() -> None:
@@ -131,9 +78,13 @@ def main() -> None:
     ap.add_argument('--int8', action='store_true',
                     help="Swin-B's Linears through int8 products "
                     '(swin.int8_dense=True)')
+    ap.add_argument('--out-dir', default='work_dirs/profile_torch_predict',
+                    help='where the trace with the spans merged in goes')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit('profile_torch_predict: needs a CUDA GPU')
+    sys.path.insert(0, str(ROOT / 'benchmark'))
+    from harness import spans
     dev = 'cuda:0'
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -153,7 +104,8 @@ def main() -> None:
     model = init_weights(FusionOcc(cfg, device=dev),
                          torch.Generator().manual_seed(0))
     batch = synthetic_batch(cfg, 1, 0, device=dev)
-    idxs = batch_pooling_indices(cfg, batch)
+    idxs = batch_pooling_indices(cfg, batch)[:1]    # the key frame's
+    idxs += [None] * (cfg.num_frame - 1)
     state = model.init_streaming_state(1)
 
     def step():
@@ -167,20 +119,15 @@ def main() -> None:
         step()
     torch.cuda.synchronize()
 
-    events, remove = module_timer(model)
-    t0 = time.perf_counter()
-    for _ in range(args.iters):
-        step()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
-    remove()
-    print(f'ms per {what} (hooks on, profiler off): {wall_ms:.2f}')
-    print(f'device ms per {what} by module (calls per {what}); the LiDAR '
-          "encoder's steps indented below it:")
-    for name in events:
-        ms = sum(a.elapsed_time(b) for a, b in events[name])
-        print(f'  {name:42s} {ms / args.iters:9.3f}  '
-              f'({len(events[name]) // args.iters})')
+    ms = step_ms(step, max(args.iters, 3))
+    print(f'ms per {what} (no profiler): tracing off {ms["off"]:.2f}, '
+          f'on {ms["on"]:.2f}')
+    name = 'streaming' if args.streaming else 'predict'
+    result = spans.record(lambda k: step(), args.iters, Path(args.out_dir),
+                          name)
+    print(f'per {what}, tracing on (idle: under the profiler, CUDA '
+          f'activity); trace: {args.out_dir}/{name}.spans.trace.json')
+    print(spans.table(result))
 
     act = [torch.profiler.ProfilerActivity.CPU,
            torch.profiler.ProfilerActivity.CUDA]
@@ -188,11 +135,6 @@ def main() -> None:
         for _ in range(args.iters):
             step()
         torch.cuda.synchronize()
-    kernel_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    ) / 1e3 / args.iters
-    print(f'kernel time per {what} (profiled) {kernel_ms:.2f} ms; device '
-          f'idle share {1 - kernel_ms / wall_ms:.3f}')
     print(prof.key_averages().table(sort_by='self_device_time_total',
                                     row_limit=args.top,
                                     max_name_column_width=60))

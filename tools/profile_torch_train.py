@@ -10,9 +10,10 @@ steps reports:
 
 - ms per step and its forward / backward / optimizer split (CUDA events at
   ``train_step``'s marks), with the profiler off;
-- the forward's device time in each top-level submodule and the LiDAR
-  encoder's steps (``profile_torch_predict.module_timer``; both temporal
-  frames enter the camera modules, the adjacent one without gradients);
+- the forward's device time in each of the program's spans
+  (``utils/profiling.tracing``: the CUDA events of the camera, LiDAR and
+  head spans, indented under their parents; both temporal frames enter the
+  camera spans, the adjacent one without gradients);
 - within the backward, the device time of the three kernel ``Function``s'
   backwards (``window_attention_bwd``, ``bev_pool_bwd``,
   ``zwin_conv_bwd``, wrapped in CUDA events; the Swin blocks' recompute
@@ -45,8 +46,7 @@ from fusionocc_tpu_torch.models.fusion_occ import (  # noqa: E402
 from fusionocc_tpu_torch.ops import (bev_pool, window_attn,  # noqa: E402
                                      zwin_conv)
 from fusionocc_tpu_torch.train import loop  # noqa: E402
-from tools.profile_torch_predict import (_close, _record,  # noqa: E402
-                                         module_timer)
+from fusionocc_tpu_torch.utils import profiling  # noqa: E402
 
 # (module, backward function) of each kernel Function
 BACKWARDS = ((window_attn, 'window_attention_bwd'),
@@ -60,9 +60,12 @@ def backward_timer():
 
     def timed(name, fn):
         def call(*args, **kwargs):
-            _record(events, name)
+            pair = [torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True)]
+            pair[0].record()
             out = fn(*args, **kwargs)
-            _close(events, name)
+            pair[1].record()
+            events[name].append(pair)
             return out
         return call
     for m, name, fn in originals:
@@ -71,6 +74,21 @@ def backward_timer():
         for m, name, fn in originals:
             setattr(m, name, fn)
     return events, remove
+
+
+def span_rows(records):
+    """(name indented by its depth, calls, summed device ms) of each span
+    name, in the order the names first opened."""
+    by_id = {s['id']: s for s in records['spans']}
+    rows = {}
+    for s in sorted(records['spans'], key=lambda s: s['start_ns']):
+        depth, p = 0, s['parent']
+        while p in by_id:
+            depth, p = depth + 1, by_id[p]['parent']
+        row = rows.setdefault(s['name'], ['  ' * depth + s['name'], 0, 0.0])
+        row[1] += 1
+        row[2] += s['device_ms']
+    return list(rows.values())
 
 
 def main() -> None:
@@ -97,7 +115,6 @@ def main() -> None:
         loop.train_step(model, tc, state, batch)
     torch.cuda.synchronize()
 
-    fwd_events, remove_fwd = module_timer(model)
     bwd_events, remove_bwd = backward_timer()
     parts = collections.defaultdict(list)
 
@@ -106,24 +123,22 @@ def main() -> None:
         ev.record()
         parts[part].append(ev)
     t0 = time.perf_counter()
-    for _ in range(args.iters):
-        mark('start')
-        loop.train_step(model, tc, state, batch, mark)
-    torch.cuda.synchronize()
+    with profiling.tracing() as tr:
+        for _ in range(args.iters):
+            mark('start')
+            loop.train_step(model, tc, state, batch, mark)
+        torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
-    remove_fwd()
     remove_bwd()
-    print(f'ms per train step (hooks on, profiler off): {wall_ms:.2f}')
+    print(f'ms per train step (tracing on, profiler off): {wall_ms:.2f}')
     for a, b in (('start', 'forward'), ('forward', 'backward'),
                  ('backward', 'optimizer')):
         ms = sum(x.elapsed_time(y) for x, y in zip(parts[a], parts[b]))
         print(f'  {b:10s} {ms / args.iters:9.3f} ms')
-    print('forward device ms by module (calls per step); the LiDAR '
-          "encoder's steps indented below it:")
-    for name in fwd_events:
-        ms = sum(x.elapsed_time(y) for x, y in fwd_events[name])
+    print('forward device ms by span (calls per step):')
+    for name, calls, ms in span_rows(tr.collect()):
         print(f'  {name:42s} {ms / args.iters:9.3f}  '
-              f'({len(fwd_events[name]) // args.iters})')
+              f'({calls // args.iters})')
     print('within the backward (calls per step):')
     for name in bwd_events:
         ms = sum(x.elapsed_time(y) for x, y in bwd_events[name])
