@@ -36,7 +36,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    stage 1's SubM launch; then both bf16 bodies at small shapes the main
    path does not give them (K2 with N = 49 and 100, padded to 144; K3,
    plain and fused, with B = 2, Cout = 24, f_out = 4, Cin = 64, random maps
-   with misses and mask holes).
+   with misses and mask holes); then the sparse stages' index builds
+   (``csrc/sparse_index.cu``, the six ``index_*`` entries) against the plain
+   build on the card, at the full-size synthetic clouds, B = 1 and B = 2,
+   every sparse stage chained on the kernels' own output set: keys,
+   coords, masks, both neighbour maps and the strided lane mask equal
+   element for element, each stage's launches, and its ms (CUDA events
+   around the build, which waits once) beside the plain build's.
 4. reference: the midsize multi-modal config in fp32 on the card (the
    kernels' fp32 bodies) against the same weights on the CPU (plain
    versions).
@@ -236,10 +242,13 @@ MIN_AGREE = 0.999                       # voxels, between inference modes
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, no TF32
 PEAK_BYTES = 3.35e12
 QUEUE_CYCLES = 20_000_000   # about 10 ms at the H100's SM clock
-# the kernels of the main paths (K3 with or without its fused epilogue); the
-# launch checks read these counts only
+# a sparse stage's index builds (csrc/sparse_index.cu)
+INDEX_KERNELS = ('index_mark', 'index_count', 'index_prefix', 'index_set',
+                 'index_table', 'index_maps')
+# the kernels of the main paths (K3 with or without its fused epilogue, the
+# index builds); the launch checks read these counts only
 MAIN_KERNELS = ('window_attn_fwd', 'bev_pool_fwd', 'zwin_conv_fwd',
-                'zwin_conv_fwd_epi')
+                'zwin_conv_fwd_epi') + INDEX_KERNELS
 # where an encoder pass may wait for the card: voxelize, regroup, each
 # sparse stage's table build (3), densify
 SYNC_SITES = 6
@@ -268,6 +277,12 @@ KERNEL_BODIES = {
                                       False),
     r'bev_pool_fwd_kernelILb0ELb0E': ('bev_pool_fwd', 'fp32 feat, fp32 out',
                                       False),
+    r'11mark_kernel': ('index_mark', 'occupancy', False),
+    r'12count_kernel': ('index_count', 'tile counts', False),
+    r'13prefix_kernel': ('index_prefix', 'prefix count', False),
+    r'10set_kernel': ('index_set', 'output set', False),
+    r'12table_kernel': ('index_table', 'row table', False),
+    r'11maps_kernel': ('index_maps', 'maps and lane mask', False),
 }
 # SASS opcodes counted per body: Hopper's warpgroup products, the sm_80
 # tensor-core products, TMA loads, cp.async
@@ -882,16 +897,112 @@ def check_edge_shapes(g) -> None:
                     zw.zwin_conv_epi_plain(*args, *epi), **ZWIN_TOL)
 
 
+class plain_index:
+    """Within ``with``, the index ops' CUDA implementations run the plain
+    build (batched aten ops) on the card."""
+
+    NAMES = ('stride2_count', 'stride2_set', 'stage_maps')
+
+    def __enter__(self):
+        from fusionocc_tpu_torch.ops import sparse_conv as sc
+        self.reals = [getattr(sc, f'{n}_cuda') for n in self.NAMES]
+        for n in self.NAMES:
+            setattr(sc, f'{n}_cuda', getattr(sc, f'{n}_plain'))
+        return self
+
+    def __exit__(self, *exc):
+        from fusionocc_tpu_torch.ops import sparse_conv as sc
+        for n, real in zip(self.NAMES, self.reals):
+            setattr(sc, f'{n}_cuda', real)
+
+
+def check_index(cfg, batches) -> dict:
+    """The sparse stages' index builds (``stage_indices_table`` with the
+    lane mask, as the encoder calls it) through the kernels against the
+    plain build on the card, on the full-size synthetic clouds of seeds 0
+    and 1, at B = 1 and 2: every stage, each chained on the kernels'
+    output set (its keys, coords, mask and lane mask: the next stage's
+    input rows), every output equal element for element; per stage the
+    launches and the ms of a build (CUDA events around it; the build waits
+    once, so this is what the stage's index span lasts), the plain
+    build's beside it.  Returns, per batch size, the launches and ms
+    summed over the stages."""
+    from fusionocc_tpu_torch.ops import sparse_conv as sc
+    from fusionocc_tpu_torch.ops.kernels import KERNELS
+    from fusionocc_tpu_torch.ops.voxelize import voxelize_mean
+    from fusionocc_tpu_torch.ops.zfold import (ZFoldVoxels, as_sparse,
+                                               super_shape, zfold_regroup)
+    lc = cfg.lidar
+    out = {}
+    for B in (1, 2):
+        points = torch.cat([b.points for b in batches[:B]])
+        pmask = torch.cat([b.points_mask for b in batches[:B]])
+        cells = lc.sparse_shape(cfg.grid)
+        sp = voxelize_mean(points, pmask, cfg.grid.point_cloud_range,
+                           lc.voxel_size, cells, lc.voxel_capacity[0])
+        zf = zfold_regroup(sp, cells, lc.zfold_capacity[0],
+                           min(lc.zfold, cells[2]))
+        total = {'launches': dict.fromkeys(INDEX_KERNELS, 0), 'ms': 0.0,
+                 'plain_ms': 0.0}
+        for i in range(min(lc.dense_from, len(lc.encoder_channels) - 1)):
+            sshape = super_shape(cells, zf.fold)
+            cells = sc.out_shape_strided(cells)
+            f_out = min(lc.zfold, cells[2])
+            args = (as_sparse(zf), sshape, lc.zfold_capacity[i + 1],
+                    zf.lane_mask, f_out)
+            torch.cuda.synchronize()
+            KERNELS.reset_counts()
+            subm, (got, _) = sc.stage_indices_table(*args)
+            torch.cuda.synchronize()
+            launches = {k: KERNELS.launches[k] for k in INDEX_KERNELS}
+            with plain_index():
+                want_subm, (want, _) = sc.stage_indices_table(*args)
+            name = (f'index stage {i} B={B}: {tuple(zf.keys.shape)} rows '
+                    f'({int(zf.mask.sum())} valid) on {sshape} -> '
+                    f'{int(got[2].sum())} stride-2 rows (capacity '
+                    f'{lc.zfold_capacity[i + 1]}), f {zf.fold}->{f_out}')
+            for part, g, w in zip(('subm map', 'coords', 'keys', 'mask',
+                                   'stride-2 map', 'lane mask'),
+                                  (subm, *got), (want_subm, *want)):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    fail(f'{name}: {part} differs from the plain build')
+            t_k = statistics.median(event_ms(
+                lambda: sc.stage_indices_table(*args), 10))
+            with plain_index():
+                t_p = statistics.median(event_ms(
+                    lambda: sc.stage_indices_table(*args), 10))
+            print(f'  {name}: equal to the plain build (both maps, the out '
+                  f'set, the lane mask); launches {launches}; ms (CUDA '
+                  f'events, median of 10) kernels {t_k:.4f}, plain '
+                  f'{t_p:.4f}', flush=True)
+            for k, v in launches.items():
+                total['launches'][k] += v
+            total['ms'] += t_k
+            total['plain_ms'] += t_p
+            zf = ZFoldVoxels(got[4].float(), got[0], got[1], got[2], got[4],
+                             f_out)
+        if total['launches'] != index_launches(cfg, B):
+            fail(f'index builds at B={B}: launches {total["launches"]}, '
+                 f'expected {index_launches(cfg, B)}')
+        print(f'  index builds B={B}, the {len(total["launches"])} entries '
+              f'over the sparse stages: launches {total["launches"]} (as '
+              f'index_launches), ms summed: kernels {total["ms"]:.4f}, plain '
+              f'{total["plain_ms"]:.4f}', flush=True)
+        out[B] = total
+    return out
+
+
 @torch.inference_mode()
-def phase_kernels(cfg, batch0) -> dict:
+def phase_kernels(cfg, batches) -> tuple:
     print('[3/12] kernels vs plain versions at main-path shapes')
     g = torch.Generator(device=DEV).manual_seed(1234)
+    batch0 = batches[0]
     measured = {'zwin_conv_fwd': check_zwin(cfg, batch0),
                 'zwin_conv_fwd_epi': check_zwin_fused(cfg, batch0),
                 'window_attn_fwd': check_window_attn(cfg, g),
                 'bev_pool_fwd': check_bev_pool(cfg, batch0, g)}
     check_edge_shapes(g)
-    return measured
+    return measured, check_index(cfg, batches)
 
 
 def phase_reference() -> None:
@@ -1102,11 +1213,37 @@ def drive_path(label, cfg, batches, expect) -> dict:
     return totals
 
 
-def launches_per(cfg, camera_passes: int, lidar_passes: int) -> dict:
+def index_launches(cfg, batch: int = 1) -> dict:
+    """Index-build launches of one LiDAR pass of ``batch`` samples: per
+    sparse stage one each of mark, count, prefix and set, and one table
+    scatter and one maps launch per table group
+    (``sparse_conv.TABLE_CELLS`` as it is set when called); none without
+    LiDAR."""
+    from fusionocc_tpu_torch.ops import sparse_conv
+    from fusionocc_tpu_torch.ops.zfold import super_shape
+    lc = cfg.lidar
+    out = dict.fromkeys(INDEX_KERNELS, 0)
+    if not cfg.use_lidar:
+        return out
+    cells = lc.sparse_shape(cfg.grid)
+    for _ in range(min(lc.dense_from, len(lc.encoder_channels) - 1)):
+        fold = min(lc.zfold, cells[2])
+        n_cells = math.prod(super_shape(cells, fold))
+        group = max(1, sparse_conv.TABLE_CELLS // (n_cells + 4))
+        for k in INDEX_KERNELS:
+            out[k] += -(-batch // group) if k in ('index_table',
+                                                   'index_maps') else 1
+        cells = sparse_conv.out_shape_strided(cells)
+    return out
+
+
+def launches_per(cfg, camera_passes: int, lidar_passes: int,
+                 batch: int = 1) -> dict:
     """Main-path launches of a run: one window attention per Swin block and
     one pooling per camera pass, one zwin per sparse-stage conv and LiDAR
     pass (the last stage runs dense; fused with ``zwin_fuse``), whatever
-    the batch of a pass."""
+    the batch of a pass; the index builds of each LiDAR pass of ``batch``
+    samples (``index_launches``)."""
     lc = cfg.lidar
     sparse = lc.encoder_channels[:min(lc.dense_from,
                                       len(lc.encoder_channels) - 1)]
@@ -1114,7 +1251,9 @@ def launches_per(cfg, camera_passes: int, lidar_passes: int) -> dict:
     return {'window_attn_fwd': sum(cfg.swin.depths) * camera_passes,
             'bev_pool_fwd': camera_passes,
             'zwin_conv_fwd': 0 if lc.zwin_fuse else zwin,
-            'zwin_conv_fwd_epi': zwin if lc.zwin_fuse else 0}
+            'zwin_conv_fwd_epi': zwin if lc.zwin_fuse else 0,
+            **{k: v * lidar_passes
+               for k, v in index_launches(cfg, batch).items()}}
 
 
 def fused_config(cfg):
@@ -1517,10 +1656,10 @@ def streaming_modes(cfg, clip, frames, batches, timed: bool) -> None:
         (preds, final), ms, base = clip_run(
             label, lambda: model.predict_streaming_batch(
                 clip, model.init_streaming_state(1), resets, idx, chunk,
-                cam_chunk), launches_per(cfg, cams * blocks, blocks))
+                cam_chunk), launches_per(cfg, cams * blocks, blocks, chunk))
         if timed:
             report_mode(label, ms, 'frame', f'per block of {chunk} frames '
-                        f'{launches_per(cfg, cams, 1)}', base)
+                        f'{launches_per(cfg, cams, 1, chunk)}', base)
             report_encoder(label, 3 * CLIP_FRAMES)
         agreement(f'{label} against the scan', preds, scan_preds, not timed)
         check_cache(label, final, None if timed else scan_state, REF_TOL)
@@ -1578,7 +1717,7 @@ def one_table_fold(model, clip, resets, idx, label) -> None:
         t1 = time.perf_counter()
         counted(label, lambda: model.predict_streaming_batch(
             clip, model.init_streaming_state(1), resets, idx, 8, 4),
-            launches_per(cfg, 2 * CLIP_FRAMES // 8, CLIP_FRAMES // 8))
+            launches_per(cfg, 2 * CLIP_FRAMES // 8, CLIP_FRAMES // 8, 8))
         ms = (time.perf_counter() - t1) * 1e3 / CLIP_FRAMES
     finally:
         sparse_conv.TABLE_CELLS = cells
@@ -1674,7 +1813,8 @@ def train_launches(cfg) -> dict:
     attention per Swin block and frame (the adjacent frames' under
     ``no_grad``), and per block again in the backward's recompute with
     ``with_cp``; a pooling per frame; a zwin launch per sparse-stage conv,
-    unfused (training never fuses)."""
+    unfused (training never fuses); the index builds of one LiDAR pass
+    at batch 1."""
     lc = cfg.lidar
     sparse = lc.encoder_channels[:min(lc.dense_from,
                                       len(lc.encoder_channels) - 1)]
@@ -1682,7 +1822,7 @@ def train_launches(cfg) -> dict:
             * (cfg.num_frame + int(cfg.swin.with_cp)),
             'bev_pool_fwd': cfg.num_frame,
             'zwin_conv_fwd': sum(map(len, sparse)) * cfg.use_lidar,
-            'zwin_conv_fwd_epi': 0}
+            'zwin_conv_fwd_epi': 0, **index_launches(cfg)}
 
 
 def function_grads(fn, inputs, cot):
@@ -2453,7 +2593,7 @@ def phase_eval() -> dict:
         for label, check, passes in (('two-pass', kc, cfg.num_frame),
                                      ('streamed', ks, 1)):
             want = {k: v for k, v in launches_per(cfg, passes, 1).items()
-                    if v}
+                    if v and k in KERNEL_TOLS[torch.bfloat16]}
             got = {k: n for k, (n, _, _) in check.seen.items()}
             if got != want:
                 fail(f'eval {label}: launches per sample {got}, expected '
@@ -3687,7 +3827,7 @@ def main() -> None:
     batches = [synthetic_batch(cfg, 1, s, device=DEV) for s in SLICE_SEEDS]
     print(f'  synthetic batches (seeds {SLICE_SEEDS}) in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
-    measured = phase_kernels(cfg, batches[0])
+    measured, index = phase_kernels(cfg, batches)
     phase_reference()
     launches = phase_slice(batches)
     phase_streaming(batches)
@@ -3725,6 +3865,18 @@ def main() -> None:
                             serving['export_streaming'][name],
                         'lss_base_launches': serving['lss_base'][name],
                         'hybrid_launches': hybrid[name]})
+    kernels.append({
+        'name': 'index_*', 'route': 'cuda',
+        'source': 'fusionocc_tpu_torch/csrc/sparse_index.cu',
+        'replaces': 'none (XLA ops: fusionocc_tpu/ops/sparse_conv.py:392)',
+        'launches': {k: launches[k] for k in INDEX_KERNELS},
+        'ms_per_pass': {B: round(v['ms'], 4) for B, v in index.items()},
+        'plain_ms_per_pass': {B: round(v['plain_ms'], 4)
+                              for B, v in index.items()},
+        'train_launches': {k: train[k] for k in INDEX_KERNELS},
+        'eval_launches': {k: evaluated[k] for k in INDEX_KERNELS},
+        'dist_train_launches': {k: dist_launches[k] for k in INDEX_KERNELS},
+        'hybrid_launches': {k: hybrid[k] for k in INDEX_KERNELS}})
     print(f'whole script: {time.perf_counter() - start:.1f} s', flush=True)
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))

@@ -17,12 +17,14 @@ path:
     -> conv_out (1x1) -> (B, Z, Y, X, C_out), the image voxel layout.
 
 Each stage builds one neighbour table on its super grid, shared by its SubM
-convs and its stride-2 conv.  Stage i keeps ``zfold_capacity[i]`` super
-rows at most, as the JAX package does.  The index builds run on the whole
-batch at once; an encoder pass waits for the card five times, once for
-each padded width (the voxels, the super rows, each sparse stage's
-stride-2 output set), at any batch size.  The dense tail's BatchNorms stay
-unfused, as in JAX.  The encoder is built in eval mode.
+convs and its stride-2 conv; the same pass over it gives the stride-2
+output's cell lane mask (``stage_indices_table`` with the lane mask).
+Stage i keeps ``zfold_capacity[i]`` super rows at most, as the JAX package
+does.  The index builds run on the whole batch at once; an encoder pass
+waits for the card five times, once for each padded width (the voxels, the
+super rows, each sparse stage's stride-2 output set), at any batch size.
+The dense tail's BatchNorms stay unfused, as in JAX.  The encoder is built
+in eval mode.
 
 The last stage always runs in the dense tail.  It has no stride-2 conv, so
 its active set is the one the stage before it made, and a masked dense SubM
@@ -49,8 +51,7 @@ from ..ops.dense_conv import dense_conv3d, dense_from_zfold, strided_out_mask
 from ..ops.sparse_conv import (_downsample_keys, out_shape_strided,
                                sparse_conv1x1_apply, stage_indices_table)
 from ..ops.voxelize import voxelize_mean
-from ..ops.zfold import (ZFoldVoxels, as_sparse, strided_lane_mask,
-                         super_shape, zfold_regroup)
+from ..ops.zfold import ZFoldVoxels, as_sparse, super_shape, zfold_regroup
 from ..ops.zwin_conv import zwin_conv, zwin_conv_epi
 from ..utils import profiling
 
@@ -147,19 +148,18 @@ class SparseEncoder(nn.Module):
         for i in range(dense_from):
             layer = self.encoder_layers[f'encoder_layer{i + 1}']
             index_span, convs_span = self.stage_spans[i]
+            sshape = super_shape(cells, zf.fold)
+            cells = out_shape_strided(cells)
+            f_out = min(cfg.zfold, cells[2])
             with profiling.span(index_span):
-                nbr, ((oc, okeys, om, snbr), _) = stage_indices_table(
-                    as_sparse(zf), super_shape(cells, zf.fold),
-                    cfg.zfold_capacity[i + 1])
+                nbr, ((oc, okeys, om, snbr, lane), _) = stage_indices_table(
+                    as_sparse(zf), sshape, cfg.zfold_capacity[i + 1],
+                    zf.lane_mask, f_out)
             with profiling.span(convs_span):
                 f = zf.feats
                 for conv in layer[:-1]:
                     f = conv.zfold(f, zf.mask, nbr, zf.lane_mask, zf.fold,
                                    zf.fold)
-                cells = out_shape_strided(cells)
-                f_out = min(cfg.zfold, cells[2])
-                lane = strided_lane_mask(zf.lane_mask, om, snbr, zf.fold,
-                                         f_out)
                 f = layer[-1].zfold(f, om, snbr, lane, zf.fold, f_out)
             zf = ZFoldVoxels(f, oc, okeys, om, lane, f_out)
         with profiling.span('lidar.dense_tail'):

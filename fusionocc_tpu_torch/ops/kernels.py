@@ -14,13 +14,15 @@ after its launch, and ``launch`` raises when that is not ``cudaSuccess``.
 kernels its path really used.
 
 Each kernel is a ``torch.library`` custom op in the ``fusionocc``
-namespace (registered by ``ops/bev_pool.py``, ``ops/window_attn.py`` and
-``ops/zwin_conv.py``): its CPU implementation is the plain version, its
-CUDA implementation the wrapper that launches the kernel, and a fake
-implementation gives ``torch.export`` its output's shape.  An exported
-program calls the op, so its launches go through ``launch`` and are
-counted too.  ``exporting()`` tells the index builds to take their static
-capacities instead of reading a padded width from the card.
+namespace (registered by ``ops/bev_pool.py``, ``ops/window_attn.py``,
+``ops/zwin_conv.py`` and, for the six ``index_*`` entries of a sparse
+stage's index builds, ``ops/sparse_conv.py``): its CPU implementation is
+the plain version, its CUDA implementation the wrapper that launches the
+kernel, and a fake implementation gives ``torch.export`` its output's
+shape.  An exported program calls the op, so its launches go through
+``launch`` and are counted too.  ``exporting()`` tells the index builds to
+take their static capacities instead of reading a padded width from the
+card.
 """
 from __future__ import annotations
 
@@ -65,6 +67,20 @@ SIGNATURES['zwin_conv_null'] = SIGNATURES['zwin_conv_fwd']
 SIGNATURES['zwin_conv_fwd_epi'] = (SIGNATURES['zwin_conv_fwd'][:4]
                                    + [_P, _P, _P]
                                    + SIGNATURES['zwin_conv_fwd'][4:])
+# a sparse stage's index builds (csrc/sparse_index.cu, driven by
+# ops/sparse_conv.py): coords, mask, occupancy, B, V, sx, sy, sz, n_pad
+SIGNATURES['index_mark'] = [_P, _P, _P, _I, _I, _I, _I, _I, _L, _P]
+# occupancy, tile offsets, n, done counters, B, T, n_pad, capacity
+SIGNATURES['index_count'] = [_P, _P, _P, _P, _I, _I, _L, _I, _P]
+# occupancy, tile offsets, count, B, T, n_out, n_pad
+SIGNATURES['index_prefix'] = [_P, _P, _P, _I, _I, _I, _L, _P]
+# count, n, keys, coords, mask, B, n_out, S, sy, sz
+SIGNATURES['index_set'] = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# keys, mask, table, G, V, row_len
+SIGNATURES['index_table'] = [_P, _P, _P, _I, _I, _L, _P]
+# table, in coords, in mask, out coords, out mask, in lane mask, SubM map,
+# stride-2 map, out lane mask, G, V, S, sx, sy, sz, row_len, f_in, f_out
+SIGNATURES['index_maps'] = [_P] * 9 + [_I] * 6 + [_L, _I, _I, _P]
 
 
 def find_nvcc() -> str:

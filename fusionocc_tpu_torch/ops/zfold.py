@@ -105,7 +105,10 @@ def strided_lane_mask(lane_mask: torch.Tensor, out_smask: torch.Tensor,
                       ) -> torch.Tensor:
     """Exact out-cell validity of a stride-2 super conv: an out cell is
     active iff any in cell of its 3x3x3 stride-2 field is, computed by the
-    conv's own gather with a 0/1 structure kernel."""
+    conv's own gather with a 0/1 structure kernel.  The encoder takes it
+    from its stage's index build (``ops/sparse_conv.stage_indices_table``
+    with the lane mask), whose CUDA path ORs lane bits in the same pass as
+    the maps; this is that build's plain version."""
     ones = torch.ones(27, 1, 1, device=lane_mask.device)
     w_occ = expand_weight(ones, f_in, f_out, 2)
     occ = sparse_conv_apply(lane_mask.float(), out_smask, nbr, w_occ)

@@ -16,9 +16,10 @@ and ``tools/density_sweep_torch.py``, on the CPU at tiny size.
   but not into a ``pallas_call`` (JAX's config on the kernels' paths,
   fused attention and zwin, so that the same work sits in the pallas_calls
   as in the port's ops).  They agree to 1e-6 relative once the products
-  that differ by design are taken out, each named and pinned below: two
-  JAX-only products, and the port's index builds taken at the static
-  widths of its export path.
+  that differ by design are taken out, each named and pinned below: three
+  JAX-only products (the third the strided lane masks' 0/1 gather-GEMM,
+  which the port's index op computes as an OR of lane bits), and the
+  port's encoder taken at the static widths of its export path.
 - The density sweep's kept rows per cut at 1x and 2x equal, exactly, those
   of JAX's ``voxelize_mean``, ``zfold_regroup`` and ``stage_indices_table``
   (the functions ``tools/density_sweep.py:62-80`` calls) on the same cloud.
@@ -220,15 +221,24 @@ def test_predict_products_match_jax(monkeypatch):
     # torch.linalg.inv
     solve = sum(n for p, n in paths.items() if 'custom_linear_solve' in p)
     assert fallback > 0 and 0 < solve < 10 ** 4
-    # the strided lane mask's gather-GEMM runs over the widest sample in
-    # the port and over the static capacity in JAX: count the port at the
-    # static widths its export path takes
+    # JAX finds each stride-2 set's lane mask by a 0/1 gather-GEMM over its
+    # static capacity, (S, 27 f_in) x (27 f_in, f_out); the port ORs lane
+    # bits inside its index op (``fusionocc::stage_maps``): no product
+    lc, cells, lane = jc.lidar, jc.lidar.sparse_shape(jc.grid), 0
+    for i in range(min(lc.dense_from, len(lc.encoder_channels) - 1)):
+        f_in = min(lc.zfold, cells[2])
+        cells = jsc.out_shape_strided(cells)
+        lane += 2 * lc.zfold_capacity[i + 1] * 27 * f_in * min(lc.zfold,
+                                                                cells[2])
+    # the rest of the encoder runs over the widest sample in the port and
+    # over the static capacity in JAX: count the port at the static widths
+    # its export path takes
     monkeypatch.setattr(voxelize, 'exporting', lambda: True)
     model = init_weights(FusionOcc(tc, device='cpu'),
                          torch.Generator().manual_seed(0))
     batch = synthetic_batch(tc, 1, 0, device='cpu')
     port = flops.count_flops(model, batch, 'predict')
-    want = sum(paths.values()) - fallback - solve
+    want = sum(paths.values()) - fallback - solve - lane
     assert port['outside'] == pytest.approx(want, rel=REL)
     assert port['kernels']['window_attn'] and port['kernels']['zwin_conv']
     assert port['kernels']['bev_pool'] and not port['kernels'][

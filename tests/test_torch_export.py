@@ -13,7 +13,8 @@
   ``lidar.zwin_fuse=True`` (K3's fused epilogue traced as its op) and of
   the ``--int8-weights`` predict; the saved and loaded program's output
   equals eager's exactly, and its graph calls each kernel's op as often as
-  the eager path launches it.
+  the eager path launches it, the three index-build ops of each sparse
+  stage (``ops/sparse_conv.py``) included.
 """
 import collections
 import dataclasses
@@ -141,9 +142,12 @@ def test_export_round_trip_equals_eager(mode, tmp_path):
     program = et.export_program(model, batch, state)
     camera = 1 if state is not None else cfg.num_frame
     zwin = sum(map(len, cfg.lidar.encoder_channels[:3]))
+    # each sparse stage's index builds: the candidates, the set at the
+    # static width, one table group's maps (the tiny tables are small)
     assert _ops_in(program) == {
         'window_attn': sum(cfg.swin.depths) * camera, 'bev_pool': camera,
-        'zwin_conv_epi' if cfg.lidar.zwin_fuse else 'zwin_conv': zwin}
+        'zwin_conv_epi' if cfg.lidar.zwin_fuse else 'zwin_conv': zwin,
+        'stride2_count': 3, 'stride2_set': 3, 'stage_maps': 3}
     path = str(tmp_path / 'program.pt2')
     torch.export.save(program, path)
     got = et.run_loaded(path, batch, state)

@@ -20,7 +20,21 @@ Inputs are made with numpy from a seed and handed to both packages.
 - ``expand_weight``, ``z_bands``, ``MaskedBatchNorm`` (eps 1e-3) and the
   dense tail's conv (against both of JAX's formulations) and stride-2 mask
   against JAX (1e-5).
+- A sparse stage's index builds as custom ops (``fusionocc::stride2_count``,
+  ``stride2_set``, ``stage_maps``): through the ops the CPU path gives the
+  plain build's integers, the stride-2 set's lane mask among them (equal to
+  ``strided_lane_mask`` on the map); the six kernels of
+  ``csrc/sparse_index.cu`` walked in numpy as their threads compute (tiles
+  of the occupancy count, one row per set cell, an OR of lane bits per
+  super z-shift) give the same integers, on one sample, a batch with an
+  empty sample and a capacity cut, and a grid of two tiles; each op passes
+  ``torch.library.opcheck`` (its fake gives the real shapes); and
+  ``torch.export`` traces the encoder with no wait, the three ops once per
+  sparse stage.
 """
+import collections
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +50,10 @@ from fusionocc_tpu.ops import voxelize as jvox
 from fusionocc_tpu.ops import zfold as jzf
 from fusionocc_tpu.ops.pallas.zwin_conv import z_bands as j_z_bands
 from fusionocc_tpu.ops.pallas.zwin_conv import zwin_conv_apply
+from fusionocc_tpu_torch.config import tiny_model_config
+from fusionocc_tpu_torch.data.synthetic import synthetic_batch
+from fusionocc_tpu_torch.models.fusion_occ import init_weights
+from fusionocc_tpu_torch.models.lidar_encoder import SparseEncoder
 from fusionocc_tpu_torch.nn.layers import MaskedBatchNorm
 from fusionocc_tpu_torch.ops import dense_conv as tdc
 from fusionocc_tpu_torch.ops import sparse_conv as tsc
@@ -317,3 +335,199 @@ def test_zwin_cuda_wrapper_refuses_cpu_tensors():
         tzw.zwin_conv_cuda(f, torch.ones(1, 4, dtype=torch.bool),
                            torch.zeros(1, 4, 27, dtype=torch.int32),
                            torch.zeros(27, 2, 3), 8, 8, 1)
+
+
+# (seed, super shape, valid rows per sample, V, stride-2 capacity or None
+# for every cell, f_in, f_out)
+INDEX_CASES = {
+    'one_sample': (0, (24, 20, 4), (300,), 300, 10 ** 6, 8, 8),
+    'batch_cut': (1, (30, 14, 2), (0, 250, 140), 256, 90, 8, 4),
+    'two_tiles': (2, (130, 72, 4), (500, 380), 512, None, 4, 2),
+}
+
+
+def _index_inputs(case):
+    """A stage's input rows: per sample sorted distinct random cells, padded
+    to V (sentinel keys, zero coords), a random lane mask on the valid
+    rows; then the stride-2 shape and capacity."""
+    seed, shape, rows, V, cap, f_in, f_out = INDEX_CASES[case]
+    rng = np.random.RandomState(seed)
+    n_cells = shape[0] * shape[1] * shape[2]
+    keys = np.full((len(rows), V), n_cells, np.int32)
+    for b, r in enumerate(rows):
+        keys[b, :r] = np.sort(rng.choice(n_cells, r, replace=False))
+    mask = np.arange(V) < np.asarray(rows)[:, None]
+    coords, keys, mask = tvox.key_set(_t(keys), _t(mask), shape)
+    lane = _t((rng.rand(len(rows), V, f_in) < 0.4)
+              & np.asarray(mask)[..., None])
+    shape_out = tsc.out_shape_strided(shape)
+    if cap is None:
+        cap = shape_out[0] * shape_out[1] * shape_out[2]
+    return shape, shape_out, coords, keys, mask, lane, cap, f_out
+
+
+def index_walk(shape, coords, keys, mask, lane, capacity, f_out) -> dict:
+    """csrc/sparse_index.cu's six kernels in numpy, as their threads
+    compute: index_mark (each valid row's cells (d + c) >> 1, c in {0, 1}
+    per axis), index_count (tile counts, exclusive tile offsets, n),
+    index_prefix (a tile's offset plus its inclusive count), index_set (a
+    cell where the count steps to c writes row c - 1; rows past n the
+    padding), index_table and index_maps (per row and tap the table's
+    column, miss V; per super z-shift the OR of the found rows' lane bits,
+    out cell zo on where a cell r = 2 zo + dz - 1 of its field is set at
+    shift floor(r / f_in) + 1, lane r mod f_in)."""
+    coords, keys = coords.numpy().astype(np.int64), keys.numpy()
+    mask, lane = mask.numpy(), lane.numpy()
+    B, V = mask.shape
+    f_in = lane.shape[-1]
+    shape_out = tsc.out_shape_strided(shape)
+    sx, sy, sz = shape_out
+    n_out = sx * sy * sz
+    tile = tsc.INDEX_TILE
+    T = -(-n_out // tile)
+    occ = np.zeros((B, T * tile), np.int64)
+    b, v = np.nonzero(mask)
+    for c in itertools.product((0, 1), repeat=3):
+        q = (coords[b, v] + np.asarray(c)) >> 1
+        ok = ((q >= 0) & (q < np.asarray(shape_out))).all(-1)
+        occ[b[ok], (q[ok, 0] * sy + q[ok, 1]) * sz + q[ok, 2]] = 1
+    tiles = occ.reshape(B, T, tile)
+    sums = tiles.sum(-1)
+    offsets = np.cumsum(sums, 1) - sums
+    n = np.minimum(sums.sum(1), capacity)
+    count = (offsets[..., None] + np.cumsum(tiles, -1)).reshape(B, -1)
+    count = count[:, :n_out]
+    S = int(n.max())
+    out_keys = np.full((B, S), n_out)
+    out_coords = np.zeros((B, S, 3), np.int64)
+    out_mask = np.zeros((B, S), bool)
+    prev = np.concatenate([np.zeros((B, 1), np.int64), count[:, :-1]], 1)
+    b, i = np.nonzero((count > prev) & (count <= n[:, None]) & (count <= S))
+    r = count[b, i] - 1
+    out_keys[b, r] = i
+    out_coords[b, r] = np.stack([i // (sy * sz), i % (sy * sz) // sz,
+                                 i % sz], -1)
+    out_mask[b, r] = True
+    table = np.full((B, shape[0] * shape[1] * shape[2] + 4), V)
+    b, v = np.nonzero(mask)
+    table[b, keys[b, v] + 1] = v
+
+    def maps(rows, valid, stride):
+        out = np.empty(rows.shape[:2] + (27,), np.int64)
+        for t, tap in enumerate(tsc.KERNEL_OFFSETS):
+            q = rows * stride + tap - 1
+            ok = valid & ((q >= 0) & (q < np.asarray(shape))).all(-1)
+            col = np.where(ok, (q[..., 0] * shape[1] + q[..., 1]) * shape[2]
+                           + q[..., 2] + 1, 0)
+            out[..., t] = np.where(ok, np.take_along_axis(table, col, 1), V)
+        return out
+    subm, strided = maps(coords, mask, 1), maps(out_coords, out_mask, 2)
+    lane_bits = np.concatenate([(lane * (1 << np.arange(f_in))).sum(-1),
+                                np.zeros((B, 1), np.int64)], 1)
+    bits = np.zeros((B, S, 3), np.int64)
+    for t in range(27):
+        bits[..., t % 3] |= np.take_along_axis(lane_bits, strided[..., t], 1)
+    out_lane = np.zeros((B, S, f_out), bool)
+    for zo, dz in itertools.product(range(f_out), range(3)):
+        rr = 2 * zo + dz - 1
+        ds, zi = (0, f_in - 1) if rr < 0 else (rr // f_in + 1, rr % f_in)
+        out_lane[..., zo] |= ((bits[..., ds] >> zi) & 1) > 0
+    return dict(count=count, n=n, coords=out_coords, keys=out_keys,
+                mask=out_mask, subm=subm, strided=strided, lane=out_lane)
+
+
+@pytest.mark.parametrize('case', list(INDEX_CASES))
+def test_index_ops_and_kernel_walk_equal_the_plain_build(case):
+    shape, shape_out, coords, keys, mask, lane, cap, f_out = \
+        _index_inputs(case)
+    count, n = tsc.stride2_count_op(coords, mask, *shape_out, cap)
+    want_count, want_n = tsc.stride2_count_plain(coords, mask, *shape_out,
+                                                 cap)
+    assert torch.equal(count, want_count) and torch.equal(n, want_n)
+    width = int(n.max())
+    oc, ok, om = tsc.stride2_set_op(count, n, *shape_out, width)
+    for got, want in zip((oc, ok, om), tsc.stride2_set_plain(
+            count, n, *shape_out, width)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    subm, strided, out_lane = tsc.stage_maps_op(keys, coords, mask, oc, om,
+                                                lane, *shape, f_out)
+    assert torch.equal(out_lane, tzf.strided_lane_mask(
+        lane, om, strided, lane.shape[-1], f_out))
+    sp = tvox.SparseVoxels(lane.float(), coords, keys, mask)
+    built = tsc.stage_indices_table(sp, shape, cap, lane, f_out)
+    assert built[1][1] == shape_out
+    for got, want in zip((built[0], *built[1][0]),
+                         (subm, oc, ok, om, strided, out_lane)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    plain = tsc.stage_indices_table(sp, shape, cap)
+    assert len(plain[1][0]) == 4 and torch.equal(plain[1][0][3], strided)
+    walked = index_walk(shape, coords, keys, mask, lane, cap, f_out)
+    got = dict(count=count, n=n, coords=oc, keys=ok, mask=om, subm=subm,
+               strided=strided, lane=out_lane)
+    for name, want in walked.items():
+        np.testing.assert_array_equal(got[name].numpy(), want, err_msg=name)
+    assert int(om.sum()) == int(np.minimum(
+        walked['count'][:, -1], cap).sum())
+
+
+def test_index_cuda_wrappers_refuse_cpu_tensors():
+    _, shape_out, coords, keys, mask, lane, cap, f_out = \
+        _index_inputs('one_sample')
+    with pytest.raises(ValueError, match='CUDA'):
+        tsc.stride2_count_cuda(coords, mask, *shape_out, cap)
+    count, n = tsc.stride2_count_plain(coords, mask, *shape_out, cap)
+    with pytest.raises(ValueError, match='CUDA'):
+        tsc.stride2_set_cuda(count, n, *shape_out, int(n.max()))
+    with pytest.raises(ValueError, match='CUDA'):
+        tsc.stage_maps_cuda(keys, coords, mask, coords, mask, lane, 24, 20,
+                            4, f_out)
+
+
+def _index_op_cases():
+    shape, shape_out, coords, keys, mask, lane, cap, f_out = \
+        _index_inputs('batch_cut')
+    count, n = tsc.stride2_count_plain(coords, mask, *shape_out, cap)
+    oc, _, om = tsc.stride2_set_plain(count, n, *shape_out, int(n.max()))
+    return {
+        'stride2_count': (tsc.stride2_count_op,
+                          (coords, mask, *shape_out, cap)),
+        'stride2_set': (tsc.stride2_set_op,
+                        (count, n, *shape_out, int(n.max()) + 3)),
+        'stage_maps': (tsc.stage_maps_op,
+                       (keys, coords, mask, oc, om, lane, *shape, f_out)),
+        'stage_maps_no_lane': (tsc.stage_maps_op,
+                               (keys, coords, mask, oc, om, None, *shape, 0)),
+    }
+
+
+@pytest.mark.parametrize('name', ['stride2_count', 'stride2_set',
+                                  'stage_maps', 'stage_maps_no_lane'])
+def test_index_op_registration(name):
+    op, args = _index_op_cases()[name]
+    torch.library.opcheck(op, args, test_utils=(
+        'test_schema', 'test_faketensor', 'test_aot_dispatch_static'))
+
+
+def test_encoder_exports_without_a_wait(monkeypatch):
+    cfg = tiny_model_config()
+    enc = init_weights(SparseEncoder(cfg.lidar, cfg.grid, device='cpu'),
+                       torch.Generator().manual_seed(0))
+    b = synthetic_batch(cfg, 1, 0, num_points=512, device='cpu')
+    with torch.no_grad():
+        want = enc(b.points, b.points_mask)
+
+    def no_wait(site):
+        raise AssertionError(f'a wait at {site} while exporting')
+    monkeypatch.setattr(tvox.profiling, 'wait', no_wait)
+    with torch.no_grad():
+        program = torch.export.export(enc, (b.points, b.points_mask),
+                                      strict=False)
+    monkeypatch.undo()
+    ops = collections.Counter(str(n.target).split('.')[1]
+                              for n in program.graph.nodes
+                              if str(n.target).startswith('fusionocc.'))
+    assert dict(ops) == {'stride2_count': 3, 'stride2_set': 3,
+                         'stage_maps': 3, 'zwin_conv': 9}
+    with torch.no_grad():
+        got = program.module()(b.points, b.points_mask)
+    assert torch.equal(got, want)

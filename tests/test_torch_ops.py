@@ -359,4 +359,7 @@ def test_build_without_nvcc_raises_naming_the_command(tmp_path, monkeypatch):
         lib.build()
     assert lib.launches == {'bev_pool_fwd': 0, 'window_attn_fwd': 0,
                             'zwin_conv_fwd': 0, 'zwin_conv_null': 0,
-                            'zwin_conv_fwd_epi': 0}
+                            'zwin_conv_fwd_epi': 0, 'index_mark': 0,
+                            'index_count': 0, 'index_prefix': 0,
+                            'index_set': 0, 'index_table': 0,
+                            'index_maps': 0}

@@ -10,8 +10,10 @@
 synthetic batch and ``torch.export.save`` writes the program: its graph,
 the weights and the custom ops it calls (``fusionocc::bev_pool``,
 ``fusionocc::window_attn``, ``fusionocc::zwin_conv`` and, with
-``lidar.zwin_fuse``, ``fusionocc::zwin_conv_epi``: the hand-written kernels
-on the card, their plain versions on the CPU).  A process that loads the
+``lidar.zwin_fuse``, ``fusionocc::zwin_conv_epi``, and each sparse stage's
+index builds ``fusionocc::stride2_count``, ``stride2_set`` and
+``stage_maps``: the hand-written kernels on the card, their plain versions
+on the CPU).  A process that loads the
 program imports ``fusionocc_tpu_torch.ops`` first, so the ops are
 registered.  The program takes flat tensors, in the order of
 ``Batch``'s fields up to ``sparse_depth`` (then ``ego2global`` and the
@@ -99,8 +101,8 @@ def run_loaded(path: str, batch, state=None):
     """Load a saved program and run it once on ``batch``: the prediction
     (and, streaming, the new cache tensors)."""
     # importing the kernels' modules registers their ops
-    from fusionocc_tpu_torch.ops import (bev_pool, window_attn,  # noqa: F401
-                                         zwin_conv)
+    from fusionocc_tpu_torch.ops import (bev_pool, sparse_conv,  # noqa: F401
+                                         window_attn, zwin_conv)
     program = torch.export.load(path).module()
     with torch.no_grad():
         return program(*program_args(batch, state))
