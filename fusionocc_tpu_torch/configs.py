@@ -8,17 +8,25 @@ variants). Here each variant is a named preset over the frozen dataclasses.
 The port's copy of ``fusionocc_tpu/configs.py``: the same names, the same
 field values, on the port's ``TrainConfig``.
 
+One preset is another architecture on the same path:
+``bevdet_occ_stbase_stereo``, BEVDet-Occ's BEVStereo4D-Occ with Swin-B at
+512x1408 (``models/bevstereo_occ.py``).  ``build_model`` builds the model a
+preset names, of its class (``ARCHITECTURES``; FusionOcc otherwise).
+
 Usage:
     from fusionocc_tpu_torch.configs import get_config, CONFIGS
     cfg = get_config('fusion_occ_unified')
+    model = build_model('bevdet_occ_stbase_stereo', device='cuda')
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+import importlib
+from typing import Callable, Dict, Optional, Tuple
 
 from .config import (EvalConfig, ModelConfig, OptimConfig, TrainConfig,
-                     full_model_config, tiny_model_config)
+                     ViewTransformerConfig, full_model_config,
+                     tiny_model_config)
 
 
 def _baseline() -> TrainConfig:
@@ -119,6 +127,21 @@ def _calib_eval(temperature: float,
     return make
 
 
+def _bevdet_occ_stereo() -> TrainConfig:
+    """BEVDet-Occ stereo (BEVDet dev2.1, configs/bevdet_occ/
+    bevdet-occ-stbase-4d-stereo-512x1408-24e.py): Swin-B as FusionOcc's,
+    FPN_LSS 512+1024 -> 512, the stereo DepthNet at mid 512 (its input
+    width) with ASPP 96, numC_Trans 32 at stride 16, FusionOcc's grid and
+    depth bins, one adjacent frame, no LiDAR, trunk (1, 2, 4) layers.  The
+    optimizer stays at the port's defaults."""
+    return TrainConfig(model=full_model_config(
+        use_lidar=False, lidar_out_channels=0, img_neck_out_channels=512,
+        bev_num_layer=(1, 2, 4),
+        vt=ViewTransformerConfig(in_channels=512, mid_channels=512,
+                                 feature_channels=32, aspp_mid_channels=96,
+                                 downsample=16)), optim=OptimConfig())
+
+
 def _tiny() -> TrainConfig:
     return TrainConfig(model=tiny_model_config(),
                        optim=OptimConfig(warmup_iters=10, iters_per_epoch=10))
@@ -174,7 +197,26 @@ CONFIGS: Dict[str, Callable[[], TrainConfig]] = {
     # --- beyond-reference extras ---
     'fusion_occ_image_only': _image_only,
     'tiny': _tiny,
+    # --- another architecture on the port's path ---
+    'bevdet_occ_stbase_stereo': _bevdet_occ_stereo,
 }
+
+# presets whose model is not FusionOcc: name -> (module of models/, class)
+ARCHITECTURES: Dict[str, Tuple[str, str]] = {
+    'bevdet_occ_stbase_stereo': ('bevstereo_occ', 'BEVStereo4DOcc'),
+}
+
+
+def build_model(name: Optional[str] = None, device='cuda',
+                model_cfg: Optional[ModelConfig] = None):
+    """The model of preset ``name`` (FusionOcc for None and for every
+    FusionOcc preset) on ``device``, built from ``model_cfg`` (a variant
+    of the preset's, say at fp32) or else the preset's own."""
+    if model_cfg is None:
+        model_cfg = get_config(name).model
+    module, cls = ARCHITECTURES.get(name, ('fusion_occ', 'FusionOcc'))
+    return getattr(importlib.import_module(f'{__package__}.models.{module}'),
+                   cls)(model_cfg, device=device)
 
 
 def get_config(name: str, **overrides) -> TrainConfig:

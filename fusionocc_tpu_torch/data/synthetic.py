@@ -120,10 +120,13 @@ def beam_lidar_cloud(rng: np.random.RandomState, capacity: int,
 
 def synthetic_batch(cfg: ModelConfig, batch_size: int = 1, seed: int = 0,
                     num_points: int | None = None,
-                    device: torch.device | str = 'cuda') -> Batch:
-    """A synthetic ``Batch`` of tensors on ``device``."""
+                    device: torch.device | str = 'cuda',
+                    frames: int | None = None) -> Batch:
+    """A synthetic ``Batch`` of tensors on ``device``, of ``frames``
+    temporal frames (``cfg.num_frame`` by default; a model's
+    ``input_frames``)."""
     rng = np.random.RandomState(seed)
-    B, F, N = batch_size, cfg.num_frame, cfg.num_cams
+    B, F, N = batch_size, frames or cfg.num_frame, cfg.num_cams
     H, W = cfg.input_size
     gx, gy, gz = cfg.grid.grid_size
 

@@ -203,6 +203,8 @@ class FusionOcc(nn.Module):
     the data mesh alone).  Built in eval mode.
     """
 
+    extra_ref_frames = 0    # frames a batch holds beyond num_frame
+
     def __init__(self, cfg: ModelConfig, device='cuda', mesh=None):
         super().__init__()
         check_supported(cfg)
@@ -216,8 +218,7 @@ class FusionOcc(nn.Module):
             self.img_neck = FPN_LSS(
                 dims[sw.out_indices[0]] + dims[sw.out_indices[1]],
                 cfg.img_neck_out_channels)
-            self.img_view_transformer = CrossModalLSS(
-                cfg.vt, cfg.grid, cfg.img_neck_out_channels)
+            self.img_view_transformer = self._build_view_transformer()
             self.pre_process_net = CustomResNet3D(
                 cfg.vt.feature_channels, (cfg.img_channels,), (1,), (1,))
             if cfg.use_lidar:
@@ -234,6 +235,17 @@ class FusionOcc(nn.Module):
         self.to(device)     # buffers built from numpy start on the CPU
         self.eval()
 
+    def _build_view_transformer(self) -> nn.Module:
+        """The camera branch's view transformer (``img_view_transformer``)."""
+        cfg = self.cfg
+        return CrossModalLSS(cfg.vt, cfg.grid, cfg.img_neck_out_channels)
+
+    @property
+    def input_frames(self) -> int:
+        """Temporal frames a ``Batch`` carries: the key frame and the
+        ``num_adj`` adjacent ones, and any the model reads beyond them."""
+        return self.cfg.num_frame + self.extra_ref_frames
+
     @contextlib.contextmanager
     def eval_semantics(self):
         """Every module in eval mode inside; the modes restored after."""
@@ -245,17 +257,23 @@ class FusionOcc(nn.Module):
             for m, mode in modes:
                 m.training = mode
 
-    def image_encoder(self, imgs: torch.Tensor) -> torch.Tensor:
-        """(B, N, H, W, 3) -> (B, N, h, w, C_neck)."""
+    def image_encoder(self, imgs: torch.Tensor, stereo: bool = False):
+        """(B, N, H, W, 3) -> (B, N, h, w, C_neck); with ``stereo`` also
+        Swin's stage-0 feature (B*N, H/4, W/4, C0), which
+        ``return_stereo_feat`` must then give."""
         B, N, H, W, _ = imgs.shape
         x = imgs.reshape(B * N, H, W, 3).to(self.cfg.dtype)
         with profiling.span('camera.backbone'):
             feats = self.img_backbone(x)
         if self.cfg.swin.return_stereo_feat:
-            feats = feats[1:]
+            stereo_feat, feats = feats[0], feats[1:]
+        elif stereo:
+            raise ValueError('the stereo feature needs '
+                             'swin.return_stereo_feat')
         with profiling.span('camera.neck'):
             y = self.img_neck(feats)
-        return y.reshape(B, N, *y.shape[1:])
+        y = y.reshape(B, N, *y.shape[1:])
+        return (y, stereo_feat) if stereo else y
 
     def _frame_voxel_feat(self, imgs_f, s2k_f, s2k_key, intrin_f, post_rot_f,
                           post_tran_f, bda, sparse_depth,

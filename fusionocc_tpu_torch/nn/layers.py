@@ -299,20 +299,25 @@ class ConvBN(nn.Module):
 
 
 class BasicBlock2D(nn.Module):
-    """mmdet BasicBlock with equal in/out channels: two 3x3 conv+BN, identity
-    residual, ReLU."""
+    """mmdet BasicBlock: two 3x3 conv+BN, residual, ReLU.  ``c`` in
+    channels, ``planes`` out (``c`` by default); the residual is the input,
+    or the given ``downsample`` module of it (key ``downsample``)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, planes: int = 0,
+                 downsample: nn.Module = None):
         super().__init__()
-        self.conv1 = Conv2d(c, c, 3, 1, 1, bias=False)
-        self.bn1 = BatchNorm(c)
-        self.conv2 = Conv2d(c, c, 3, 1, 1, bias=False)
-        self.bn2 = BatchNorm(c)
+        planes = planes or c
+        self.conv1 = Conv2d(c, planes, 3, 1, 1, bias=False)
+        self.bn1 = BatchNorm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, 1, 1, bias=False)
+        self.bn2 = BatchNorm(planes)
+        self.downsample = downsample
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
-        return F.relu(y + x)
+        return F.relu(y + (x if self.downsample is None
+                           else self.downsample(x)))
 
 
 class BasicBlock3D(nn.Module):

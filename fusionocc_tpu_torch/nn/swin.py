@@ -198,24 +198,44 @@ class SwinTransformer(nn.Module):
                     mod.int8 = True
         self.eval()     # inference semantics until train() is called
 
+    def _embed(self, x):
+        """(B, H, W, 3) -> the patch embedding's tokens (B, L, C), (h, w)."""
+        x = self.patch_embed.projection(x.permute(0, 3, 1, 2))
+        hw = (x.shape[2], x.shape[3])
+        return self.patch_embed.norm(x.flatten(2).transpose(1, 2)), hw
+
+    def _stage_blocks(self, stage: SwinStage, x, hw):
+        """``stage``'s blocks (not its patch merge) on tokens x (B, L, C)."""
+        B = x.shape[0]
+        recompute = (self.training and self.cfg.with_cp
+                     and torch.is_grad_enabled())
+        for blk in stage.blocks:
+            keep = None
+            if self.training and blk.drop_path_rate > 0:
+                keep = keep_mask((2, B), blk.drop_path_rate, x.device,
+                                 batch_axis=1)
+            if recompute:
+                x = checkpoint(blk, x, hw, keep)
+            else:
+                x = blk(x, hw, keep)
+        return x
+
+    def stereo_feat(self, x) -> torch.Tensor:
+        """The patch embedding and stage 0's blocks alone: (B, H, W, 3) ->
+        (B, h, w, C0), the feature ``return_stereo_feat`` puts first (the
+        stereo reference frame's pass, BEVDet's ``extract_stereo_ref_feat``)."""
+        B = x.shape[0]
+        x, hw = self._embed(x)
+        x = self._stage_blocks(self.stages[0], x, hw)
+        return x.view(B, *hw, x.shape[-1])
+
     def forward(self, x) -> List[torch.Tensor]:
         cfg = self.cfg
         B = x.shape[0]
-        x = self.patch_embed.projection(x.permute(0, 3, 1, 2))
-        hw = (x.shape[2], x.shape[3])
-        x = self.patch_embed.norm(x.flatten(2).transpose(1, 2))
+        x, hw = self._embed(x)
         outs = []
-        recompute = self.training and cfg.with_cp and torch.is_grad_enabled()
         for i, stage in enumerate(self.stages):
-            for blk in stage.blocks:
-                keep = None
-                if self.training and blk.drop_path_rate > 0:
-                    keep = keep_mask((2, B), blk.drop_path_rate, x.device,
-                                     batch_axis=1)
-                if recompute:
-                    x = checkpoint(blk, x, hw, keep)
-                else:
-                    x = blk(x, hw, keep)
+            x = self._stage_blocks(stage, x, hw)
             if i == 0 and cfg.return_stereo_feat:
                 outs.append(x.view(B, *hw, x.shape[-1]))
             if i in cfg.out_indices:

@@ -14,6 +14,13 @@ phase 3 bounds each kernel by the same count):
   map finds, per (zo, dz) pair of the tap's z band (``band_pairs``),
   Cin·Cout multiply-adds, times 2.  The epilogue's affine is no product.
 
+BEVStereo4D-Occ's plane sweep (``models/bevstereo_occ.CostVolume``) is
+plain PyTorch whose grid samples the counting mode has no formula for;
+``count_flops`` adds the frozen count of each of its calls (forward hooks):
+per hypothesis and channel the bilinear sample's 4 multiplies and 3 adds,
+a difference, an absolute value and an add, 10·C·BN·D·h·w, the
+benchmark's count (``benchmark/reference/bevstereo_occ.plane_sweep_flops``).
+
 K1's and K3's counts depend on the data (the index's bounds, the
 neighbour map and the output mask): their formulas read the tensors
 (``get_raw=True``), so they cannot count on meta or fake tensors (under
@@ -33,6 +40,7 @@ from typing import Dict
 import torch
 from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
 
+from ..models.bevstereo_occ import CostVolume
 # the ops modules register the fusionocc:: custom ops
 from ..ops import bev_pool, window_attn, zwin_conv  # noqa: F401
 
@@ -69,15 +77,36 @@ def _zwin_conv_formula(feats, mask_out, nbr_idx, weight, f_in, f_out, stride,
         for t in range(27))
 
 
-def counted(run) -> Dict:
+def plane_sweep_flops(curr: torch.Tensor, depth_bins: int) -> int:
+    """The frozen count of one plane sweep on the stage-0 feature ``curr``
+    (BN, h, w, C): 10·C·BN·D·h·w."""
+    BN, h, w, C = curr.shape
+    return 10 * C * BN * depth_bins * h * w
+
+
+def counted(run, model=None) -> Dict:
     """``run()`` under ``FlopCounterMode``: {'total', 'kernels' (each
-    kernel op's FLOPs by ``KERNEL_OPS`` name), 'outside' (the rest, the
+    kernel op's FLOPs by ``KERNEL_OPS`` name, and ``plane_sweep``, the
+    frozen count of ``model``'s cost volumes), 'outside' (the rest, the
     figure comparable to XLA's), 'by_op' (every counted op by name)}."""
-    with FlopCounterMode(display=False) as counter:
-        run()
+    sweeps = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: sweeps.append(
+            plane_sweep_flops(args[0], mod.depth_bins)))
+        for m in (model.modules() if model is not None else ())
+        if isinstance(m, CostVolume)]
+    try:
+        with FlopCounterMode(display=False) as counter:
+            run()
+    finally:
+        for h in hooks:
+            h.remove()
     by_op = counter.get_flop_counts()['Global']
     kernels = {name: int(by_op.get(op, 0)) for name, op in KERNEL_OPS.items()}
     total = int(counter.get_total_flops())
+    if hooks:
+        kernels['plane_sweep'] = sum(sweeps)
+        total += kernels['plane_sweep']
     return {'total': total, 'kernels': kernels,
             'outside': total - sum(kernels.values()),
             'by_op': {str(op): int(n) for op, n in by_op.items()}}
@@ -85,7 +114,8 @@ def counted(run) -> Dict:
 
 def count_flops(model, batch, mode: str = 'predict', train_config=None
                 ) -> Dict:
-    """FLOPs of one call of a path of ``model`` (a ``FusionOcc``) on
+    """FLOPs of one call of a path of ``model`` (a ``FusionOcc``, or a
+    model of another preset on its path, ``configs.build_model``) on
     ``batch``, as ``counted`` returns them: 'predict' the two-pass
     ``predict`` (pooling indices built in the call), 'streaming' one
     ``predict_streaming`` frame from an empty cache, 'train' one
@@ -93,7 +123,7 @@ def count_flops(model, batch, mode: str = 'predict', train_config=None
     ``TrainConfig``) on a copy of the model, which stays as it is.  Runs
     on the model's device, with real tensors."""
     if mode == 'predict':
-        return counted(lambda: model.predict(batch))
+        return counted(lambda: model.predict(batch), model)
     if mode == 'streaming':
         state = model.init_streaming_state(batch.imgs.shape[0])
         return counted(lambda: model.predict_streaming(batch, state))

@@ -11,13 +11,16 @@ leaf path to its torch key and the layout change (flax kernels are
 ``num_batches_tracked`` and ``relative_position_index`` buffers, which flax
 does not keep, are filled in.
 
+``bevstereo_depth_net_names`` lists BEVDet's names of the stereo
+``DepthNet`` of ``models/bevstereo_occ.py`` (no JAX model has one).
+
 ``convert_official_swin``, ``resize_bias_table`` and ``load_official_swin``
 warm-start the image backbone from an official (Microsoft) Swin checkpoint,
 as ``fusionocc_tpu/train/torch_import.py`` does for JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -171,6 +174,44 @@ def lss_base_rules(kind: str, stereo: bool = False) -> Rules:
     else:
         raise ValueError(f'kind {kind!r}: lss or bevdepth')
     return rules
+
+
+def bevstereo_depth_net_names() -> List[str]:
+    """BEVDet's ``state_dict`` names of its stereo ``DepthNet``
+    (``use_dcn=False``, ``use_aspp=True``; BEVDet dev2.1
+    ``necks/view_transformer.py``), in its order: what a BEVStereo4D-Occ
+    checkpoint holds under ``img_view_transformer.depth_net.``.  Every
+    other module of that model is named as FusionOcc's."""
+    stats = ('weight', 'bias', 'running_mean', 'running_var',
+             'num_batches_tracked')
+
+    def conv(p, bias=True):
+        return [f'{p}.weight'] + ([f'{p}.bias'] if bias else [])
+
+    def bn(p):
+        return [f'{p}.{k}' for k in stats]
+
+    def block(p, downsample=False):     # mmdet BasicBlock
+        return (conv(f'{p}.conv1', False) + bn(f'{p}.bn1')
+                + conv(f'{p}.conv2', False) + bn(f'{p}.bn2')
+                + (conv(f'{p}.downsample') if downsample else []))
+    names = conv('reduce_conv.0') + bn('reduce_conv.1') + conv(
+        'context_conv') + bn('bn')
+    for m in ('depth', 'context'):
+        names += (conv(f'{m}_mlp.fc1') + conv(f'{m}_mlp.fc2')
+                  + conv(f'{m}_se.conv_reduce') + conv(f'{m}_se.conv_expand'))
+    names += (conv('cost_volumn_net.0') + bn('cost_volumn_net.1')
+              + conv('cost_volumn_net.2') + bn('cost_volumn_net.3'))
+    names += (block('depth_conv.0', downsample=True) + block('depth_conv.1')
+              + block('depth_conv.2'))
+    for i in range(1, 5):
+        names += (conv(f'depth_conv.3.aspp{i}.atrous_conv', False)
+                  + bn(f'depth_conv.3.aspp{i}.bn'))
+    names += (conv('depth_conv.3.global_avg_pool.1', False)
+              + bn('depth_conv.3.global_avg_pool.2')
+              + conv('depth_conv.3.conv1', False) + bn('depth_conv.3.bn1')
+              + conv('depth_conv.4'))
+    return names
 
 
 def slice_rules(cfg: ModelConfig) -> Rules:

@@ -2,7 +2,8 @@
 
 Every name of JAX's ``CONFIGS`` builds, in the port, a ``TrainConfig`` with
 the same field values; the 25 reference config files of ``PARITY.md`` each
-have their preset; ``get_config``'s overrides split between the model, the
+have their preset, and the port adds only the presets of its other
+architectures (``ARCHITECTURES``, which JAX does not have); ``get_config``'s overrides split between the model, the
 optimizer and the run as JAX's do; every preset but the tiny one (whose
 LiDAR backend is the COO path) passes ``check_train_supported``.
 """
@@ -28,7 +29,9 @@ def test_preset_matches_jax(name):
 
 
 def test_every_reference_config_file_has_a_preset():
-    assert sorted(tconfigs.CONFIGS) == sorted(jconfigs.CONFIGS)
+    # the port's presets are JAX's and those of its other architectures
+    assert sorted(tconfigs.CONFIGS) == sorted(
+        list(jconfigs.CONFIGS) + list(tconfigs.ARCHITECTURES))
     assert len(REFERENCE_FILE_TO_PRESET) == 25
     for fname, preset in REFERENCE_FILE_TO_PRESET.items():
         assert preset in tconfigs.CONFIGS, f'{fname} -> {preset} missing'

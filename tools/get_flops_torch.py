@@ -14,12 +14,18 @@ and whatever else the process holds), the bytes of the call's output and
 ``max_memory_allocated`` above what was held.  Runs on the card unless
 ``--device`` names another.
 
+``--config`` names a preset (its model through ``configs.build_model``);
+BEVStereo4D-Occ's plane sweep counts by its frozen formula
+(``utils/flops.py``), and the model has no training step here.
+
 Usage:
-  python3 tools/get_flops_torch.py [--tiny] [--train] [--device cpu]
+  python3 tools/get_flops_torch.py [--config fusion_occ] [--tiny] [--train]
+      [--device cpu]
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -41,6 +47,9 @@ def output_bytes(out) -> int:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument('--config', default=None,
+                    help='preset of fusionocc_tpu_torch.configs (default: '
+                    'the full FusionOcc)')
     ap.add_argument('--tiny', action='store_true')
     ap.add_argument('--train', action='store_true',
                     help='analyze the training step instead of inference')
@@ -49,6 +58,7 @@ def main(argv=None):
 
     import torch
 
+    from fusionocc_tpu_torch import configs
     from fusionocc_tpu_torch.config import TrainConfig, full_model_config
     from fusionocc_tpu_torch.data.synthetic import synthetic_batch
     from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
@@ -57,11 +67,21 @@ def main(argv=None):
     from fusionocc_tpu_torch.utils.profiling import param_memory_report
     from tools.test_torch import tiny_config
 
-    cfg = tiny_config() if args.tiny else full_model_config()
-    model = init_weights(FusionOcc(cfg, device=args.device),
+    cfg = (configs.get_config(args.config).model if args.config
+           else full_model_config())
+    if args.tiny:       # the tiny model, with or without the preset's LiDAR
+        tiny = tiny_config()
+        cfg = dataclasses.replace(
+            tiny, use_lidar=cfg.use_lidar,
+            lidar_out_channels=cfg.lidar_out_channels
+            and tiny.lidar_out_channels)
+    model = init_weights(configs.build_model(args.config, args.device, cfg),
                          torch.Generator().manual_seed(0))
+    if args.train and type(model) is not FusionOcc:
+        ap.error(f'--train: {type(model).__name__} has no training step '
+                 'in the port')
     batch = synthetic_batch(cfg, 1, 0, num_points=512 if args.tiny else None,
-                            device=args.device)
+                            device=args.device, frames=model.input_frames)
 
     print('--- parameters ---')
     for k, v in param_memory_report(model).items():

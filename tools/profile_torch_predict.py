@@ -1,12 +1,16 @@
 """Where one full-size ``predict`` of the PyTorch port, or one
-``predict_streaming`` frame, in the default multi-modal configuration,
-spends its time on the GPU, by the program's own spans and waits.
+``predict_streaming`` frame, of a preset (the default multi-modal
+``fusion_occ`` unless ``--config`` names another, say
+``bevdet_occ_stbase_stereo``) spends its time on the GPU, by the program's
+own spans and waits.
 
-    python3 tools/profile_torch_predict.py [--iters 3] [--top 25] [--streaming]
-        [--zwin-fuse] [--int8] [--out-dir work_dirs/profile_torch_predict]
+    python3 tools/profile_torch_predict.py [--config fusion_occ] [--iters 3]
+        [--top 25] [--streaming] [--zwin-fuse] [--int8]
+        [--out-dir work_dirs/profile_torch_predict]
 
-Builds the model as ``chip_smoke.py`` does (bf16, seeded random weights,
-synthetic batch), warms up, then reports, where a step is one two-pass
+Builds the preset's model (``configs.build_model``) as ``chip_smoke.py``
+does (bf16, seeded random weights, a synthetic batch of the model's
+``input_frames``), warms up, then reports, where a step is one two-pass
 ``predict`` with the key frame's pooling index cached and the adjacent
 frame's built in the call (the evaluation's semantics) or, with
 ``--streaming``, one ``predict_streaming`` frame with the key index cached,
@@ -45,10 +49,10 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from fusionocc_tpu_torch.config import full_model_config  # noqa: E402
+from fusionocc_tpu_torch import configs  # noqa: E402
 from fusionocc_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
 from fusionocc_tpu_torch.models.fusion_occ import (  # noqa: E402
-    FusionOcc, batch_pooling_indices, init_weights)
+    batch_pooling_indices, init_weights)
 from fusionocc_tpu_torch.utils import profiling  # noqa: E402
 
 
@@ -68,6 +72,8 @@ def step_ms(step, pairs: int):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--config', default='fusion_occ',
+                    help='preset of fusionocc_tpu_torch.configs')
     ap.add_argument('--iters', type=int, default=3)
     ap.add_argument('--top', type=int, default=25)
     ap.add_argument('--streaming', action='store_true',
@@ -93,17 +99,19 @@ def main() -> None:
         capture_output=True, text=True).stdout.strip()
     print(f'card: {card}')
 
-    cfg = full_model_config()
+    cfg = configs.get_config(args.config).model
     if args.zwin_fuse:
         cfg = dataclasses.replace(cfg, lidar=dataclasses.replace(
             cfg.lidar, zwin_fuse=True))
     if args.int8:
         cfg = dataclasses.replace(cfg, swin=dataclasses.replace(
             cfg.swin, int8_dense=True))
-    print(f'zwin_fuse={cfg.lidar.zwin_fuse} int8_dense={cfg.swin.int8_dense}')
-    model = init_weights(FusionOcc(cfg, device=dev),
+    print(f'config={args.config} zwin_fuse={cfg.lidar.zwin_fuse} '
+          f'int8_dense={cfg.swin.int8_dense}')
+    model = init_weights(configs.build_model(args.config, dev, cfg),
                          torch.Generator().manual_seed(0))
-    batch = synthetic_batch(cfg, 1, 0, device=dev)
+    batch = synthetic_batch(cfg, 1, 0, device=dev,
+                            frames=model.input_frames)
     idxs = batch_pooling_indices(cfg, batch)[:1]    # the key frame's
     idxs += [None] * (cfg.num_frame - 1)
     state = model.init_streaming_state(1)

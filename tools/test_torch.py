@@ -13,7 +13,9 @@ the port's ``NuScenesOccDataset`` through ``data_loader`` (4 threads) and
 moved there one ``non_blocking`` copy per field; ``--synthetic`` takes
 ``synthetic_batch`` instead.  ``--config`` takes a preset of
 ``fusionocc_tpu_torch.configs`` with its evaluation protocol (metric,
-eval-time camera mask, split).  ``--tiny`` takes the tiny model with its
+eval-time camera mask, split) and its model (``configs.build_model``:
+``bevdet_occ_stbase_stereo`` is BEVStereo4D-Occ, which reads a stereo
+reference frame beyond the adjacent one and runs two-pass only).  ``--tiny`` takes the tiny model with its
 LiDAR encoder on the port's z-folded path (``backend='zfold'``,
 ``zconv='zband'``).  Without ``--checkpoint`` the weights are random, from
 seed 0.
@@ -111,11 +113,14 @@ def resolve_config(args):
                 '_val.pkl', f'_{eval_cfg.split}.pkl')
     else:
         model_cfg = tiny_config() if args.tiny else full_model_config()
-    if args.config and args.tiny:
+    if args.config and args.tiny:   # a preset without LiDAR keeps none
+        tiny = tiny_config()
         model_cfg = dataclasses.replace(
-            tiny_config(), use_mask=model_cfg.use_mask,
+            tiny, use_mask=model_cfg.use_mask,
             mask_mode=model_cfg.mask_mode, use_lidar=model_cfg.use_lidar,
-            temperature=model_cfg.temperature)
+            temperature=model_cfg.temperature,
+            lidar_out_channels=(model_cfg.lidar_out_channels
+                                and tiny.lidar_out_channels))
     if args.fp32:
         model_cfg = dataclasses.replace(model_cfg, compute_dtype='float32')
     if args.int8:
@@ -124,22 +129,24 @@ def resolve_config(args):
     return model_cfg, eval_cfg
 
 
-def host_batches(args, cfg, pin: bool):
-    """(CPU Batch, scene tokens) pairs: the dataset through ``data_loader``
-    and ``prefetch``, or synthetic batches (8 frames per scene token)."""
+def host_batches(args, cfg, pin: bool, frames: int):
+    """(CPU Batch, scene tokens) pairs of ``frames`` temporal frames (the
+    model's ``input_frames``): the dataset through ``data_loader`` and
+    ``prefetch``, or synthetic batches (8 frames per scene token)."""
     if args.synthetic:
         from fusionocc_tpu_torch.data.synthetic import synthetic_batch
         n = args.max_samples or 4
         for i in range(n):
             yield (synthetic_batch(cfg, args.batch_size, seed=i,
-                                   device='cpu'),
+                                   device='cpu', frames=frames),
                    [f'scene_{(i * args.batch_size + k) // 8}'
                     for k in range(args.batch_size)])
         return
     from fusionocc_tpu_torch.data.dataset import (NuScenesOccDataset,
                                                   data_loader, prefetch)
     ds = NuScenesOccDataset(args.ann_file, cfg, data_root=args.data_root,
-                            img_seg_dir=args.img_seg_dir, train=False)
+                            img_seg_dir=args.img_seg_dir, train=False,
+                            adj_cam=(1, frames, 1))
     count = 0
     for b, idxs in prefetch(data_loader(ds, args.batch_size, shuffle=False,
                                         yield_indices=True,
@@ -197,15 +204,16 @@ class Evaluator:
 
 
 def build_model(args, cfg):
-    """The port's FusionOcc on ``args.device``: seeded random weights, or
-    the checkpoint's (its EMA unless ``--no-ema``); with ``--int8-weights``
-    every kernel quantized to int8 and dequantized into the compute
-    dtype."""
+    """The ``--config`` preset's model (FusionOcc by default) on
+    ``args.device``: seeded random weights, or the checkpoint's (its EMA
+    unless ``--no-ema``); with ``--int8-weights`` every kernel quantized to
+    int8 and dequantized into the compute dtype."""
     import torch
 
-    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
+    from fusionocc_tpu_torch import configs
+    from fusionocc_tpu_torch.models.fusion_occ import init_weights
     from fusionocc_tpu_torch.train import checkpoint as ckpt
-    model = init_weights(FusionOcc(cfg, device=args.device),
+    model = init_weights(configs.build_model(args.config, args.device, cfg),
                          torch.Generator().manual_seed(0))
     if args.checkpoint:
         path = (ckpt.latest_checkpoint(args.checkpoint)
@@ -269,7 +277,7 @@ def evaluate(args, model=None, on_batch=None):
     tm = Timings()
     lat = tm.predict
     count = 0
-    gen = host_batches(args, cfg, pin=on_card)
+    gen = host_batches(args, cfg, pin=on_card, frames=model.input_frames)
     while True:
         t0 = time.perf_counter()
         try:
