@@ -42,7 +42,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    every sparse stage chained on the kernels' own output set: keys,
    coords, masks, both neighbour maps and the strided lane mask equal
    element for element, each stage's launches, and its ms (CUDA events
-   around the build, which waits once) beside the plain build's.
+   around the build, which waits once) beside the plain build's; then the
+   plane sweep (``csrc/plane_sweep.cu``) against its plain version at the
+   stereo cell's shapes (6 cameras, 88 planes, 128x352, 128 bf16
+   channels, the synthetic drive's 0.5-m step), the plain version run on
+   the CPU: the bias masks agree on all but ``SWEEP_MASK_SHARE`` of the
+   hypotheses, the volume within ``SWEEP_TOL`` on every pixel whose mask
+   agrees, the kernel's ms beside the plain version's on the card and the
+   0.454-ms bound; and one BEVStereo4D-Occ
+   two-pass predict at full size with its launches gated (2 sweeps).
 4. reference: the midsize multi-modal config in fp32 on the card (the
    kernels' fp32 bodies) against the same weights on the CPU (plain
    versions).
@@ -246,9 +254,15 @@ QUEUE_CYCLES = 20_000_000   # about 10 ms at the H100's SM clock
 INDEX_KERNELS = ('index_mark', 'index_count', 'index_prefix', 'index_set',
                  'index_table', 'index_maps')
 # the kernels of the main paths (K3 with or without its fused epilogue, the
-# index builds); the launch checks read these counts only
+# index builds, BEVStereo4D-Occ's plane sweep); the launch checks read these
+# counts only
 MAIN_KERNELS = ('window_attn_fwd', 'bev_pool_fwd', 'zwin_conv_fwd',
-                'zwin_conv_fwd_epi') + INDEX_KERNELS
+                'zwin_conv_fwd_epi') + INDEX_KERNELS + ('plane_sweep_fwd',)
+# the plane sweep against its plain version: a tap at the frame's edge can
+# change sides with the last bits of its coordinate, which flips the
+# hypothesis's bias mask; elsewhere the sums differ in order only
+SWEEP_MASK_SHARE = 1e-4
+SWEEP_TOL = 1e-4
 # where an encoder pass may wait for the card: voxelize, regroup, each
 # sparse stage's table build (3), densify
 SYNC_SITES = 6
@@ -283,6 +297,8 @@ KERNEL_BODIES = {
     r'10set_kernel': ('index_set', 'output set', False),
     r'12table_kernel': ('index_table', 'row table', False),
     r'11maps_kernel': ('index_maps', 'maps and lane mask', False),
+    r'18plane_sweep_kernelItLi\d+E': ('plane_sweep_fwd', 'bf16', False),
+    r'18plane_sweep_kernelIfLi\d+E': ('plane_sweep_fwd', 'fp32', False),
 }
 # SASS opcodes counted per body: Hopper's warpgroup products, the sm_80
 # tensor-core products, TMA loads, cp.async
@@ -1002,7 +1018,131 @@ def phase_kernels(cfg, batches) -> tuple:
                 'window_attn_fwd': check_window_attn(cfg, g),
                 'bev_pool_fwd': check_bev_pool(cfg, batch0, g)}
     check_edge_shapes(g)
-    return measured, check_index(cfg, batches)
+    index = check_index(cfg, batches)
+    return measured, index, check_plane_sweep(g)
+
+
+def stereo_launches(cfg) -> dict:
+    """Main-path launches of one BEVStereo4D-Occ two-pass predict: a full
+    camera pass a frame, the reference frame's stage 0 (its window
+    attentions), a plane sweep a camera pass."""
+    out = launches_per(cfg, cfg.num_frame, 0, sweeps=cfg.num_frame)
+    out['window_attn_fwd'] += cfg.swin.depths[0]
+    return out
+
+
+def sweep_against_cpu(prev, curr, geom, gs, bias) -> tuple:
+    """The plane sweep on the card against the op's CPU path on the same
+    inputs: (the volume, the share of hypotheses whose bias masks differ,
+    the max abs difference on the pixels whose masks agree, the share
+    masked).  On the card the plain version samples through cuDNN, whose
+    coordinates round on their own (about 1e-3 off the CPU's at the cell's
+    shapes, as far as fp32 lies from fp64 there), so the CPU's is the
+    yardstick."""
+    from fusionocc_tpu_torch.ops import plane_sweep as ps
+    D, hs, ws, _ = geom.frustum.shape
+    N, C = prev.shape[0], prev.shape[-1]
+    invalid = torch.empty(N, D, hs, ws, dtype=torch.uint8, device=DEV)
+    got = ps.plane_sweep_cuda(prev, curr, geom.frustum, geom.cams, geom.hi,
+                              geom.wi, gs, bias, invalid).cpu()
+    grid = ps.sweep_grid(ps.SweepGeometry(geom.frustum.cpu(),
+                                          geom.cams.cpu(), geom.hi, geom.wi))
+    want = ps.plane_sweep(prev.cpu(), curr.cpu(), grid, D, gs, bias)
+    ch = (C - 1) // gs * gs
+    warp = ps.grid_sample_2d(
+        prev[..., ch:ch + 1].cpu().permute(0, 3, 1, 2), grid)
+    mask = (warp[:, 0] == 0).reshape(N, D, hs, ws)
+    flips = invalid.cpu().bool() != mask
+    agree = ~flips.any(dim=1, keepdim=True)
+    share = float(flips.float().mean())
+    err = float(((got - want).abs() * agree).max())
+    if not bool(torch.isfinite(got).all()) or share > SWEEP_MASK_SHARE \
+            or err > SWEEP_TOL:
+        fail(f'plane sweep {tuple(got.shape)} {prev.dtype}: bias masks '
+             f'differ on {share:.3e} of the hypotheses (limit '
+             f'{SWEEP_MASK_SHARE}), max abs {err:.3e} elsewhere (limit '
+             f'{SWEEP_TOL})')
+    return got, share, err, float(mask.float().mean())
+
+
+@torch.inference_mode()
+def check_plane_sweep(g) -> dict:
+    """The plane sweep against its plain version (the op's CPU path) at
+    the stereo cell's shapes, bf16 features (``prev`` random, ``curr`` it
+    plus noise) and the cameras of the synthetic drive (frame 0 into frame
+    1: 0.5 m); at small shapes the bodies the cell does not use (fp32, 64
+    channels), a ragged last block, 20 planes, groups of 3 and cameras
+    with an image augmentation; then one full-size BEVStereo4D-Occ
+    predict, its launches gated."""
+    from fusionocc_tpu_torch import configs
+    from fusionocc_tpu_torch.data.synthetic import synthetic_batch
+    from fusionocc_tpu_torch.geometry import make_frustum
+    from fusionocc_tpu_torch.models.fusion_occ import init_weights
+    from fusionocc_tpu_torch.ops import plane_sweep as ps
+    cfg = configs.get_config('bevdet_occ_stbase_stereo').model
+    H, W = cfg.input_size
+    hs, ws, C, N = H // 4, W // 4, cfg.swin.embed_dims, cfg.num_cams
+    D = cfg.grid.num_depth_bins
+    batch = synthetic_batch(cfg, 1, 0, device=DEV, frames=3)
+    s2k = batch.sensor2keyego
+    k2s = (torch.linalg.inv(s2k[:, 1].double()) @ s2k[:, 0].double()).float()
+    args = (batch.intrins[:, 0], batch.post_rots[:, 0],
+            batch.post_trans[:, 0])
+    geom = ps.sweep_geometry(make_frustum(cfg.grid.depth, (H, W), 4,
+                                          device=DEV), k2s, *args, H, W)
+    for dtype in (torch.float32, torch.bfloat16):
+        small = (2, 20, 44, 64)
+        rot = args[1][:, :2].clone()
+        rot[..., :2, :2] = torch.tensor([[0.9, 0.03], [-0.03, 0.9]],
+                                        device=DEV)
+        tran = args[2][:, :2] + torch.tensor([3.0, -2.0, 0.0], device=DEV)
+        intrins = args[0][:, :2].clone()
+        intrins[..., :2, :] *= 0.125            # the rig at 80x176
+        small_geom = ps.sweep_geometry(
+            make_frustum((1.0, 11.0, 0.5), (80, 176), 4, device=DEV),
+            k2s[:, :2], intrins, rot, tran, 80, 176)
+        p = torch.randn(small, generator=g, device=DEV)
+        q = (p + 0.3 * torch.randn(small, generator=g, device=DEV))
+        _, share, err, masked = sweep_against_cpu(
+            p.to(dtype), q.to(dtype), small_geom, 3, 2.0)
+        print(f'  plane sweep {small} {str(dtype).split(".")[-1]}, 20 '
+              f'planes, groups of 3: masked {masked:.4f}, masks differ on '
+              f'{share:.3e}, max abs {err:.3e} elsewhere', flush=True)
+    prev = torch.randn(N, hs, ws, C, generator=g, device=DEV)
+    curr = (prev + 0.3 * torch.randn(N, hs, ws, C, generator=g, device=DEV)
+            ).to(torch.bfloat16)
+    prev = prev.to(torch.bfloat16)
+    gs, bias = 4, 5.0
+    got, share, err, masked = sweep_against_cpu(prev, curr, geom, gs, bias)
+
+    def kernel():
+        return ps.plane_sweep_cuda(prev, curr, geom.frustum, geom.cams, H, W,
+                                   gs, bias)
+
+    def plain():
+        return ps.plane_sweep(prev, curr, ps.sweep_grid(geom), D, gs, bias)
+    card_err = float((got - plain().cpu()).abs().max())
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=3, warmup=1)
+    bound = 10 * C * N * D * hs * ws / PEAK_FLOPS[torch.float32] * 1e3
+    print(f'  plane sweep ({N}, {D}, {hs}, {ws}) from ({N}, {hs}, {ws}, {C}) '
+          f'bf16: masked {masked:.4f} of the hypotheses, masks differ on '
+          f'{share:.3e}, max abs {err:.3e} elsewhere against the CPU (the '
+          f'kernel against the plain version on the card {card_err:.3e}); '
+          f'{ms:.4f} ms a volume, plain {plain_ms:.4f}, bound {bound:.4f} '
+          f'(share {100 * bound / ms:.2f} %)', flush=True)
+    del prev, curr, got
+    model = init_weights(configs.build_model('bevdet_occ_stbase_stereo', DEV,
+                                             cfg),
+                         torch.Generator().manual_seed(0))
+    expect = stereo_launches(cfg)
+    counted('BEVStereo4D-Occ predict', lambda: model.predict(batch), expect)
+    pred_ms = cuda_ms(lambda: model.predict(batch), reps=3, warmup=1)
+    print(f'  BEVStereo4D-Occ two-pass predict: launches {expect}, '
+          f'{pred_ms:.2f} ms', flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound,
+            'mask_share': share, 'max_abs_err': err, 'launches': expect}
 
 
 def phase_reference() -> None:
@@ -1040,7 +1180,8 @@ def phase_reference() -> None:
         got_lidar = lidar_both(batch)
     torch.cuda.synchronize()
     print(f'  launches on the card: {dict(KERNELS.launches)}')
-    if min(KERNELS.launches[k] for k in MAIN_KERNELS) == 0:
+    if min(KERNELS.launches[k] for k in MAIN_KERNELS
+           if k != 'plane_sweep_fwd') == 0:
         fail('a kernel was not launched by the midsize model on the card')
     for fused, g_l, w_l in zip(('', ', zwin_fuse=True'), got_lidar,
                                want_lidar):
@@ -1238,12 +1379,13 @@ def index_launches(cfg, batch: int = 1) -> dict:
 
 
 def launches_per(cfg, camera_passes: int, lidar_passes: int,
-                 batch: int = 1) -> dict:
+                 batch: int = 1, sweeps: int = 0) -> dict:
     """Main-path launches of a run: one window attention per Swin block and
     one pooling per camera pass, one zwin per sparse-stage conv and LiDAR
     pass (the last stage runs dense; fused with ``zwin_fuse``), whatever
     the batch of a pass; the index builds of each LiDAR pass of ``batch``
-    samples (``index_launches``)."""
+    samples (``index_launches``); ``sweeps`` plane sweeps (BEVStereo4D-Occ,
+    one a camera pass)."""
     lc = cfg.lidar
     sparse = lc.encoder_channels[:min(lc.dense_from,
                                       len(lc.encoder_channels) - 1)]
@@ -1253,7 +1395,8 @@ def launches_per(cfg, camera_passes: int, lidar_passes: int,
             'zwin_conv_fwd': 0 if lc.zwin_fuse else zwin,
             'zwin_conv_fwd_epi': zwin if lc.zwin_fuse else 0,
             **{k: v * lidar_passes
-               for k, v in index_launches(cfg, batch).items()}}
+               for k, v in index_launches(cfg, batch).items()},
+            'plane_sweep_fwd': sweeps}
 
 
 def fused_config(cfg):
@@ -1822,7 +1965,8 @@ def train_launches(cfg) -> dict:
             * (cfg.num_frame + int(cfg.swin.with_cp)),
             'bev_pool_fwd': cfg.num_frame,
             'zwin_conv_fwd': sum(map(len, sparse)) * cfg.use_lidar,
-            'zwin_conv_fwd_epi': 0, **index_launches(cfg)}
+            'zwin_conv_fwd_epi': 0, **index_launches(cfg),
+            'plane_sweep_fwd': 0}
 
 
 def function_grads(fn, inputs, cot):
@@ -3289,8 +3433,9 @@ def serving_export(cfg, batches) -> dict:
 def serving_lss_base(cfg, batch) -> dict:
     """10e: ``LSSViewTransformer`` and ``LSSViewTransformerBEVDepth`` (plain
     and stereo) at full size on the key frame's pooling index, bf16: one K1
-    launch each, every launch held against its plain version.  Returns the
-    launches of the three calls."""
+    launch each, every launch held against its plain version; the stereo
+    one's cost volume (``stereo_cost_volume``) one plane sweep.  Returns
+    the launches of the three calls and the cost volume's."""
     from fusionocc_tpu_torch.geometry import make_frustum
     from fusionocc_tpu_torch.models import lss_base
     from fusionocc_tpu_torch.models.fusion_occ import (frame_pooling_index,
@@ -3309,10 +3454,12 @@ def serving_lss_base(cfg, batch) -> dict:
     prev = torch.randn(N, hs, ws, 128, generator=g).to(DEV, cfg.dtype)
     curr = (prev.float() + 0.3 * torch.randn(N, hs, ws, 128, generator=g).to(
         DEV)).to(cfg.dtype)
-    cv = lss_base.stereo_cost_volume(
+    sweep = {k: 0 for k in MAIN_KERNELS}
+    sweep['plane_sweep_fwd'] = 1
+    cv = counted('10e stereo_cost_volume', lambda: lss_base.stereo_cost_volume(
         prev, curr, make_frustum(cfg.grid.depth, (H, W), 4, device=DEV),
         batch.sensor2keyego[:, 0], batch.intrins[:, 0],
-        batch.post_rots[:, 0], batch.post_trans[:, 0])
+        batch.post_rots[:, 0], batch.post_trans[:, 0]), sweep)
     modules = (
         ('LSSViewTransformer', lss_base.LSSViewTransformer(cfg.grid, cin, C),
          lambda m: m(x, idx)),
@@ -3339,8 +3486,8 @@ def serving_lss_base(cfg, batch) -> dict:
               f'{str(voxel.dtype).split(".")[-1]} finite, K1 1 launch, '
               f'{ms:.2f} ms per call', flush=True)
     print(f'  10e: stereo cost volume {tuple(cv.shape)} finite '
-          f'{bool(torch.isfinite(cv).all())}', flush=True)
-    return expect
+          f'{bool(torch.isfinite(cv).all())}, 1 plane sweep', flush=True)
+    return {k: expect[k] + sweep[k] for k in MAIN_KERNELS}
 
 
 def phase_serving(batches) -> dict:
@@ -3827,7 +3974,7 @@ def main() -> None:
     batches = [synthetic_batch(cfg, 1, s, device=DEV) for s in SLICE_SEEDS]
     print(f'  synthetic batches (seeds {SLICE_SEEDS}) in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
-    measured, index = phase_kernels(cfg, batches)
+    measured, index, sweep = phase_kernels(cfg, batches)
     phase_reference()
     launches = phase_slice(batches)
     phase_streaming(batches)
@@ -3877,6 +4024,19 @@ def main() -> None:
         'eval_launches': {k: evaluated[k] for k in INDEX_KERNELS},
         'dist_train_launches': {k: dist_launches[k] for k in INDEX_KERNELS},
         'hybrid_launches': {k: hybrid[k] for k in INDEX_KERNELS}})
+    kernels.append({
+        'name': 'plane_sweep_fwd', 'route': 'cuda',
+        'source': 'fusionocc_tpu_torch/csrc/plane_sweep.cu',
+        'replaces': 'none (XLA ops: fusionocc_tpu/models/lss_base.py:131)',
+        'launches': sweep['launches']['plane_sweep_fwd'],
+        **{k: round(sweep[k], 4) for k in ('ms', 'plain_ms', 'bound_ms')},
+        'mask_share': sweep['mask_share'],
+        'max_abs_err': sweep['max_abs_err'],
+        'main_path_launches': launches['plane_sweep_fwd'],
+        'train_launches': train['plane_sweep_fwd'],
+        'eval_launches': evaluated['plane_sweep_fwd'],
+        'lss_base_launches': serving['lss_base']['plane_sweep_fwd'],
+        'hybrid_launches': hybrid['plane_sweep_fwd']})
     print(f'whole script: {time.perf_counter() - start:.1f} s', flush=True)
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))

@@ -33,11 +33,14 @@ The equations, frames oldest first (f = 2, 1, 0):
 ``cv_downsample`` = 4 is un-projected with ``post_rots``, ``post_trans`` and
 ``intrins``, moved into the previous camera by ``k2s``, re-projected and
 normalised to [-1, 1] (``align_corners=True``), points behind the camera
-(z < 1e-3) at -2 (``lss_base.stereo_grid``); for each group of
+(z < 1e-3) at -2 (``ops.plane_sweep.stereo_grid``); for each group of
 ``group_size`` = 4 channels ``prev`` is sampled there (bilinear, zeros
 outside) and ``sum_c |curr_c - warp_c|`` added to the cost; where the first
 channel of the last group's sample is exactly 0 ``bias`` = 5 is added;
-the result is ``softmax_D(-cost)`` (``lss_base.plane_sweep``, float32).
+the result is ``softmax_D(-cost)`` (``ops.plane_sweep.plane_sweep``,
+float32).  The per-camera pieces of the projection are composed once a
+call (``sweep_geometry``, span ``camera.stereo.grid``); the sweep itself,
+grid included, is one kernel on the card (``fusionocc::plane_sweep``).
 
 ``DepthNet`` (stereo): ``x = reduce_conv(x)`` (3x3 conv with bias, BN,
 ReLU); ``ctx = context_conv(context_se(x, context_mlp(bn(mlp_in))))``;
@@ -52,9 +55,9 @@ passes no gradient (BEVDet computes it under ``no_grad``).
 
 Module names are BEVDet's ``state_dict`` names (``weights.
 bevstereo_depth_net_names``).  Spans: ``camera.stereo_ref`` (frame 2's
-stage 0), ``camera.stereo`` with ``camera.stereo.grid`` and
-``camera.stereo.cost_volume``, ``camera.depth_net`` inside
-``camera.view_transformer``.  The stereo path reads nothing from the
+stage 0), ``camera.stereo`` with ``camera.stereo.grid`` (the per-camera
+pieces) and ``camera.stereo.cost_volume`` (the sweep), ``camera.depth_net``
+inside ``camera.view_transformer``.  The stereo path reads nothing from the
 card: its inverses are ``inv_ex`` and the frustum is a buffer.  No LiDAR,
 no hybrid mesh, no ``batch_frames`` fold and no streaming: the
 configuration is camera-only and BEVDet evaluates it two-pass.
@@ -71,9 +74,9 @@ from ..config import GridConfig, ModelConfig, ViewTransformerConfig
 from ..geometry import get_mlp_input, make_frustum
 from ..nn.layers import (ASPP, BasicBlock2D, BatchNorm, Conv2d, Mlp, SELayer)
 from ..ops.bev_pool import PoolingIndex, bev_pool
+from ..ops.plane_sweep import SweepGeometry, sweep, sweep_geometry
 from ..utils import profiling
 from .fusion_occ import Batch, FusionOcc, frame_pooling_index
-from .lss_base import plane_sweep, stereo_grid
 
 
 class StereoDepthNet(nn.Module):
@@ -115,7 +118,7 @@ class StereoDepthNet(nn.Module):
 
 
 class CostVolume(nn.Module):
-    """The plane sweep (``lss_base.plane_sweep``) with BEVDet's group size
+    """The plane sweep (``ops.plane_sweep.sweep``) with BEVDet's group size
     and invalid bias; no parameters.  Its own module so that the sweep can
     be timed by forward hooks."""
 
@@ -125,11 +128,11 @@ class CostVolume(nn.Module):
                                                        group_size, bias)
 
     def forward(self, curr: torch.Tensor, prev: torch.Tensor,
-                grid: torch.Tensor) -> torch.Tensor:
-        """curr, prev (B*N, H, W, C) stage-0 features; grid (B*N, D*H, W,
-        2).  Returns (B*N, D, H, W) float32."""
-        return plane_sweep(prev, curr, grid, self.depth_bins,
-                           self.group_size, self.bias)
+                geometry: SweepGeometry) -> torch.Tensor:
+        """curr, prev (B*N, H, W, C) stage-0 features; the cameras'
+        ``sweep_geometry`` with ``depth_bins`` planes.  Returns (B*N, D, H,
+        W) float32."""
+        return sweep(prev, curr, geometry, self.group_size, self.bias)
 
 
 class LSSViewTransformerBEVStereo(nn.Module):
@@ -213,12 +216,13 @@ class BEVStereo4DOcc(FusionOcc):
             with profiling.span('camera.stereo.grid'):
                 k2s = (torch.linalg.inv_ex(s2k[:, fid + 1].double())[0]
                        @ s2k[:, fid].double()).float()
-                grid = stereo_grid(vt.cv_frustum, k2s, intrin, rot, tran,
-                                   curr.shape[1] * self.cv_downsample,
-                                   curr.shape[2] * self.cv_downsample)
+                geometry = sweep_geometry(
+                    vt.cv_frustum, k2s, intrin, rot, tran,
+                    curr.shape[1] * self.cv_downsample,
+                    curr.shape[2] * self.cv_downsample)
             with profiling.span('camera.stereo.cost_volume'), \
                     torch.no_grad():
-                cv = vt.cost_volume(curr, prev, grid)
+                cv = vt.cost_volume(curr, prev, geometry)
         if pool_idx is None:
             with profiling.span('camera.pooling_index'):
                 pool_idx = frame_pooling_index(self.cfg, s2k[:, fid], intrin,

@@ -12,10 +12,11 @@ Port of ``fusionocc_tpu/models/lss_base.py``:
 - ``LSSViewTransformerBEVDepth``: ``DepthNet``-based lift-splat, stereo
   optional.
 - ``stereo_cost_volume``: warps the previous frame's stage-0 feature onto
-  the key frame's frustum at every candidate depth
-  (``ops.grid_sample.grid_sample_2d``) and softmaxes the negative L1
-  matching cost over depth: ``stereo_grid`` (the sampling grid) then
-  ``plane_sweep`` (the sweep), which ``models/bevstereo_occ.py`` also runs.
+  the key frame's frustum at every candidate depth and softmaxes the
+  negative L1 matching cost over depth: ``ops/plane_sweep.py``'s
+  ``sweep_geometry`` then ``sweep`` (the plain ``plane_sweep`` on
+  ``stereo_grid`` on the CPU, one kernel on the card), which
+  ``models/bevstereo_occ.py`` also runs.
 
 No preset uses the modules; they build camera-only BEVDet/BEVDepth-style
 models from the port's layers (the ``bevdet_occ_stbase_stereo`` preset's
@@ -38,7 +39,7 @@ from ..config import GridConfig
 from ..nn.layers import (ASPP, BasicBlock2D, BatchNorm, Conv2d, Mlp, SELayer,
                          conv_bn_relu)
 from ..ops.bev_pool import PoolingIndex, bev_pool
-from ..ops.grid_sample import grid_sample_2d
+from ..ops.plane_sweep import sweep, sweep_geometry
 
 
 class DepthNet(nn.Module):
@@ -142,76 +143,6 @@ class LSSViewTransformerBEVDepth(nn.Module):
                            x.dtype)
 
 
-def stereo_grid(frustum: torch.Tensor, k2s_sensor: torch.Tensor,
-                intrins: torch.Tensor, post_rots: torch.Tensor,
-                post_trans: torch.Tensor, hi: int, wi: int) -> torch.Tensor:
-    """The plane sweep's sampling grid (BEVDet's ``gen_grid``), float32.
-
-    frustum (D, H, W, 3) of (u, v, d) in input-image pixels at the cost
-    volume's resolution; ``k2s_sensor`` (B, N, 4, 4) maps the current
-    camera into the previous (sweep) one; ``intrins``, ``post_rots`` (B, N,
-    3, 3), ``post_trans`` (B, N, 3).  Every (d, u, v) is un-projected,
-    moved by ``k2s_sensor``, re-projected and normalised over the
-    (``hi``, ``wi``) image with ``align_corners=True``; points behind the
-    sweep camera (z < 1e-3) go to -2.  Returns (B*N, D*H, W, 2) (x, y).
-    The inverses are ``inv_ex``: the host never waits on the card here.
-    """
-    B, N = post_trans.shape[:2]
-    D, H, W, _ = frustum.shape
-    f32 = torch.float32
-    pts = (frustum.to(f32)[None, None]
-           - post_trans.to(f32)[:, :, None, None, None, :])
-    inv_post = torch.linalg.inv_ex(post_rots.to(f32))[0]
-    pts = torch.einsum('bnij,bndhwj->bndhwi', inv_post, pts)
-    pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], -1)
-    rot = k2s_sensor[..., :3, :3].to(f32)
-    tra = k2s_sensor[..., :3, 3].to(f32)
-    combine = torch.einsum('bnij,bnjk->bnik', rot,
-                           torch.linalg.inv_ex(intrins.to(f32))[0])
-    pts = torch.einsum('bnij,bndhwj->bndhwi', combine, pts)
-    pts = pts + tra[:, :, None, None, None, :]
-    neg = pts[..., 2] < 1e-3
-    pts = torch.einsum('bnij,bndhwj->bndhwi', intrins.to(f32), pts)
-    uv = pts[..., :2] / torch.clamp_min(pts[..., 2:3], 1e-6)
-    uv = torch.einsum('bnij,bndhwj->bndhwi', post_rots[..., :2, :2].to(f32),
-                      uv)
-    uv = uv + post_trans[..., None, None, None, :2].to(f32)
-    px = uv[..., 0] / (wi - 1.0) * 2.0 - 1.0
-    py = uv[..., 1] / (hi - 1.0) * 2.0 - 1.0
-    px = torch.where(neg, -2.0, px)
-    py = torch.where(neg, -2.0, py)
-    return torch.stack([px, py], -1).reshape(B * N, D * H, W, 2)
-
-
-def plane_sweep(prev_feat: torch.Tensor, curr_feat: torch.Tensor,
-                grid: torch.Tensor, depth_bins: int, group_size: int = 4,
-                bias: float = 0.0) -> torch.Tensor:
-    """The plane sweep on a ``stereo_grid``, in float32 (BEVDet's
-    ``calculate_cost_volumn``).
-
-    prev/curr_feat (B*N, H, W, C) stage-0 features at the grid's
-    resolution.  For each group of ``group_size`` channels the previous
-    feature is sampled at the grid (bilinear, zeros outside) and the L1
-    distance to the current feature over the group is added to the cost;
-    where the first channel of the last group's sample is exactly 0 (as
-    BEVDet reads its loop's last ``wrap_prev``) ``bias`` is added.  Returns
-    softmax over depth of -cost, (B*N, D, H, W).
-    """
-    BN, H, W, C = curr_feat.shape
-    D = depth_bins
-    f32 = torch.float32
-    cost = torch.zeros(BN, D, H, W, dtype=f32, device=curr_feat.device)
-    for g in range(0, C, group_size):
-        prev_g = prev_feat[..., g:g + group_size].permute(0, 3, 1, 2)
-        warp = grid_sample_2d(prev_g.to(f32), grid)     # (BN, gs, D*H, W)
-        warp = warp.reshape(BN, -1, D, H, W)
-        curr_g = curr_feat[..., g:g + group_size].permute(0, 3, 1, 2)
-        cost = cost + (curr_g[:, :, None].to(f32) - warp).abs().sum(dim=1)
-    if bias:
-        cost = cost + bias * (warp[:, 0] == 0)
-    return torch.softmax(-cost, dim=1)
-
-
 def stereo_cost_volume(prev_feat: torch.Tensor, curr_feat: torch.Tensor,
                        frustum: torch.Tensor, k2s_sensor: torch.Tensor,
                        intrins: torch.Tensor, post_rots: torch.Tensor,
@@ -227,7 +158,6 @@ def stereo_cost_volume(prev_feat: torch.Tensor, curr_feat: torch.Tensor,
     """
     _, hs, ws, _ = curr_feat.shape
     # the input-image pixel extent of the stage-0 map
-    grid = stereo_grid(frustum, k2s_sensor, intrins, post_rots, post_trans,
-                       hs * 4, ws * 4)
-    return plane_sweep(prev_feat, curr_feat, grid, frustum.shape[0],
-                       group_size).permute(0, 2, 3, 1)
+    geom = sweep_geometry(frustum, k2s_sensor, intrins, post_rots,
+                          post_trans, hs * 4, ws * 4)
+    return sweep(prev_feat, curr_feat, geom, group_size).permute(0, 2, 3, 1)

@@ -15,11 +15,11 @@ kernels its path really used.
 
 Each kernel is a ``torch.library`` custom op in the ``fusionocc``
 namespace (registered by ``ops/bev_pool.py``, ``ops/window_attn.py``,
-``ops/zwin_conv.py`` and, for the six ``index_*`` entries of a sparse
-stage's index builds, ``ops/sparse_conv.py``): its CPU implementation is
-the plain version, its CUDA implementation the wrapper that launches the
-kernel, and a fake implementation gives ``torch.export`` its output's
-shape.  An exported program calls the op, so its launches go through
+``ops/zwin_conv.py``, ``ops/plane_sweep.py`` and, for the six
+``index_*`` entries of a sparse stage's index builds,
+``ops/sparse_conv.py``): its CPU implementation is the plain version, its
+CUDA implementation the wrapper that launches the kernel, and a fake
+implementation gives ``torch.export`` its output's shape.  An exported program calls the op, so its launches go through
 ``launch`` and are counted too.  ``exporting()`` tells the index builds to
 take their static capacities instead of reading a padded width from the
 card.
@@ -81,6 +81,10 @@ SIGNATURES['index_table'] = [_P, _P, _P, _I, _I, _L, _P]
 # table, in coords, in mask, out coords, out mask, in lane mask, SubM map,
 # stride-2 map, out lane mask, G, V, S, sx, sy, sz, row_len, f_in, f_out
 SIGNATURES['index_maps'] = [_P] * 9 + [_I] * 6 + [_L, _I, _I, _P]
+# the plane sweep (csrc/plane_sweep.cu, ops/plane_sweep.py): prev, curr,
+# frustum, cams, out, invalid (or null), BN, D, H, W, C, hi, wi, bias_ch,
+# bias, dtype (0 f32, 1 bf16)
+SIGNATURES['plane_sweep_fwd'] = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
 
 
 def find_nvcc() -> str:

@@ -48,6 +48,7 @@ from fusionocc_tpu_torch.data.synthetic import synthetic_batch
 from fusionocc_tpu_torch.models.lss import downsample_depth_onehot
 from fusionocc_tpu_torch.ops import bev_pool as tbp
 from fusionocc_tpu_torch.ops import kernels
+from fusionocc_tpu_torch.ops import plane_sweep
 from fusionocc_tpu_torch.ops import window_attn as twa
 
 
@@ -348,6 +349,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     idx = tbp.prepare_pooling_index(torch.zeros(1, 1, 1, 1, 1, 3), g)
     with pytest.raises(ValueError, match='CUDA'):
         tbp.bev_pool_cuda(torch.ones(1), torch.ones(1, 2), idx, 2)
+    feat = torch.zeros(1, 2, 2, 64)
+    with pytest.raises(ValueError, match='CUDA'):
+        plane_sweep.plane_sweep_cuda(feat, feat, torch.zeros(3, 2, 2, 3),
+                                     torch.zeros(1, plane_sweep.CAM_WORDS),
+                                     8, 8, 4, 5.0)
 
 
 def test_build_without_nvcc_raises_naming_the_command(tmp_path, monkeypatch):
@@ -362,4 +368,4 @@ def test_build_without_nvcc_raises_naming_the_command(tmp_path, monkeypatch):
                             'zwin_conv_fwd_epi': 0, 'index_mark': 0,
                             'index_count': 0, 'index_prefix': 0,
                             'index_set': 0, 'index_table': 0,
-                            'index_maps': 0}
+                            'index_maps': 0, 'plane_sweep_fwd': 0}
