@@ -171,10 +171,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 11. the hybrid data x spatial mesh, ranks spawned on the one card over
    gloo after the parent built the kernels (``parallel.mesh.hybrid_mesh``,
-   ``FusionOcc(cfg, mesh=)``; gloo stages every collective through the
-   host, so these times are no scaling figures).  The parent computes one
-   process's references.  (a) Midsize fp32: the two-pass forward at (2, 2)
-   and (1, 2) within HYB_TOL of one process, and at (1, 4) on one sample
+   ``parallel.hybrid.HybridFusionOcc(cfg, mesh)``; gloo stages every
+   collective through the host, so these times are no scaling figures).
+   The parent computes one process's references.  (a) Midsize fp32: the
+   two-pass forward at (2, 2) and (1, 2) within HYB_TOL of one process,
+   and at (1, 4) on one sample
    (the same 4 ranks: 2 cameras leave ranks 2 and 3 none, the last Y
    level's 5 rows rank 3 none; XLA pads such blocks); at (2, 2)
    ``predict_streaming_batch`` on a 4-frame clip with a reset (agreement
@@ -2882,9 +2883,11 @@ def dist_full_task(rank, world, tmp) -> dict:
         wall = time.perf_counter() - t
         mesh.COLLECTIVES.timed = False
         rows.append({'ms': start.elapsed_time(end), 'wall_ms': wall * 1e3,
-                     'collective_ms': mesh.COLLECTIVES.seconds * 1e3,
+                     'collective_ms': sum(
+                         mesh.COLLECTIVES.kind_seconds.values()) * 1e3,
                      'collectives': dict(mesh.COLLECTIVES.calls),
-                     'collective_mb': mesh.COLLECTIVES.bytes / 1e6,
+                     'collective_mb': sum(
+                         mesh.COLLECTIVES.kind_bytes.values()) / 1e6,
                      'launches': {k: KERNELS.launches[k]
                                   for k in MAIN_KERNELS},
                      'logs': {k: float(v) for k, v in logs.items()}})
@@ -3543,13 +3546,13 @@ def hybrid_mid_task(rank, world, tmp) -> dict:
     """11a on one rank of (world // 2, 2): the midsize two-pass forward;
     at (2, 2) also ``predict_streaming_batch`` on the clip and one train
     step with the draws on (``midsize_steps``)."""
-    from fusionocc_tpu_torch.models.fusion_occ import (FusionOcc,
-                                                       stack_batches)
+    from fusionocc_tpu_torch.models.fusion_occ import stack_batches
     from fusionocc_tpu_torch.parallel import mesh
+    from fusionocc_tpu_torch.parallel.hybrid import HybridFusionOcc
     saved = torch.load(f'{tmp}/hmid.pt', weights_only=False)
     tc = dist_midsize_config()
     m = mesh.hybrid_mesh(world // HYB_SPATIAL, HYB_SPATIAL)
-    model = FusionOcc(tc.model, device=DEV, mesh=m)
+    model = HybridFusionOcc(tc.model, m, device=DEV)
     model.load_state_dict(saved['model'])
     batch = to_card(m.shard(saved['batch']))
     with torch.inference_mode():
@@ -3583,18 +3586,19 @@ def hybrid_full_task(rank, world, tmp) -> dict:
     collective; the peak memory above what was held.  Then train steps
     from ``init_weights``."""
     from fusionocc_tpu_torch.config import TrainConfig, full_model_config
-    from fusionocc_tpu_torch.models.fusion_occ import (
-        FusionOcc, batch_pooling_indices, init_weights, spread_weights)
+    from fusionocc_tpu_torch.models.fusion_occ import (init_weights,
+                                                       spread_weights)
     from fusionocc_tpu_torch.ops.kernels import KERNELS
     from fusionocc_tpu_torch.parallel import mesh
+    from fusionocc_tpu_torch.parallel.hybrid import HybridFusionOcc
     from fusionocc_tpu_torch.train import loop
     cfg = full_model_config()
     m = mesh.hybrid_mesh(world // HYB_SPATIAL, HYB_SPATIAL)
     batch = to_card(m.shard(torch.load(f'{tmp}/hfull.pt',
                                        weights_only=False)))
-    model = spread_weights(FusionOcc(cfg, device=DEV, mesh=m),
+    model = spread_weights(HybridFusionOcc(cfg, m, device=DEV),
                            torch.Generator().manual_seed(0))
-    idx = batch_pooling_indices(cfg, batch, m)
+    idx = model.batch_pooling_indices(batch)
     base = reset_peak()
     model.predict(batch, idx)
     torch.cuda.synchronize()
@@ -3627,7 +3631,7 @@ def hybrid_full_task(rank, world, tmp) -> dict:
     del model, idx
     torch.cuda.empty_cache()
     tc = TrainConfig(model=cfg)
-    model = init_weights(FusionOcc(cfg, device=DEV, mesh=m),
+    model = init_weights(HybridFusionOcc(cfg, m, device=DEV),
                          torch.Generator().manual_seed(0))
     state = loop.create_train_state(model, tc)
     rows = []
@@ -3651,11 +3655,12 @@ def hybrid_mid14_task(rank, world, tmp) -> dict:
     """11a at (1, 4) on one rank of the same 4: the midsize two-pass forward
     of the first sample alone, so that ranks 2 and 3 hold no camera and
     rank 3 no row of the last Y level (XLA pads those blocks)."""
-    from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, map_batch
+    from fusionocc_tpu_torch.models.fusion_occ import map_batch
     from fusionocc_tpu_torch.parallel import mesh
+    from fusionocc_tpu_torch.parallel.hybrid import HybridFusionOcc
     saved = torch.load(f'{tmp}/hmid.pt', weights_only=False)
     m = mesh.hybrid_mesh(1, 4)
-    model = FusionOcc(dist_midsize_config().model, device=DEV, mesh=m)
+    model = HybridFusionOcc(dist_midsize_config().model, m, device=DEV)
     model.load_state_dict(saved['model'])
     batch = to_card(map_batch(lambda a: a[:1], saved['batch']))
     with torch.inference_mode():

@@ -8,13 +8,14 @@ detector ``BEVStereo4DOCC`` (``mmdet3d/models/detectors/bevdet_occ.py``) on
 ``LSSViewTransformerBEVStereo`` (``necks/view_transformer.py``).  The
 ``bevdet_occ_stbase_stereo`` preset selects it (``configs.build_model``).
 
-It shares with ``FusionOcc`` by inheritance the image encoder (Swin-B with
-K2, FPN_LSS), the pooling index and K1, the 27-number camera vector, the
-``pre_process`` ResNet3D, the trunk (CustomResNet3D, LSSFPN3D), the final
-conv and the predicter, and the entry points ``forward`` and ``predict``
-(``predict(batch, pool_idxs=...)`` returns (B, X, Y, Z) uint8).  A
-``Batch`` carries three frames: f = 0 the key frame, 1 the adjacent one,
-2 the stereo reference frame (``extra_ref_frames``).
+It stands beside ``FusionOcc`` on their shared base, ``models.fusion_occ.
+OccModel``: the image encoder (Swin-B with K2, FPN_LSS), the pooling index
+and K1, the 27-number camera vector, the ``pre_process`` ResNet3D, the
+trunk (CustomResNet3D, LSSFPN3D), the final conv and the predicter, and the
+entry points ``forward`` and ``predict`` (``predict(batch, pool_idxs=...)``
+returns (B, X, Y, Z) uint8).  A ``Batch`` carries three frames
+(``input_frames``): f = 0 the key frame, 1 the adjacent one, 2 the stereo
+reference frame.
 
 The equations, frames oldest first (f = 2, 1, 0):
 
@@ -29,18 +30,12 @@ The equations, frames oldest first (f = 2, 1, 0):
 - ``logits = predicter(final_conv(trunk(cat[V_1, V_0])))``: FusionOcc's
   order, oldest first, which is BEVDet's ``bev_feat_list`` order.
 
-``cost_volume(curr, prev, k2s)``: every (d, u, v) of the frustum at stride
-``cv_downsample`` = 4 is un-projected with ``post_rots``, ``post_trans`` and
-``intrins``, moved into the previous camera by ``k2s``, re-projected and
-normalised to [-1, 1] (``align_corners=True``), points behind the camera
-(z < 1e-3) at -2 (``ops.plane_sweep.stereo_grid``); for each group of
-``group_size`` = 4 channels ``prev`` is sampled there (bilinear, zeros
-outside) and ``sum_c |curr_c - warp_c|`` added to the cost; where the first
-channel of the last group's sample is exactly 0 ``bias`` = 5 is added;
-the result is ``softmax_D(-cost)`` (``ops.plane_sweep.plane_sweep``,
-float32).  The per-camera pieces of the projection are composed once a
-call (``sweep_geometry``, span ``camera.stereo.grid``); the sweep itself,
-grid included, is one kernel on the card (``fusionocc::plane_sweep``).
+``cost_volume(curr, prev, k2s)`` is BEVDet's plane sweep with
+``group_size`` = 4 and the invalid ``bias`` = 5, on the frustum at stride
+``cv_downsample`` = 4 (``ops/plane_sweep.py`` sets it out): the
+per-camera pieces of the projection are composed once a call
+(``sweep_geometry``, span ``camera.stereo.grid``); the sweep itself, grid
+included, is one kernel on the card (``fusionocc::plane_sweep``).
 
 ``DepthNet`` (stereo): ``x = reduce_conv(x)`` (3x3 conv with bias, BN,
 ReLU); ``ctx = context_conv(context_se(x, context_mlp(bn(mlp_in))))``;
@@ -59,8 +54,8 @@ stage 0), ``camera.stereo`` with ``camera.stereo.grid`` (the per-camera
 pieces) and ``camera.stereo.cost_volume`` (the sweep), ``camera.depth_net``
 inside ``camera.view_transformer``.  The stereo path reads nothing from the
 card: its inverses are ``inv_ex`` and the frustum is a buffer.  No LiDAR,
-no hybrid mesh, no ``batch_frames`` fold and no streaming: the
-configuration is camera-only and BEVDet evaluates it two-pass.
+no ``batch_frames`` fold and no streaming: the configuration is
+camera-only and BEVDet evaluates it two-pass.
 """
 from __future__ import annotations
 
@@ -76,7 +71,7 @@ from ..nn.layers import (ASPP, BasicBlock2D, BatchNorm, Conv2d, Mlp, SELayer)
 from ..ops.bev_pool import PoolingIndex, bev_pool
 from ..ops.plane_sweep import SweepGeometry, sweep, sweep_geometry
 from ..utils import profiling
-from .fusion_occ import Batch, FusionOcc, frame_pooling_index
+from .fusion_occ import Batch, OccModel, frame_pooling_index
 
 
 class StereoDepthNet(nn.Module):
@@ -171,34 +166,31 @@ class LSSViewTransformerBEVStereo(nn.Module):
         return voxel, depth.permute(0, 2, 3, 1).reshape(B, N, h, w, D)
 
 
-class BEVStereo4DOcc(FusionOcc):
-    """BEVStereo4D-Occ.  Parameters are float32 on ``device``; ``cfg.dtype``
-    is the compute dtype.  Built in eval mode."""
+class BEVStereo4DOcc(OccModel):
+    """BEVStereo4D-Occ on ``device`` (``OccModel``)."""
 
     # BEVStereo4D's and its DepthNet's fixed numbers, under BEVDet's names
-    extra_ref_frames = 1
     cv_downsample = 4
     group_size = 4
     bias = 5.0
 
-    def __init__(self, cfg: ModelConfig, device='cuda', mesh=None):
-        if cfg.use_lidar or mesh is not None:
+    def __init__(self, cfg: ModelConfig, device='cuda'):
+        if cfg.use_lidar:
             raise NotImplementedError(
-                'BEVStereo4D-Occ is camera-only (use_lidar=False) and runs '
-                'in one process (no hybrid mesh)')
+                'BEVStereo4D-Occ is camera-only (use_lidar=False)')
         super().__init__(cfg, device)
 
-    def _build_view_transformer(self) -> nn.Module:
+    def _view_transformer(self) -> nn.Module:
         cfg = self.cfg
         return LSSViewTransformerBEVStereo(
             cfg.vt, cfg.grid, cfg.input_size, cfg.img_neck_out_channels,
             self.cv_downsample, self.group_size, self.bias)
 
-    def stereo_ref_feat(self, imgs: torch.Tensor) -> torch.Tensor:
-        """(B, N, H, W, 3) -> the stage-0 feature (B*N, H/4, W/4, C0)."""
-        B, N, H, W, _ = imgs.shape
-        return self.img_backbone.stereo_feat(
-            imgs.reshape(B * N, H, W, 3).to(self.cfg.dtype))
+    @property
+    def input_frames(self) -> int:
+        """The key frame, the ``num_adj`` adjacent ones and the stereo
+        reference frame (BEVStereo4D's ``extra_ref_frames`` = 1)."""
+        return self.cfg.num_frame + 1
 
     def _stereo_frame(self, batch: Batch, fid: int, prev: torch.Tensor,
                       pool_idx: Optional[PoolingIndex]):
@@ -233,20 +225,17 @@ class BEVStereo4DOcc(FusionOcc):
             return self.pre_process_net(voxel)[0], depth, curr
 
     def _outputs(self, batch: Batch,
-                 pool_idxs: Optional[Sequence[PoolingIndex]] = None,
-                 batch_frames: bool = False,
-                 pool_idx_folded: Optional[PoolingIndex] = None
+                 pool_idxs: Optional[Sequence[PoolingIndex]] = None
                  ) -> Dict[str, torch.Tensor]:
         """occ_logits (B, X, Y, Z, ncls) float32 and the key frame's depth
         softmax (B, N, h, w, D).  ``pool_idxs``: optional indices of frames
-        0 .. num_frame - 1 (the reference frame pools nothing)."""
-        if batch_frames:
-            raise NotImplementedError(
-                'BEVStereo4D-Occ chains its frames (each cost volume reads '
-                'the next older frame): no batch_frames fold')
+        0 .. num_frame - 1 (the reference frame pools nothing).  The frames
+        are chained (each cost volume reads the next older frame), so
+        there is no ``batch_frames`` fold."""
         cfg = self.cfg
         with profiling.span('camera.stereo_ref'), torch.no_grad():
-            prev = self.stereo_ref_feat(batch.imgs[:, cfg.num_frame])
+            prev = self.img_backbone.stereo_feat(     # (B*N, H/4, W/4, C0)
+                batch.imgs[:, cfg.num_frame].flatten(0, 1).to(cfg.dtype))
         voxel_feats = []            # order: [frame F-1 (oldest) ... frame 0]
         for fid in range(cfg.num_frame - 1, -1, -1):
             # adjacent frames pass no gradient
@@ -257,8 +246,3 @@ class BEVStereo4DOcc(FusionOcc):
             voxel_feats.append(voxel)
         return {'occ_logits': self._head(torch.cat(voxel_feats, dim=-1)),
                 'depth': depth_key}
-
-    def _check_streaming(self, frames: Batch) -> None:
-        raise NotImplementedError(
-            'BEVStereo4D-Occ is evaluated two-pass (predict); its streaming '
-            'would cache the stage-0 feature too, which is not built')

@@ -1,16 +1,21 @@
-"""FusionOcc, reference module names.
+"""FusionOcc, reference module names, and ``OccModel``, what it shares
+with BEVStereo4D-Occ (``models/bevstereo_occ.py``).
 
 Port of ``FusionOcc.__call__`` / ``predict`` and the streaming entry points
 of ``fusionocc_tpu/models/fusion_occ.py``.
 
-The model is built in eval mode, and every ``predict*`` runs with eval
-semantics whatever mode it is in (JAX passes ``train=False``); only the
-trainer (``train/loop.py``) calls ``train()``.  In training, ``forward``
-runs the frames one by one, the adjacent frames under ``torch.no_grad``
-(JAX's ``stop_gradient``: their BatchNorms still take batch statistics and
-update, frame F-1 first and the key frame last), and with ``remat_bev`` the
-BEV trunk under ``nn.layers.checkpoint``; its random draws come from the
-caller's ``nn.layers.random_scope``.
+``OccModel`` builds the shared modules under the reference's names and in
+its order (``img_backbone``, ``img_neck``, the subclass's
+``_view_transformer()``, ``pre_process_net``, its ``_lidar_encoder()`` if
+any, then the head) and runs ``forward`` / ``predict`` over the subclass's
+``_outputs``.  The model is built in eval mode, and every ``predict*`` runs
+with eval semantics whatever mode it is in (JAX passes ``train=False``);
+only the trainer (``train/loop.py``) calls ``train()``.  In training,
+``forward`` runs the frames one by one, the adjacent frames under
+``torch.no_grad`` (JAX's ``stop_gradient``: their BatchNorms still take
+batch statistics and update, frame F-1 first and the key frame last), and
+with ``remat_bev`` the BEV trunk under ``nn.layers.checkpoint``; its random
+draws come from the caller's ``nn.layers.random_scope``.
 
 Two-pass inference (``forward`` / ``predict``): each temporal frame, oldest
 first, goes through the camera branch (Swin -> FPN_LSS -> CrossModalLSS ->
@@ -26,34 +31,6 @@ Streaming inference (``predict_streaming``, ``predict_streaming_scan``,
 ``predict_streaming_batch``) runs one camera pass per frame and takes the
 adjacent frame's feature from a cache (``StreamingState``): the previous
 frame's camera voxel feature, warped into the new ego frame (``_shift_bev``).
-
-Under the hybrid mesh (``FusionOcc(cfg, mesh=hybrid_mesh(n_data,
-n_spatial))``, the JAX package's ``mesh`` field) each process holds its
-data rank's samples (``HybridMesh.shard``) and the steps that the JAX
-package leaves to XLA's partitioner are written out:
-
-- the camera images: rank (d, s) takes block s of its B*N images (the
-  constraint on the image batch, ``fusionocc_tpu/models/fusion_occ.py:
-  178-179``); Swin-B, FPN_LSS and CrossModalLSS run on those, and K1 pools
-  them into a partial float32 volume of every sample (an index of the
-  rank's images, ``prepare_pooling_index(images=)``);
-- the partial volumes are summed over the spatial group (K1 is additive
-  over cameras; the sum is differentiable) and cast once, as one process
-  casts K1's float32 sums; ``pre_process_net`` then runs replicated on
-  the whole volume, as does the LiDAR encoder, each with its BatchNorms
-  over the data group (``HybridMesh.replicated``): the streaming cache and
-  ``_shift_bev`` see the whole pooled feature;
-- the fused volume's Y axis (``:299-301``): each rank cuts its Y rows and
-  runs the trunk, the final conv and the predicter on them with halo rows
-  exchanged (``parallel/spatial.py``).
-
-``forward`` in eval mode and every ``predict*`` gather what they return
-over the spatial group, so the caller gets what one process returns; in
-training ``forward`` returns this rank's blocks (the logits' Y rows, the
-depth and seg of its images) and the losses take the matching targets
-(``local_targets``).
-
-``check_supported`` refuses configurations the port does not run.
 """
 from __future__ import annotations
 
@@ -71,7 +48,6 @@ from ..nn.layers import BatchNorm, Conv3d, LayerNorm, Linear, checkpoint
 from ..nn.swin import SwinTransformer
 from ..ops.bev_pool import PoolingIndex, prepare_pooling_index
 from ..ops.grid_sample import grid_sample_2d
-from ..parallel import spatial
 from ..utils import profiling
 from .fpn import FPN_LSS, LSSFPN3D, CustomResNet3D
 from .lidar_encoder import SparseEncoder, SpConv
@@ -79,7 +55,7 @@ from .lss import CrossModalLSS
 
 
 class Batch(NamedTuple):
-    """One batch of tensors. F = num_frame (key + adjacent), N = cams."""
+    """One batch of tensors. F = the model's ``input_frames``, N = cams."""
     imgs: torch.Tensor            # (B, F, N, H, W, 3)
     sensor2keyego: torch.Tensor   # (B, F, N, 4, 4) float32
     intrins: torch.Tensor         # (B, F, N, 3, 3)
@@ -95,27 +71,30 @@ class Batch(NamedTuple):
     ego2global: Optional[torch.Tensor] = None       # (B, 4, 4)
 
 
+def frame_ego_points(cfg: ModelConfig, s2k, intrins, post_rots, post_trans,
+                     bda) -> torch.Tensor:
+    """A frame's camera frustum in the key ego frame, (B, N, D, h, w, 3)."""
+    frustum = make_frustum(cfg.grid.depth, cfg.input_size, cfg.vt.downsample,
+                           cfg.vt.sid, device=s2k.device)
+    return frustum_to_ego(frustum, s2k, intrins, post_rots, post_trans, bda)
+
+
 def frame_pooling_index(cfg: ModelConfig, s2k, intrins, post_rots, post_trans,
-                        bda, mesh=None) -> PoolingIndex:
-    """Pooling index for one temporal frame's camera geometry (with a
-    ``HybridMesh``, of this rank's block of the B*N images).
+                        bda) -> PoolingIndex:
+    """Pooling index for one temporal frame's camera geometry.
 
     At inference the rig is fixed, so callers build it once per frame and
     pass it to ``forward`` / ``predict`` (the reference's ``accelerate``).
     """
-    frustum = make_frustum(cfg.grid.depth, cfg.input_size, cfg.vt.downsample,
-                           cfg.vt.sid, device=s2k.device)
-    coor = frustum_to_ego(frustum, s2k, intrins, post_rots, post_trans, bda)
-    images = (None if mesh is None else
-              mesh.image_block(coor.shape[0] * coor.shape[1]))
-    return prepare_pooling_index(coor, cfg.grid, images)
+    return prepare_pooling_index(frame_ego_points(
+        cfg, s2k, intrins, post_rots, post_trans, bda), cfg.grid)
 
 
-def batch_pooling_indices(cfg: ModelConfig, batch: Batch, mesh=None):
+def batch_pooling_indices(cfg: ModelConfig, batch: Batch):
     """Per-frame pooling indices of ``batch``, indexed by frame id."""
     return [frame_pooling_index(cfg, batch.sensor2keyego[:, f],
                                 batch.intrins[:, f], batch.post_rots[:, f],
-                                batch.post_trans[:, f], batch.bda, mesh)
+                                batch.post_trans[:, f], batch.bda)
             for f in range(cfg.num_frame)]
 
 
@@ -139,8 +118,8 @@ def stack_batches(batches: Sequence[Batch]) -> Batch:
                    for a in zip(*batches)))
 
 
-def batched_frames_pooling_index(cfg: ModelConfig, batch: Batch,
-                                 mesh=None) -> PoolingIndex:
+def batched_frames_pooling_index(cfg: ModelConfig, batch: Batch
+                                 ) -> PoolingIndex:
     """Pooling index of ``forward(batch_frames=True)``: the (B, F) frames
     folded into one batch of B*F, each with its own pose and ``bda``
     repeated per frame (the fold order of ``_batched_frame_feats``)."""
@@ -149,12 +128,11 @@ def batched_frames_pooling_index(cfg: ModelConfig, batch: Batch,
     return frame_pooling_index(
         cfg, fold(batch.sensor2keyego), fold(batch.intrins),
         fold(batch.post_rots), fold(batch.post_trans),
-        batch.bda.repeat_interleave(batch.sensor2keyego.shape[1], dim=0),
-        mesh)
+        batch.bda.repeat_interleave(batch.sensor2keyego.shape[1], dim=0))
 
 
 def streaming_fold_pooling_index(cfg: ModelConfig, stacked: Batch,
-                                 chunk: int, cam_chunk: int = 0, mesh=None
+                                 chunk: int, cam_chunk: int = 0
                                  ) -> PoolingIndex:
     """Pooling index of ``predict_streaming_batch``: the key-frame geometry
     of the first n stacked (T, B, ...) frames folded into one batch of n*B,
@@ -168,7 +146,7 @@ def streaming_fold_pooling_index(cfg: ModelConfig, stacked: Batch,
     return frame_pooling_index(
         cfg, fold(stacked.sensor2keyego)[:, 0], fold(stacked.intrins)[:, 0],
         fold(stacked.post_rots)[:, 0], fold(stacked.post_trans)[:, 0],
-        fold(stacked.bda), mesh)
+        fold(stacked.bda))
 
 
 class FinalConv(nn.Module):
@@ -196,20 +174,14 @@ def _inference(fn):
     return run
 
 
-class FusionOcc(nn.Module):
-    """FusionOcc.  Parameters are float32 on ``device`` (the card unless
-    the caller asks for another); ``cfg.dtype`` is the compute dtype.
-    ``mesh``: a ``parallel.mesh.HybridMesh``, or None for one process (or
-    the data mesh alone).  Built in eval mode.
-    """
+class OccModel(nn.Module):
+    """The shared modules and entry points: float32 parameters on
+    ``device`` (the card by default), ``cfg.dtype`` the compute dtype."""
 
-    extra_ref_frames = 0    # frames a batch holds beyond num_frame
-
-    def __init__(self, cfg: ModelConfig, device='cuda', mesh=None):
+    def __init__(self, cfg: ModelConfig, device='cuda'):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        self.mesh = mesh
         sw = cfg.swin
         dims = sw.num_features
         occ = cfg.occ_channels
@@ -218,12 +190,12 @@ class FusionOcc(nn.Module):
             self.img_neck = FPN_LSS(
                 dims[sw.out_indices[0]] + dims[sw.out_indices[1]],
                 cfg.img_neck_out_channels)
-            self.img_view_transformer = self._build_view_transformer()
+            self.img_view_transformer = self._view_transformer()
             self.pre_process_net = CustomResNet3D(
                 cfg.vt.feature_channels, (cfg.img_channels,), (1,), (1,))
-            if cfg.use_lidar:
-                self.lidar_encoder = SparseEncoder(cfg.lidar, cfg.grid,
-                                                   cfg.dtype, device)
+            lidar = self._lidar_encoder(device)
+            if lidar is not None:
+                self.lidar_encoder = lidar
             self.img_bev_encoder_backbone = CustomResNet3D(
                 cfg.fusion_channels, cfg.bev_channels, cfg.bev_num_layer,
                 cfg.bev_strides)
@@ -235,16 +207,14 @@ class FusionOcc(nn.Module):
         self.to(device)     # buffers built from numpy start on the CPU
         self.eval()
 
-    def _build_view_transformer(self) -> nn.Module:
-        """The camera branch's view transformer (``img_view_transformer``)."""
-        cfg = self.cfg
-        return CrossModalLSS(cfg.vt, cfg.grid, cfg.img_neck_out_channels)
+    def _lidar_encoder(self, device) -> Optional[nn.Module]:
+        """The LiDAR branch (``lidar_encoder``), if the model has one."""
+        return None
 
     @property
     def input_frames(self) -> int:
-        """Temporal frames a ``Batch`` carries: the key frame and the
-        ``num_adj`` adjacent ones, and any the model reads beyond them."""
-        return self.cfg.num_frame + self.extra_ref_frames
+        """Temporal frames a ``Batch`` carries: key and adjacent ones."""
+        return self.cfg.num_frame
 
     @contextlib.contextmanager
     def eval_semantics(self):
@@ -275,6 +245,65 @@ class FusionOcc(nn.Module):
         y = y.reshape(B, N, *y.shape[1:])
         return (y, stereo_feat) if stereo else y
 
+    def local_targets(self, batch: Batch) -> Batch:
+        """The targets of what the training ``forward`` returns."""
+        return batch
+
+    def _trunk(self, fusion: torch.Tensor) -> torch.Tensor:
+        """The BEV trunk, (B, Z, Y, X, C) in and out."""
+        return self.img_bev_encoder_neck(self.img_bev_encoder_backbone(fusion))
+
+    def _final_conv(self, x: torch.Tensor) -> torch.Tensor:
+        return self.final_conv(x)
+
+    def _head(self, fusion: torch.Tensor) -> torch.Tensor:
+        """The fused (B, Z, Y, X, C) volume through the BEV trunk (in
+        training with ``remat_bev``, checkpointed), the final conv and the
+        predicter: (B, X, Y, Z, ncls) float32 logits."""
+        with profiling.span('head'):
+            with profiling.span('head.trunk'):
+                if (self.training and self.cfg.remat_bev
+                        and torch.is_grad_enabled()):
+                    x = checkpoint(self._trunk, fusion)
+                else:
+                    x = self._trunk(fusion)
+            with profiling.span('head.final'):
+                x = self._final_conv(x.permute(0, 4, 1, 2, 3))  # NCDHW
+                x = x.permute(0, 4, 3, 2, 1)              # (B, X, Y, Z, C)
+                h = F.softplus(self.predicter[0](x))
+                return self.predicter[2](h.float())
+
+    def forward(self, batch: Batch,
+                pool_idxs: Optional[Sequence[PoolingIndex]] = None,
+                **fold) -> Dict[str, torch.Tensor]:
+        """Two-pass inference, or in training mode the training forward:
+        ``_outputs``.  pool_idxs: optional per-frame indices
+        (``batch_pooling_indices``), else each is built in the call;
+        ``fold``: the model's own options of ``_outputs``."""
+        with profiling.span('forward', entry=True):
+            return self._outputs(batch, pool_idxs, **fold)
+
+    @_inference
+    def predict(self, batch: Batch,
+                pool_idxs: Optional[Sequence[PoolingIndex]] = None,
+                **fold) -> torch.Tensor:
+        """(B, X, Y, Z) uint8 class ids."""
+        out = self._outputs(batch, pool_idxs, **fold)
+        return out['occ_logits'].argmax(dim=-1).to(torch.uint8)
+
+
+class FusionOcc(OccModel):
+    """FusionOcc on ``device`` (``OccModel``)."""
+
+    def _view_transformer(self) -> nn.Module:
+        cfg = self.cfg
+        return CrossModalLSS(cfg.vt, cfg.grid, cfg.img_neck_out_channels)
+
+    def _lidar_encoder(self, device) -> Optional[nn.Module]:
+        cfg = self.cfg
+        return (SparseEncoder(cfg.lidar, cfg.grid, cfg.dtype, device)
+                if cfg.use_lidar else None)
+
     def _frame_voxel_feat(self, imgs_f, s2k_f, s2k_key, intrin_f, post_rot_f,
                           post_tran_f, bda, sparse_depth,
                           pool_idx: Optional[PoolingIndex] = None):
@@ -284,10 +313,6 @@ class FusionOcc(nn.Module):
         (B, Z, Y, X, C_img), the depth softmax and the seg logits."""
         mlp_input = get_mlp_input(s2k_key, intrin_f, post_rot_f, post_tran_f,
                                   bda)
-        if self.mesh is not None:
-            return self._spatial_voxel_feat(imgs_f, s2k_f, intrin_f,
-                                            post_rot_f, post_tran_f, bda,
-                                            sparse_depth, mlp_input, pool_idx)
         x = self.image_encoder(imgs_f)
         if pool_idx is None:
             with profiling.span('camera.pooling_index'):
@@ -299,85 +324,9 @@ class FusionOcc(nn.Module):
         with profiling.span('camera.pre_process'):
             return self.pre_process_net(voxel)[0], depth, seg
 
-    def _spatial_voxel_feat(self, imgs_f, s2k_f, intrin_f, post_rot_f,
-                            post_tran_f, bda, sparse_depth, mlp_input,
-                            pool_idx: Optional[PoolingIndex]):
-        """``_frame_voxel_feat`` under the hybrid mesh: the camera branch on
-        this rank's block of the B*N images (its random masks that block
-        of the global batch's draw), K1's partial float32 volume summed
-        over the spatial group and cast once, ``pre_process_net``
-        replicated.  A rank whose block is empty (XLA pads it) skips the
-        camera branch in eval and adds a zero volume to the sum; in
-        training it runs the branch on no images, so that it joins the
-        collectives of the branch's BatchNorms.  Returns the
-        whole voxel feature (B, Z, Y, X, C) and the depth and seg of this
-        rank's images, (1, n, h, w, .)."""
-        m, cfg = self.mesh, self.cfg
-        B, N = imgs_f.shape[:2]
-        a, b = m.image_block(B * N)
-        h, w = cfg.feat_size
-        D = cfg.grid.num_depth_bins
-        if pool_idx is not None and pool_idx.ranks_depth.shape[0] != (
-                b - a) * D * h * w:
-            raise ValueError(
-                f'the pooling index has {pool_idx.ranks_depth.shape[0]} '
-                f'points, this rank\'s {b - a} images {(b - a) * D * h * w}:'
-                ' build it with the mesh (frame_pooling_index(..., mesh))')
-        if a == b and not self.training:
-            gx, gy, gz = cfg.grid.grid_size
-            dev = imgs_f.device
-            voxel = torch.zeros(B, gz, gy, gx, cfg.vt.feature_channels,
-                                device=dev)
-            depth = torch.zeros(1, 0, h, w, D, device=dev)
-            seg = torch.zeros(1, 0, h, w, cfg.vt.seg_num_classes,
-                              dtype=cfg.dtype, device=dev)
-        else:
-            def mine(t):
-                return t.reshape((1, B * N) + t.shape[2:])[:, a:b]
-            if pool_idx is None:
-                with profiling.span('camera.pooling_index'):
-                    pool_idx = frame_pooling_index(cfg, s2k_f, intrin_f,
-                                                   post_rot_f, post_tran_f,
-                                                   bda, m)
-            with m.draws(m.d * B * N + a, m.n_data * B * N):
-                x = self.image_encoder(mine(imgs_f))
-                with profiling.span('camera.view_transformer'):
-                    voxel, depth, seg = self.img_view_transformer(
-                        x, mine(sparse_depth), mine(mlp_input), pool_idx,
-                        pool_dtype=torch.float32)
-        voxel = m.sum_spatial(voxel).to(cfg.dtype)
-        with m.replicated(), profiling.span('camera.pre_process'):
-            voxel = self.pre_process_net(voxel)[0]
-        return voxel, depth, seg
-
-    def local_targets(self, batch: Batch) -> Batch:
-        """The targets of what the training ``forward`` returns: under the
-        hybrid mesh this rank's images of ``sparse_depth`` and ``segs``
-        (1, n, H, W) and its Y rows of ``voxel_semantics`` and
-        ``mask_camera``; ``batch`` itself otherwise."""
-        if self.mesh is None:
-            return batch
-        B, N = batch.sparse_depth.shape[:2]
-        a, b = self.mesh.image_block(B * N)
-
-        def mine(t):
-            return None if t is None else t.reshape(
-                (1, B * N) + t.shape[2:])[:, a:b]
-
-        def rows(t):
-            return None if t is None else self.mesh.y_block(t, 2)
-        return batch._replace(
-            sparse_depth=mine(batch.sparse_depth), segs=mine(batch.segs),
-            voxel_semantics=rows(batch.voxel_semantics),
-            mask_camera=rows(batch.mask_camera))
-
-    def _gather_images(self, t: torch.Tensor, B: int, F_: int
-                       ) -> torch.Tensor:
-        """The key frame's (B, N, ...) of a camera pass over B*F_*N images
-        from the spatial ranks' blocks (1, n, ...)."""
-        N = self.cfg.num_cams
-        t = self.mesh.gather(t, 1, B * F_ * N, 'gather')
-        return t.reshape((B, F_, N) + t.shape[2:])[:, 0]
+    def _key_images(self, t: torch.Tensor, B: int, F_: int) -> torch.Tensor:
+        """The key frame's (B, N, ...) of a camera pass over B*F_ frames."""
+        return t.reshape((B, F_) + t.shape[1:])[:, 0]
 
     def _batched_frame_feats(self, batch: Batch,
                              pool_idx: Optional[PoolingIndex] = None):
@@ -398,10 +347,8 @@ class FusionOcc(nn.Module):
             pool_idx)
         voxel = voxel.reshape((B, F_) + voxel.shape[1:])
         feats = [voxel[:, f] for f in range(F_ - 1, -1, -1)]
-        if self.mesh is not None:   # this rank's block of the B*F*N images
-            return feats, depth, seg
-        return (feats, depth.reshape((B, F_) + depth.shape[1:])[:, 0],
-                seg.reshape((B, F_) + seg.shape[1:])[:, 0])
+        return (feats, self._key_images(depth, B, F_),
+                self._key_images(seg, B, F_))
 
     def _lidar_feat(self, batch: Batch) -> torch.Tensor:
         """(B, Z, Y, X, C_lidar) in the compute dtype; zeros if image-only."""
@@ -411,71 +358,20 @@ class FusionOcc(nn.Module):
             return torch.zeros(batch.imgs.shape[0], gz, gy, gx,
                                cfg.lidar_out_channels, dtype=cfg.dtype,
                                device=batch.imgs.device)
-        with (contextlib.nullcontext() if self.mesh is None
-              else self.mesh.replicated()), profiling.span('lidar'):
+        with profiling.span('lidar'):
             return self.lidar_encoder(batch.points,
                                       batch.points_mask).to(cfg.dtype)
-
-    def _trunk(self, fusion: torch.Tensor) -> torch.Tensor:
-        return self.img_bev_encoder_neck(self.img_bev_encoder_backbone(fusion))
-
-    def _head(self, fusion: torch.Tensor) -> torch.Tensor:
-        """The fused (B, Z, Y, X, C) volume through the BEV trunk (in
-        training with ``remat_bev``, checkpointed), the final conv and the
-        predicter: (B, X, Y, Z, ncls) float32 logits; under the hybrid
-        mesh those of this rank's Y rows, from its rows of ``fusion``."""
-        trunk, final = self._trunk, self.final_conv
-        if self.mesh is not None:
-            fusion = self.mesh.y_block(fusion, 2)
-            trunk = functools.partial(spatial.trunk, self)
-            final = functools.partial(spatial.final_conv, self)
-        with profiling.span('head'):
-            with profiling.span('head.trunk'):
-                if (self.training and self.cfg.remat_bev
-                        and torch.is_grad_enabled()):
-                    x = checkpoint(trunk, fusion)
-                else:
-                    x = trunk(fusion)
-            with profiling.span('head.final'):
-                x = final(x.permute(0, 4, 1, 2, 3))       # (B, C, Z, Y, X)
-                x = x.permute(0, 4, 3, 2, 1)              # (B, X, Y, Z, C)
-                h = F.softplus(self.predicter[0](x))
-                return self.predicter[2](h.float())
-
-    def forward(self, batch: Batch,
-                pool_idxs: Optional[Sequence[PoolingIndex]] = None,
-                batch_frames: bool = False,
-                pool_idx_folded: Optional[PoolingIndex] = None
-                ) -> Dict[str, torch.Tensor]:
-        """Two-pass inference, or in training mode the training forward.
-        pool_idxs: optional per-frame indices (``batch_pooling_indices``),
-        else each is built in the call.  batch_frames (eval only, as in
-        JAX): all temporal frames in one camera pass, with the optional
-        index ``pool_idx_folded`` (``batched_frames_pooling_index``).
-
-        Returns occ_logits (B, X, Y, Z, ncls) float32, the key frame's depth
-        softmax (B, N, h, w, D) and seg logits (B, N, h, w, num_seg); under
-        the hybrid mesh gathered over the spatial ranks in eval mode, and
-        this rank's blocks in training (``local_targets``).
-        """
-        with profiling.span('forward', entry=True):
-            out = self._outputs(batch, pool_idxs, batch_frames,
-                                pool_idx_folded)
-        if self.mesh is None or self.training:
-            return out
-        B, F_ = batch.imgs.shape[:2]
-        F_ = F_ if batch_frames and self.cfg.num_frame > 1 else 1
-        return {'occ_logits': self.mesh.gather(
-                    out['occ_logits'], 2, self.cfg.grid.grid_size[1]),
-                'depth': self._gather_images(out['depth'], B, F_),
-                'seg_logits': self._gather_images(out['seg_logits'], B, F_)}
 
     def _outputs(self, batch: Batch,
                  pool_idxs: Optional[Sequence[PoolingIndex]] = None,
                  batch_frames: bool = False,
                  pool_idx_folded: Optional[PoolingIndex] = None
                  ) -> Dict[str, torch.Tensor]:
-        """``forward``'s outputs, under the hybrid mesh this rank's."""
+        """occ_logits (B, X, Y, Z, ncls) float32, the key frame's depth
+        softmax (B, N, h, w, D) and seg logits (B, N, h, w, num_seg).
+        batch_frames (eval only, as in JAX): all temporal frames in one
+        camera pass, with the optional index ``pool_idx_folded``
+        (``batched_frames_pooling_index``)."""
         cfg = self.cfg
         if batch_frames and cfg.num_frame > 1 and not self.training:
             voxel_feats, depth_key, seg_key = self._batched_frame_feats(
@@ -496,25 +392,6 @@ class FusionOcc(nn.Module):
             torch.cat(voxel_feats + [self._lidar_feat(batch)], dim=-1))
         return {'occ_logits': logits, 'depth': depth_key,
                 'seg_logits': seg_key}
-
-    @_inference
-    def predict(self, batch: Batch,
-                pool_idxs: Optional[Sequence[PoolingIndex]] = None,
-                batch_frames: bool = False,
-                pool_idx_folded: Optional[PoolingIndex] = None
-                ) -> torch.Tensor:
-        """(B, X, Y, Z) uint8 class ids (under the hybrid mesh each rank's
-        Y rows, gathered)."""
-        out = self._outputs(batch, pool_idxs, batch_frames, pool_idx_folded)
-        return self._gather_rows(
-            out['occ_logits'].argmax(dim=-1).to(torch.uint8))
-
-    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """Every spatial rank's Y rows of (B, X, Y, ...) ``t`` (``t`` itself
-        without the hybrid mesh)."""
-        if self.mesh is None:
-            return t
-        return self.mesh.gather(t, 2, self.cfg.grid.grid_size[1])
 
     # -- streaming inference with a temporal BEV cache ----------------------
     def init_streaming_state(self, batch_size: int = 1) -> StreamingState:
@@ -604,12 +481,7 @@ class FusionOcc(nn.Module):
         dst2src = torch.linalg.inv_ex(state.ego2global.float())[0] @ pose
         logits = self._fused_logits(state.voxel_feat, dst2src, valid, voxel,
                                     self._lidar_feat(batch))
-        pred = self._gather_rows(logits.argmax(dim=-1).to(torch.uint8))
-        if self.mesh is not None:
-            B = batch.imgs.shape[0]
-            logits = self._gather_rows(logits)
-            depth = self._gather_images(depth, B, 1)
-            seg = self._gather_images(seg, B, 1)
+        pred = logits.argmax(dim=-1).to(torch.uint8)
         new_state = StreamingState(voxel, pose, torch.ones_like(valid))
         return pred, {'occ_logits': logits, 'depth': depth,
                       'seg_logits': seg}, new_state
@@ -690,7 +562,7 @@ class FusionOcc(nn.Module):
             dst2src = torch.linalg.inv_ex(pp)[0] @ pose
             logits = self._fused_logits(fold(prev_feat), fold(dst2src),
                                         fold(pv), voxel, lidar)
-            pred = self._gather_rows(logits.argmax(dim=-1).to(torch.uint8))
+            pred = logits.argmax(dim=-1).to(torch.uint8)
             preds.append(pred.reshape((chunk, B) + pred.shape[1:4]))
             prev_voxel, prev_pose = vox_t[-1], pose[-1]
             prev_valid = torch.ones_like(state.valid)

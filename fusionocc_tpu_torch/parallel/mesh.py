@@ -23,12 +23,9 @@ here is then skipped.
 ``hybrid_mesh(n_data, n_spatial)`` is the JAX package's (data, spatial)
 mesh: the ranks of the process group on an (n_data, n_spatial) grid.  JAX
 puts two sharding constraints on the model and lets XLA partition it; the
-port writes those steps out (``HybridMesh``, ``models/fusion_occ.py``,
-``parallel/spatial.py``): each rank takes its block of the camera images,
-the partial pooled volumes are summed over the spatial group, and the 3D
-trunk runs on Y blocks with halo rows exchanged around each conv
-(``HybridMesh.exchange``).  Blocks are XLA's: ceil(n / parts) each, the
-last ones short.
+port writes those steps out (``parallel/hybrid.py``), with the halo rows
+of each Y-block conv exchanged by ``HybridMesh.exchange``.  Blocks are
+XLA's: ceil(n / parts) each, the last ones short.
 
 ``COLLECTIVES`` counts the collectives (and their bytes) a run issues, by
 kind, and the halo rows each layer sends; with ``COLLECTIVES.timed`` set it
@@ -62,8 +59,6 @@ class CollectiveStats:
 
     def reset(self) -> None:
         self.calls: dict = {}
-        self.bytes = 0
-        self.seconds = 0.0
         self.kind_bytes: dict = {}
         self.kind_seconds: dict = {}
         self.rows: dict = {}
@@ -71,7 +66,6 @@ class CollectiveStats:
     def call(self, kind: str, nbytes: int, device: torch.device, fn):
         """``fn()`` counted under ``kind`` as moving ``nbytes``."""
         self.calls[kind] = self.calls.get(kind, 0) + 1
-        self.bytes += nbytes
         self.kind_bytes[kind] = self.kind_bytes.get(kind, 0) + nbytes
         cuda = device.type == 'cuda' and self.timed
         if cuda:
@@ -82,7 +76,6 @@ class CollectiveStats:
             torch.cuda.synchronize(device)
         if self.timed:
             dt = time.perf_counter() - t0
-            self.seconds += dt
             self.kind_seconds[kind] = self.kind_seconds.get(kind, 0.0) + dt
         return out
 
@@ -260,8 +253,6 @@ def barrier() -> None:
         dist.barrier()
 
 
-
-
 # -- the hybrid data x spatial mesh ------------------------------------------
 
 # set inside a replicated module (the LiDAR encoder, pre_process_net): the
@@ -307,13 +298,6 @@ def split(n: int, parts: int) -> List[Tuple[int, int]]:
     return [(min(i * c, n), min((i + 1) * c, n)) for i in range(parts)]
 
 
-def _via_host(device: torch.device, group) -> bool:
-    """gloo's point-to-point refuses CUDA tensors (its all-reduce and
-    all-gather take them), so ``HybridMesh.exchange`` stages its rows
-    through the host under gloo: the choice is the group's backend."""
-    return device.type == 'cuda' and dist.get_backend(group) == 'gloo'
-
-
 class _RowExchange(torch.autograd.Function):
     """``HybridMesh.exchange``: the forward assembles the rows each rank
     needs from the ranks that hold them; the backward sends each received
@@ -355,10 +339,6 @@ class HybridMesh:
                 for s in range(n_spatial)]
         self.spatial_group, self.data_group = rows[self.d], cols[self.s]
         self.spatial_ranks = grid[self.d]
-
-    def __repr__(self):
-        return (f'HybridMesh(n_data={self.n_data}, n_spatial='
-                f'{self.n_spatial}, d={self.d}, s={self.s})')
 
     # -- blocks ----------------------------------------------------------
     def shard(self, batch):
@@ -448,8 +428,10 @@ class HybridMesh:
         """Send each (rank, tensor) and receive each (rank, shape, dtype);
         returns the received tensors on ``device``."""
         ranks, group = self.spatial_ranks, self.spatial_group
-        where = (torch.device('cpu') if _via_host(device, group)
-                 else device)
+        # gloo's point-to-point refuses CUDA tensors (its all-reduce and
+        # all-gather take them): under gloo the rows go through the host
+        where = (torch.device('cpu') if device.type == 'cuda'
+                 and dist.get_backend(group) == 'gloo' else device)
         ops, bufs, nbytes = [], [], 0
         for r, t in sends:
             t = t.to(where).contiguous()

@@ -1,9 +1,8 @@
 """The BEV trunk on Y blocks: the spatial half of the hybrid mesh.
 
-The JAX package constrains the fused volume's Y axis to the mesh's
-'spatial' axis and lets XLA partition the 3D convs with halo exchanges
-(``fusionocc_tpu/models/fusion_occ.py:299-301``).  Here the trunk's
-modules run their own weights on this rank's Y rows, written out:
+What XLA's partitioner does to the JAX package's trunk
+(``fusionocc_tpu/models/fusion_occ.py:299-301``), written out for the
+modules of ``parallel/hybrid.py``'s trunk on this rank's Y rows:
 
 - a conv (k, stride s, padding p) gives the output rows of this rank's
   block of the output axis (ceil(n / ranks) rows each, XLA's blocks); they
@@ -22,8 +21,9 @@ modules run their own weights on this rank's Y rows, written out:
   ``F.interpolate`` and Y by those global positions, in float32;
 - BatchNorm, ReLU, the residual adds and the predicter act per voxel.
 
-Volumes are NCDHW inside, (B, C, Z, Y, X): Y is axis 3.  Every function
-returns the output block and the output axis's global length.
+Volumes are NCDHW inside, (B, C, Z, Y, X): Y is axis 3.  A layer's
+function returns its output block and, but for the FPN's, the output
+axis's global length.
 """
 from __future__ import annotations
 
@@ -137,20 +137,3 @@ def fpn3d(m: HybridMesh, neck, feats: Sequence[Tuple[torch.Tensor, int]],
     x = torch.cat([x8] + [u.to(x8.dtype) for u in ups], dim=1)
     y, _ = conv_bn(m, neck.conv, x, n8, f'{name}.conv')
     return y.permute(0, 2, 3, 4, 1)
-
-
-def trunk(model, fusion: torch.Tensor) -> torch.Tensor:
-    """``FusionOcc``'s BEV trunk (CustomResNet3D, LSSFPN3D) on this rank's
-    Y block of the fused volume (B, Z, Y, X, C)."""
-    m, n = model.mesh, model.cfg.grid.grid_size[1]
-    feats = resnet(m, model.img_bev_encoder_backbone, fusion, n,
-                   'img_bev_encoder_backbone')
-    return fpn3d(m, model.img_bev_encoder_neck, feats,
-                 'img_bev_encoder_neck')
-
-
-def final_conv(model, x: torch.Tensor) -> torch.Tensor:
-    """``FinalConv`` (3x3x3 with bias, ReLU) on a Y block, NCDHW."""
-    y, _ = conv(model.mesh, x, model.final_conv.conv,
-                model.cfg.grid.grid_size[1], 'final_conv.conv')
-    return F.relu(y)

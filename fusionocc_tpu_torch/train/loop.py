@@ -34,8 +34,9 @@ gradients is already the global one in JAX.  The optimizer, the clipping,
 stay bit-identical.  The logged losses are summed over the ranks: the
 global batch's.
 
-Under the hybrid mesh (``FusionOcc(cfg, mesh=hybrid_mesh(...))``, JAX's
-``create_train_state(..., mesh=)``) each rank's loss is that of its
+Under the hybrid mesh (``parallel.hybrid.HybridFusionOcc(cfg,
+hybrid_mesh(...))``, JAX's ``create_train_state(..., mesh=)``) each rank's
+loss is that of its
 cameras' depth and seg and of its Y rows' occupancy, each over the global
 count; the gradients of the modules every spatial rank runs (the LiDAR
 encoder, ``pre_process_net``) are each rank's part through its own Y rows,

@@ -16,9 +16,10 @@ by the count of every rank (``global_count``, no gradient), so the ranks'
 losses sum to the loss of the global batch, as the JAX package's data mesh
 takes it; an average of per-rank ratios would differ wherever the counts
 do.  Under the hybrid mesh a rank's depth and seg losses cover its camera
-images and its occupancy loss its Y rows (``FusionOcc.local_targets``):
-each pixel and voxel of the global batch on one rank, so the same sum
-over every rank counts each once.  JAX takes the occupancy loss in row chunks under ``lax.map``,
+images and its occupancy loss its Y rows
+(``parallel.hybrid.HybridFusionOcc.local_targets``): each pixel and voxel
+of the global batch on one rank, so the same sum over every rank counts
+each once.  JAX takes the occupancy loss in row chunks under ``lax.map``,
 a device for its 128-lane padding of the 18 classes; here it is one pass,
 the same sums in another order.
 """

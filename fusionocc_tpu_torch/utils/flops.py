@@ -2,9 +2,9 @@
 
 ``torch.utils.flop_counter.FlopCounterMode`` counts the products of aten's
 matmuls and convolutions (2 per multiply-add) and nothing of an op it has
-no formula for.  The four kernels are custom ops, so this module registers
-a formula for each, the products the kernel computes (``chip_smoke.py``
-phase 3 bounds each kernel by the same count):
+no formula for.  The kernels are custom ops, so this module registers a
+formula for each, the products the kernel computes (``chip_smoke.py``
+phase 3 bounds K1-K3 by the same count):
 
 - ``fusionocc::window_attn`` (K2): q·kᵀ and p·v, 4·Bn·heads·N²·d;
 - ``fusionocc::bev_pool`` (K1): one multiply-add per point in the grid and
@@ -12,14 +12,11 @@ phase 3 bounds each kernel by the same count):
 - ``fusionocc::zwin_conv`` (K3) and ``fusionocc::zwin_conv_epi`` (K3 with
   its fused eval epilogue): per active output row, per tap the neighbour
   map finds, per (zo, dz) pair of the tap's z band (``band_pairs``),
-  Cin·Cout multiply-adds, times 2.  The epilogue's affine is no product.
-
-BEVStereo4D-Occ's plane sweep (``models/bevstereo_occ.CostVolume``) is
-plain PyTorch whose grid samples the counting mode has no formula for;
-``count_flops`` adds the frozen count of each of its calls (forward hooks):
-per hypothesis and channel the bilinear sample's 4 multiplies and 3 adds,
-a difference, an absolute value and an add, 10·C·BN·D·h·w, the
-benchmark's count (``benchmark/reference/bevstereo_occ.plane_sweep_flops``).
+  Cin·Cout multiply-adds, times 2.  The epilogue's affine is no product;
+- ``fusionocc::plane_sweep`` (BEVStereo4D-Occ's cost volume): per
+  hypothesis and channel the bilinear sample's 4 multiplies and 3 adds, a
+  difference, an absolute value and an add, 10·C·BN·D·h·w, the benchmark's
+  frozen count (``benchmark/reference/bevstereo_occ.plane_sweep_flops``).
 
 K1's and K3's counts depend on the data (the index's bounds, the
 neighbour map and the output mask): their formulas read the tensors
@@ -40,15 +37,15 @@ from typing import Dict
 import torch
 from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
 
-from ..models.bevstereo_occ import CostVolume
 # the ops modules register the fusionocc:: custom ops
-from ..ops import bev_pool, window_attn, zwin_conv  # noqa: F401
+from ..ops import bev_pool, plane_sweep, window_attn, zwin_conv  # noqa: F401
 
 # the kernels' ops by the name ``count_flops`` reports them under
 KERNEL_OPS = {'window_attn': torch.ops.fusionocc.window_attn,
               'bev_pool': torch.ops.fusionocc.bev_pool,
               'zwin_conv': torch.ops.fusionocc.zwin_conv,
-              'zwin_conv_epi': torch.ops.fusionocc.zwin_conv_epi}
+              'zwin_conv_epi': torch.ops.fusionocc.zwin_conv_epi,
+              'plane_sweep': torch.ops.fusionocc.plane_sweep}
 MODES = ('predict', 'streaming', 'train')
 
 
@@ -77,36 +74,22 @@ def _zwin_conv_formula(feats, mask_out, nbr_idx, weight, f_in, f_out, stride,
         for t in range(27))
 
 
-def plane_sweep_flops(curr: torch.Tensor, depth_bins: int) -> int:
-    """The frozen count of one plane sweep on the stage-0 feature ``curr``
-    (BN, h, w, C): 10·C·BN·D·h·w."""
-    BN, h, w, C = curr.shape
-    return 10 * C * BN * depth_bins * h * w
+@register_flop_formula(torch.ops.fusionocc.plane_sweep)
+def _plane_sweep_formula(prev_shape, curr_shape, frustum_shape, cams_shape,
+                         hi, wi, group_size, bias, out_shape=None) -> int:
+    BN, h, w, C = curr_shape
+    return 10 * C * BN * frustum_shape[0] * h * w
 
 
-def counted(run, model=None) -> Dict:
+def counted(run) -> Dict:
     """``run()`` under ``FlopCounterMode``: {'total', 'kernels' (each
-    kernel op's FLOPs by ``KERNEL_OPS`` name, and ``plane_sweep``, the
-    frozen count of ``model``'s cost volumes), 'outside' (the rest, the
+    kernel op's FLOPs by ``KERNEL_OPS`` name), 'outside' (the rest, the
     figure comparable to XLA's), 'by_op' (every counted op by name)}."""
-    sweeps = []
-    hooks = [m.register_forward_hook(
-        lambda mod, args, out: sweeps.append(
-            plane_sweep_flops(args[0], mod.depth_bins)))
-        for m in (model.modules() if model is not None else ())
-        if isinstance(m, CostVolume)]
-    try:
-        with FlopCounterMode(display=False) as counter:
-            run()
-    finally:
-        for h in hooks:
-            h.remove()
+    with FlopCounterMode(display=False) as counter:
+        run()
     by_op = counter.get_flop_counts()['Global']
     kernels = {name: int(by_op.get(op, 0)) for name, op in KERNEL_OPS.items()}
     total = int(counter.get_total_flops())
-    if hooks:
-        kernels['plane_sweep'] = sum(sweeps)
-        total += kernels['plane_sweep']
     return {'total': total, 'kernels': kernels,
             'outside': total - sum(kernels.values()),
             'by_op': {str(op): int(n) for op, n in by_op.items()}}
@@ -123,7 +106,7 @@ def count_flops(model, batch, mode: str = 'predict', train_config=None
     ``TrainConfig``) on a copy of the model, which stays as it is.  Runs
     on the model's device, with real tensors."""
     if mode == 'predict':
-        return counted(lambda: model.predict(batch), model)
+        return counted(lambda: model.predict(batch))
     if mode == 'streaming':
         state = model.init_streaming_state(batch.imgs.shape[0])
         return counted(lambda: model.predict_streaming(batch, state))

@@ -20,6 +20,8 @@ and ``tools/density_sweep_torch.py``, on the CPU at tiny size.
   JAX-only products (the third the strided lane masks' 0/1 gather-GEMM,
   which the port's index op computes as an OR of lane bits), and the
   port's encoder taken at the static widths of its export path.
+- BEVStereo4D-Occ's two-pass ``predict`` counts its two plane sweeps by
+  the op's formula, 10·C·BN·D·h·w each, and nothing of them outside.
 - The density sweep's kept rows per cut at 1x and 2x equal, exactly, those
   of JAX's ``voxelize_mean``, ``zfold_regroup`` and ``stage_indices_table``
   (the functions ``tools/density_sweep.py:62-80`` calls) on the same cloud.
@@ -41,6 +43,7 @@ from fusionocc_tpu.models.fusion_occ import FusionOcc as JFusionOcc
 from fusionocc_tpu.ops import sparse_conv as jsc
 from fusionocc_tpu.ops import zfold as jzf
 from fusionocc_tpu.ops.voxelize import voxelize_mean as j_voxelize_mean
+from fusionocc_tpu_torch import configs
 from fusionocc_tpu_torch.data.synthetic import synthetic_batch
 from fusionocc_tpu_torch.models.fusion_occ import FusionOcc, init_weights
 from fusionocc_tpu_torch.ops import voxelize
@@ -243,6 +246,24 @@ def test_predict_products_match_jax(monkeypatch):
     assert port['kernels']['window_attn'] and port['kernels']['zwin_conv']
     assert port['kernels']['bev_pool'] and not port['kernels'][
         'zwin_conv_epi']
+
+
+def test_stereo_predict_counts_its_plane_sweeps():
+    """Frames 1 and 0 each sweep the tiny stage-0 map (H/4, W/4, C0) of
+    every camera over the D planes."""
+    cfg = dataclasses.replace(tiny_config(), use_lidar=False,
+                              lidar_out_channels=0)
+    model = init_weights(
+        configs.build_model('bevdet_occ_stbase_stereo', 'cpu', cfg),
+        torch.Generator().manual_seed(0))
+    batch = synthetic_batch(cfg, 1, 0, device='cpu',
+                            frames=model.input_frames)
+    got = flops.count_flops(model, batch, 'predict')
+    H, W = cfg.input_size
+    one = (10 * cfg.swin.embed_dims * cfg.num_cams * cfg.grid.num_depth_bins
+           * (H // 4) * (W // 4))
+    assert got['kernels']['plane_sweep'] == 2 * one
+    assert got['outside'] == got['total'] - sum(got['kernels'].values())
 
 
 def jax_stage_rows(cfg, points, mask) -> list:

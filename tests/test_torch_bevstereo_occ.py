@@ -14,7 +14,8 @@ its positional contract; Swin's stage-0-only pass equals the first output of a f
 pass with ``return_stereo_feat``; the model's state dict carries BEVDet's
 names; a traced predict shows the stereo spans and no host wait beyond
 the pooling index built in the call; ``configs.build_model`` builds the
-preset's class.
+preset's class, which has no streaming entry point and no ``batch_frames``
+fold.
 """
 import dataclasses
 import os
@@ -373,10 +374,20 @@ def test_traced_predict_has_the_stereo_spans_and_no_new_wait(models):
 
 
 def test_streaming_and_frame_folds_are_refused(models):
+    """The stereo model is FusionOcc's sibling, not its subclass: it has no
+    streaming entry point, its ``predict`` takes no ``batch_frames`` fold,
+    and the evaluation tool refuses both modes for its preset."""
+    from tools import test_torch
     m, port, _ = models
+    assert not isinstance(port, FusionOcc)
+    for name in ('predict_streaming', 'predict_streaming_scan',
+                 'predict_streaming_batch', 'init_streaming_state'):
+        assert not hasattr(port, name), name
     scene = inputs.make_scene(m, 4, SEED, 'cpu')
     b = Batch(**inputs.frame_fields(m, scene, 3, [2, 1]))
-    with pytest.raises(NotImplementedError):
-        port.predict_streaming(b, port.init_streaming_state(1))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match='batch_frames'):
         port.predict(b, batch_frames=True)
+    for mode in ('--streaming', '--batch-frames'):
+        with pytest.raises(SystemExit):
+            test_torch.parse_args(['--config', 'bevdet_occ_stbase_stereo',
+                                   '--synthetic', mode])

@@ -1,8 +1,8 @@
 """The port's hybrid data x spatial mesh on gloo processes on the CPU.
 
 ``parallel.mesh.hybrid_mesh(n_data, n_spatial)`` with
-``FusionOcc(cfg, mesh=)``, the tiny config, fp32.  Two spawns
-(``torch_parallel_ranks.hybrid_checks``): 4 ranks at (2, 2), 2 ranks at
+``parallel.hybrid.HybridFusionOcc(cfg, mesh)``, the tiny config, fp32.  Two
+spawns (``torch_parallel_ranks.hybrid_checks``): 4 ranks at (2, 2), 2 ranks at
 (1, 2) and 4 ranks at (1, 4), each running every check of this file in
 turn.  At 2 spatial ranks
 the tiny trunk's Y levels 20, 10 and 5 split 10 + 10, 5 + 5 and 3 + 2: the
@@ -10,16 +10,17 @@ last level is uneven at both meshes.
 
 (a) The image-only forward at (2, 2) against JAX's forward under its
     (2, 2) hybrid mesh on the same weights (``tests/test_sharding.py:
-    19-45``; 8 virtual CPU devices, ``tests/conftest.py``) within 5e-3, as
-    that test holds JAX's own sharded forward, and against the port's one
-    process within 1e-4.  (JAX compiles its LiDAR encoder slowly on the
+    19-45``; 8 virtual CPU devices, ``tests/conftest.py``; compiled with
+    ``XLA_ORDERED``) within 5e-3, as that test holds JAX's own sharded
+    forward, and against the port's one process within 1e-4.  (JAX
+    compiles its LiDAR encoder slowly on the
     CPU, so the JAX side is the image-only model; the multi-modal model's
     mesh is held against the port's one process in (b).)
 (b) The multi-modal forward (LiDAR encoder on the z-folded path) at (2, 2)
     and (1, 2): two-pass and ``batch_frames`` logits, depth and seg within
     1e-4 of one process; ``predict`` equal to one process's argmax on at
     least 0.999 of voxels, and the same with the caller's indices of the
-    rank's images (``batch_pooling_indices(cfg, batch, mesh)``); an index
+    rank's images (``HybridFusionOcc.batch_pooling_indices``); an index
     of every image raises.
 (c) The halo rows each layer sends, per rank, against the counts worked
     out by hand for the tiny trunk: one row each way around a 3x3x3 conv
@@ -86,6 +87,15 @@ from test_torch_slice import _init_fn
 from test_torch_streaming import spread_variables, to_jax
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
+# XLA's memory-minimizing scheduler for JAX's sharded forwards.  With the
+# default concurrency-optimized one, a device's program runs an all-reduce
+# inside a while loop and a collective permute at once, each on a pool
+# thread, and XLA's in-process collectives can then deadlock: some devices
+# never reach the rendezvous, and after 60 s XLA's watchdog aborts the
+# process ("Termination timeout ... only 2 of them arrived on time"),
+# which crashed the test worker under the whole suite's load.
+XLA_ORDERED = {'xla_cpu_enable_concurrency_optimized_scheduler': False}
+
 JAX_TOL = dict(rtol=5e-3, atol=5e-3)    # tests/test_sharding.py:44
 ONE_TOL = dict(rtol=1e-4, atol=1e-4)    # fp32 sums in another order
 STATE_TOL = dict(rtol=5e-3, atol=5e-3)  # tests/test_sharding.py:168-169
@@ -107,7 +117,8 @@ def snapped(cfg, seed):
 
 def image_only_inputs(tmp):
     """JAX's hybrid-mesh forward and the port's one process on the same
-    image-only weights; the port's inputs saved for the ranks."""
+    image-only weights; the port's inputs saved for the ranks.  JAX's
+    forwards compile with ``XLA_ORDERED``."""
     jc = jcfg.tiny_model_config(use_lidar=False)
     tc = tcfg.tiny_model_config(use_lidar=False)
     batch = snapped(tc, 0)
@@ -127,10 +138,12 @@ def image_only_inputs(tmp):
         sharded = JFusionOcc(jc, mesh=jmesh)
         with torch.inference_mode():
             one = model(b)['occ_logits']
-        ref[name] = {'jax': np.asarray(jax.jit(
+        args = (jax.device_put(variables, repl), jbatch)
+        forward = jax.jit(
             lambda v, b: sharded.apply(v, b, train=False)['occ_logits'],
-            in_shardings=(repl, dsh))(jax.device_put(variables, repl),
-                                      jbatch)), 'one': one}
+            in_shardings=(repl, dsh)).lower(*args).compile(
+                compiler_options=XLA_ORDERED)
+        ref[name] = {'jax': np.asarray(forward(*args)), 'one': one}
     paths = {}
     for name, b in (('2x2', batch), ('1x4', first)):
         paths[name] = os.path.join(tmp, f'image_only_{name}.pt')

@@ -11,9 +11,10 @@ on a rank's rows of a global batch, or on the whole batch outside a group;
 of inputs given for every rank (the whole of them outside a group), and
 ``small_checks`` runs the three and compares ``all_reduce_sum`` with
 ``torch.distributed.nn.functional.all_reduce``.  ``hybrid_checks`` runs
-jobs under ``hybrid_mesh(world // n_spatial, n_spatial)``: the forward,
-``predict``, ``batch_frames``, the streaming modes, a halo exchange's
-gradient and train steps (``train_run`` with ``n_spatial``).
+jobs on ``HybridFusionOcc`` under ``hybrid_mesh(world // n_spatial,
+n_spatial)``: the forward, ``predict``, ``batch_frames``, the streaming
+modes, a halo exchange's gradient and train steps (``train_run`` with
+``n_spatial``).
 """
 import copy
 import os
@@ -28,6 +29,7 @@ from fusionocc_tpu_torch.models.fusion_occ import (
     FusionOcc, batch_pooling_indices, stack_batches)
 from fusionocc_tpu_torch.nn import layers
 from fusionocc_tpu_torch.parallel import mesh
+from fusionocc_tpu_torch.parallel.hybrid import HybridFusionOcc
 from fusionocc_tpu_torch.train import losses, loop
 
 
@@ -60,7 +62,8 @@ def train_run(rank: int, world: int, tc, path: str, steps: int,
     saved = torch.load(path, weights_only=False)
     hybrid = (mesh.hybrid_mesh(world // n_spatial, n_spatial)
               if n_spatial > 1 else None)
-    model = FusionOcc(tc.model, device='cpu', mesh=hybrid)
+    model = (FusionOcc(tc.model, device='cpu') if hybrid is None
+             else HybridFusionOcc(tc.model, hybrid, device='cpu'))
     model.load_state_dict(saved['model'], strict=True)
     batch = (hybrid.shard(saved['batch']) if hybrid is not None
              else mesh.shard_batch(saved['batch'], rank, world))
@@ -215,7 +218,7 @@ def hybrid_checks(rank: int, world: int, n_spatial: int, tasks) -> list:
         saved = torch.load(path, weights_only=False) if path else {}
         out = {'coords': (m.d, m.s)}
         if 'model' in saved:
-            model = FusionOcc(saved['config'], device='cpu', mesh=m)
+            model = HybridFusionOcc(saved['config'], m, device='cpu')
             model.load_state_dict(saved['model'], strict=True)
         for job in jobs:
             if job == 'forward':
@@ -227,8 +230,7 @@ def hybrid_checks(rank: int, world: int, n_spatial: int, tasks) -> list:
                         'batch_frames': model(batch, batch_frames=True),
                         'predict': model.predict(batch),
                         'own_index': model.predict(
-                            batch, batch_pooling_indices(model.cfg, batch,
-                                                         m))}
+                            batch, model.batch_pooling_indices(batch))}
                     try:        # an index of every image, not this rank's
                         model(batch, batch_pooling_indices(model.cfg, batch))
                     except ValueError as e:

@@ -15,8 +15,9 @@ moved there one ``non_blocking`` copy per field; ``--synthetic`` takes
 ``fusionocc_tpu_torch.configs`` with its evaluation protocol (metric,
 eval-time camera mask, split) and its model (``configs.build_model``:
 ``bevdet_occ_stbase_stereo`` is BEVStereo4D-Occ, which reads a stereo
-reference frame beyond the adjacent one and runs two-pass only).  ``--tiny`` takes the tiny model with its
-LiDAR encoder on the port's z-folded path (``backend='zfold'``,
+reference frame beyond the adjacent one and runs two-pass only: the tool
+refuses ``--streaming`` and ``--batch-frames`` with it).  ``--tiny`` takes
+the tiny model with its LiDAR encoder on the port's z-folded path (``backend='zfold'``,
 ``zconv='zband'``).  Without ``--checkpoint`` the weights are random, from
 seed 0.
 
@@ -85,6 +86,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if not args.synthetic and not args.ann_file:
         ap.error('pass --ann-file (an infos pkl) or --synthetic')
+    from fusionocc_tpu_torch.configs import ARCHITECTURES
+    if (args.streaming or args.batch_frames) and args.config in ARCHITECTURES:
+        ap.error(f'--config {args.config} builds '
+                 f'{ARCHITECTURES[args.config][1]}, which runs two-pass only:'
+                 ' --streaming and --batch-frames are FusionOcc\'s')
     return args
 
 
