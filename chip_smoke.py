@@ -51,6 +51,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    agrees, the kernel's ms beside the plain version's on the card and the
    0.454-ms bound; and one BEVStereo4D-Occ
    two-pass predict at full size with its launches gated (2 sweeps).
+   Last, Swin's block glue (``csrc/swin_glue.cu``: ``window_in_fwd``, the
+   previous block's residual add, norm1, pad, shift and window split;
+   ``window_out_fwd``, window merge, unshift, crop, residual add, norm2) at
+   the four stage shapes of a camera pass, shift 0 and 6, bf16, against
+   its plain version on the card: the residual sums equal, the normed
+   values within one bf16 ulp, two launches bit-identical, each launch's
+   ms beside the plain version's and its bytes bound, and the time and
+   bound per two-pass predict weighted by launches.
 4. reference: the midsize multi-modal config in fp32 on the card (the
    kernels' fp32 bodies) against the same weights on the CPU (plain
    versions).
@@ -236,15 +244,22 @@ POOL_BF16_TOL = dict(atol=1e-4, rtol=2 ** -7)  # the same, cast: one bf16 ulp
 ZWIN_TOL = dict(atol=1e-3, rtol=1e-2)  # fp32 sums cast once to bf16: one ulp
 REF_TOL = dict(atol=2e-3, rtol=2e-3)   # fp32 model, GPU vs CPU
 CACHE_TOL = dict(atol=1e-6, rtol=2 ** -7)  # bf16 cache: one ulp
+# Swin's glue: a LayerNorm's fp32 sums in another order, rounded once to
+# bf16 (one ulp); the residual sums are equal
+GLUE_TOL = dict(atol=1e-3, rtol=2 ** -7)
 # each kernel's tolerance by its output dtype, in model runs
 KERNEL_TOLS = {torch.bfloat16: {'window_attn_fwd': WA_TOL,
                                 'bev_pool_fwd': POOL_BF16_TOL,
                                 'zwin_conv_fwd': ZWIN_TOL,
-                                'zwin_conv_fwd_epi': ZWIN_TOL},
+                                'zwin_conv_fwd_epi': ZWIN_TOL,
+                                'window_in_fwd': GLUE_TOL,
+                                'window_out_fwd': GLUE_TOL},
                torch.float32: {'window_attn_fwd': REF_TOL,
                                'bev_pool_fwd': POOL_TOL,
                                'zwin_conv_fwd': REF_TOL,
-                               'zwin_conv_fwd_epi': REF_TOL}}
+                               'zwin_conv_fwd_epi': REF_TOL,
+                               'window_in_fwd': REF_TOL,
+                               'window_out_fwd': REF_TOL}}
 SLICE_SEEDS = (0, 1, 2)
 CLIP_FRAMES, CLIP_RESET = 8, 4          # the streaming clip, its reset
 MIN_AGREE = 0.999                       # voxels, between inference modes
@@ -254,11 +269,15 @@ QUEUE_CYCLES = 20_000_000   # about 10 ms at the H100's SM clock
 # a sparse stage's index builds (csrc/sparse_index.cu)
 INDEX_KERNELS = ('index_mark', 'index_count', 'index_prefix', 'index_set',
                  'index_table', 'index_maps')
+# Swin's block glue around K2 (csrc/swin_glue.cu): one of each a Swin block
+# on every eval path without autograd, none in training
+GLUE_KERNELS = ('window_in_fwd', 'window_out_fwd')
 # the kernels of the main paths (K3 with or without its fused epilogue, the
-# index builds, BEVStereo4D-Occ's plane sweep); the launch checks read these
-# counts only
+# index builds, BEVStereo4D-Occ's plane sweep, Swin's glue); the launch
+# checks read these counts only
 MAIN_KERNELS = ('window_attn_fwd', 'bev_pool_fwd', 'zwin_conv_fwd',
-                'zwin_conv_fwd_epi') + INDEX_KERNELS + ('plane_sweep_fwd',)
+                'zwin_conv_fwd_epi') + INDEX_KERNELS + ('plane_sweep_fwd',
+                                                         ) + GLUE_KERNELS
 # the plane sweep against its plain version: a tap at the frame's edge can
 # change sides with the last bits of its coordinate, which flips the
 # hypothesis's bias mask; elsewhere the sums differ in order only
@@ -300,6 +319,11 @@ KERNEL_BODIES = {
     r'11maps_kernel': ('index_maps', 'maps and lane mask', False),
     r'18plane_sweep_kernelItLi\d+E': ('plane_sweep_fwd', 'bf16', False),
     r'18plane_sweep_kernelIfLi\d+E': ('plane_sweep_fwd', 'fp32', False),
+    r'16window_in_kernelI13__nv_bfloat16': ('window_in_fwd', 'bf16', False),
+    r'16window_in_kernelIf': ('window_in_fwd', 'fp32', False),
+    r'17window_out_kernelI13__nv_bfloat16': ('window_out_fwd', 'bf16',
+                                              False),
+    r'17window_out_kernelIf': ('window_out_fwd', 'fp32', False),
 }
 # SASS opcodes counted per body: Hopper's warpgroup products, the sm_80
 # tensor-core products, TMA loads, cp.async
@@ -1020,15 +1044,97 @@ def phase_kernels(cfg, batches) -> tuple:
                 'bev_pool_fwd': check_bev_pool(cfg, batch0, g)}
     check_edge_shapes(g)
     index = check_index(cfg, batches)
-    return measured, index, check_plane_sweep(g)
+    sweep = check_plane_sweep(g)
+    return measured, index, sweep, check_swin_glue(cfg, g)
 
 
 def stereo_launches(cfg) -> dict:
     """Main-path launches of one BEVStereo4D-Occ two-pass predict: a full
     camera pass a frame, the reference frame's stage 0 (its window
-    attentions), a plane sweep a camera pass."""
+    attentions and their glue), a plane sweep a camera pass."""
     out = launches_per(cfg, cfg.num_frame, 0, sweeps=cfg.num_frame)
-    out['window_attn_fwd'] += cfg.swin.depths[0]
+    for k in ('window_attn_fwd',) + GLUE_KERNELS:
+        out[k] += cfg.swin.depths[0]
+    return out
+
+
+@torch.inference_mode()
+def check_swin_glue(cfg, g) -> dict:
+    """Swin's glue kernels at the four stage shapes of one camera pass
+    (``num_cams`` images), shift 0 and w // 2, bf16, against their plain
+    versions on the card: the residual sums equal, the normed values within
+    ``GLUE_TOL``; two launches bit-identical; ms beside the plain
+    version's and the bytes bound (each real token's row read and written
+    as the kernel does, padded window rows written), and per two-pass
+    predict, weighted by each shape's launches (a block's kernel A takes
+    the previous block's residual, as all but a stage's first do)."""
+    from fusionocc_tpu_torch.ops import swin_glue as sg
+    sw = cfg.swin
+    w, B = sw.window_size, cfg.num_cams
+    h, wd = cfg.input_size[0] // sw.patch_size, cfg.input_size[1] // sw.patch_size
+    bf16 = torch.bfloat16
+    out = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                   predict_ms=0.0, predict_bound_ms=0.0) for k in GLUE_KERNELS}
+    for stage, C in enumerate(sw.num_features):
+        nWh, nWw = sg.window_grid(h, wd, w)
+        x, r = (torch.randn(B, h * wd, C, device=DEV, generator=g).to(bf16)
+                for _ in range(2))
+        o = torch.randn(B * nWh * nWw, w * w, C, device=DEV, generator=g
+                        ).to(bf16)
+        weight, bias = (1 + 0.3 * torch.randn(C, device=DEV, generator=g),
+                        0.3 * torch.randn(C, device=DEV, generator=g))
+        row = C * 2
+        real, padded = B * h * wd * row, B * nWh * nWw * w * w * row
+        for shift in (0, w // 2):
+            geom = (1e-6, h, wd, w, shift)
+            cases = (
+                ('window_in_fwd', sg.window_in_cuda, sg.window_in_plain,
+                 (x, r, weight, bias, *geom), 3 * real + padded),
+                ('window_out_fwd', sg.window_out_cuda, sg.window_out_plain,
+                 (o, x, weight, bias, *geom), 4 * real))
+            if shift == 0:    # a stage's first block: no residual to add
+                cases += (('window_in_fwd', sg.window_in_cuda,
+                           lambda *a: (x.new_empty(0),
+                                       sg.window_in_plain(*a)[1]),
+                           (x, None, weight, bias, *geom), real + padded),)
+            for k, kernel, plain, args, nbytes in cases:
+                (gs, gy), (ws, wy) = kernel(*args), plain(*args)
+                name = (f'{k} B={B} C={C} map={h}x{wd} shift={shift}'
+                        f'{" no residual" if args[1] is None else ""}')
+                if not torch.equal(gs, ws):
+                    fail(f'{name}: the residual sum differs from the plain '
+                         'version\'s')
+                err = check_close(name, gy, wy, **GLUE_TOL)
+                again = kernel(*args)
+                if not (torch.equal(gs, again[0])
+                        and torch.equal(gy, again[1])):
+                    fail(f'{name}: two launches differ')
+                t_k = cuda_ms(lambda: kernel(*args))
+                t_p = cuda_ms(lambda: plain(*args))
+                b_ms = nbytes / PEAK_BYTES * 1e3
+                print(f'    kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound '
+                      f'{b_ms:.4f} ms ({nbytes / 1e6:.2f} MB), '
+                      f'{b_ms / t_k:.3f} of it; two launches bit-identical',
+                      flush=True)
+                m = out[k]
+                m['max_abs_err'] = max(m['max_abs_err'], err)
+                if args[1] is None:
+                    continue
+                m['ms'] += t_k
+                m['plain_ms'] += t_p
+                m['bound_ms'] += b_ms
+                # per two-pass predict: two camera passes, each of the
+                # stage's blocks at one of the two shifts
+                m['predict_ms'] += sw.depths[stage] * t_k
+                m['predict_bound_ms'] += sw.depths[stage] * b_ms
+        h, wd = -(-h // 2), -(-wd // 2)
+    for k, m in out.items():
+        print(f'  {k} over the 8 stage/shift shapes: kernel {m["ms"]:.4f} ms, '
+              f'plain {m["plain_ms"]:.4f} ms, bound {m["bound_ms"]:.4f} ms; '
+              f'per two-pass predict ({2 * sum(sw.depths)} launches): kernel '
+              f'{m["predict_ms"]:.4f} ms, bound {m["predict_bound_ms"]:.4f} '
+              f'ms ({m["predict_bound_ms"] / m["predict_ms"]:.3f} of it)',
+              flush=True)
     return out
 
 
@@ -1236,9 +1342,14 @@ class KernelCheck:
 
     def __init__(self, label, cfg, keep=()):
         from fusionocc_tpu_torch.ops import bev_pool as bp
+        from fusionocc_tpu_torch.ops import swin_glue as sg
         from fusionocc_tpu_torch.ops import window_attn as wa
         from fusionocc_tpu_torch.ops import zwin_conv as zw
         self.label, self.keep, self.kept, self.seen = label, keep, [], {}
+
+        def glue_in_plain(x, r, *args):
+            x_new, wins = sg.window_in_plain(x, r, *args)
+            return (x.new_empty(0) if r is None else x_new), wins
         gx, gy, gz = cfg.grid.grid_size
         # (module, wrapper, kernel, plain version, what a launch takes)
         self.wrappers = (
@@ -1253,13 +1364,21 @@ class KernelCheck:
              lambda feats, *_: f'{feats.shape[0]} samples'),
             (zw, 'zwin_conv_epi_cuda', 'zwin_conv_fwd_epi',
              zw.zwin_conv_epi_plain,
-             lambda feats, *_: f'{feats.shape[0]} samples'))
+             lambda feats, *_: f'{feats.shape[0]} samples'),
+            (sg, 'window_in_cuda', 'window_in_fwd', glue_in_plain,
+             lambda x, *_: f'{x.shape[0]} images'),
+            (sg, 'window_out_cuda', 'window_out_fwd', sg.window_out_plain,
+             lambda o, x, *_: f'{x.shape[0]} images'))
 
     def _checked(self, real, name, plain, takes):
         def run(*args):
-            got = real(*args)
-            ok, err, _ = within(got, plain(*args),
-                                **KERNEL_TOLS[got.dtype][name])
+            got, want = real(*args), plain(*args)
+            pairs = ([(got, want)] if isinstance(got, torch.Tensor)
+                     else [p for p in zip(got, want) if p[0].numel()])
+            ok, err = True, 0.0
+            for g, w in pairs:
+                ok_g, err_g, _ = within(g, w, **KERNEL_TOLS[g.dtype][name])
+                ok, err = ok and ok_g, max(err, err_g)
             if not ok:
                 fail(f'{self.label}: {name} at {tuple(args[0].shape)} '
                      f'disagrees with its plain version (max abs {err:.3e})')
@@ -1386,12 +1505,13 @@ def launches_per(cfg, camera_passes: int, lidar_passes: int,
     pass (the last stage runs dense; fused with ``zwin_fuse``), whatever
     the batch of a pass; the index builds of each LiDAR pass of ``batch``
     samples (``index_launches``); ``sweeps`` plane sweeps (BEVStereo4D-Occ,
-    one a camera pass)."""
+    one a camera pass); Swin's glue as K2 (eval, autograd off)."""
     lc = cfg.lidar
     sparse = lc.encoder_channels[:min(lc.dense_from,
                                       len(lc.encoder_channels) - 1)]
     zwin = sum(map(len, sparse)) * lidar_passes * cfg.use_lidar
-    return {'window_attn_fwd': sum(cfg.swin.depths) * camera_passes,
+    blocks = sum(cfg.swin.depths) * camera_passes
+    return {'window_attn_fwd': blocks, **{k: blocks for k in GLUE_KERNELS},
             'bev_pool_fwd': camera_passes,
             'zwin_conv_fwd': 0 if lc.zwin_fuse else zwin,
             'zwin_conv_fwd_epi': zwin if lc.zwin_fuse else 0,
@@ -1958,7 +2078,7 @@ def train_launches(cfg) -> dict:
     ``no_grad``), and per block again in the backward's recompute with
     ``with_cp``; a pooling per frame; a zwin launch per sparse-stage conv,
     unfused (training never fuses); the index builds of one LiDAR pass
-    at batch 1."""
+    at batch 1; no glue kernel (training composes the plain version)."""
     lc = cfg.lidar
     sparse = lc.encoder_channels[:min(lc.dense_from,
                                       len(lc.encoder_channels) - 1)]
@@ -1967,7 +2087,7 @@ def train_launches(cfg) -> dict:
             'bev_pool_fwd': cfg.num_frame,
             'zwin_conv_fwd': sum(map(len, sparse)) * cfg.use_lidar,
             'zwin_conv_fwd_epi': 0, **index_launches(cfg),
-            'plane_sweep_fwd': 0}
+            'plane_sweep_fwd': 0, **{k: 0 for k in GLUE_KERNELS}}
 
 
 def function_grads(fn, inputs, cot):
@@ -3979,7 +4099,7 @@ def main() -> None:
     batches = [synthetic_batch(cfg, 1, s, device=DEV) for s in SLICE_SEEDS]
     print(f'  synthetic batches (seeds {SLICE_SEEDS}) in '
           f'{time.perf_counter() - t0:.1f} s', flush=True)
-    measured, index, sweep = phase_kernels(cfg, batches)
+    measured, index, sweep, glue = phase_kernels(cfg, batches)
     phase_reference()
     launches = phase_slice(batches)
     phase_streaming(batches)
@@ -4042,6 +4162,19 @@ def main() -> None:
         'eval_launches': evaluated['plane_sweep_fwd'],
         'lss_base_launches': serving['lss_base']['plane_sweep_fwd'],
         'hybrid_launches': hybrid['plane_sweep_fwd']})
+    for name in GLUE_KERNELS:
+        kernels.append({
+            'name': name, 'route': 'cuda',
+            'source': 'fusionocc_tpu_torch/csrc/swin_glue.cu',
+            'replaces': 'none (XLA ops: fusionocc_tpu/nn/swin.py)',
+            'launches': launches[name],
+            **{k: round(v, 4) for k, v in glue[name].items()},
+            'train_launches': train[name], 'eval_launches': evaluated[name],
+            'dist_train_launches': dist_launches[name],
+            'int8_launches': serving['int8'][name],
+            'export_launches': serving['export'][name],
+            'export_streaming_launches': serving['export_streaming'][name],
+            'hybrid_launches': hybrid[name]})
     print(f'whole script: {time.perf_counter() - start:.1f} s', flush=True)
     print(f'card: {card}')
     print(json.dumps({'kernels': kernels}))

@@ -142,16 +142,21 @@ class Conv3d(nn.Conv3d):
                                   _cast(self.bias, x.dtype))
 
 
+def layer_norm(x, weight, bias, eps: float):
+    """LayerNorm over the last axis in float32, returned in x's dtype."""
+    return F.layer_norm(x.float(), weight.shape, weight, bias, eps
+                        ).to(x.dtype)
+
+
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm in float32 over the last axis, eps 1e-6 (flax's default,
-    which the JAX package keeps; torch and mmcv use 1e-5)."""
+    """``layer_norm``, eps 1e-6 (flax's default, which the JAX package
+    keeps; torch and mmcv use 1e-5)."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__(dim, eps=eps)
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                            self.bias, self.eps).to(x.dtype)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class BatchNorm(nn.modules.batchnorm._BatchNorm):

@@ -7,6 +7,15 @@ output first).  Every block's attention goes through
 ``ops.window_attn.window_attention`` (the CUDA kernel for CUDA tensors, in
 an autograd ``Function``).  Public layout is NHWC; tokens are (B, L, C).
 
+In eval mode with autograd off (every ``predict*``) a stage's blocks run
+their glue through the two ops of ``ops/swin_glue.py``: ``window_in``
+(the previous block's MLP residual add, norm1, pad, shift, window split)
+and ``window_out`` (window merge, unshift, crop, the attention's residual
+add, norm2), which launch ``csrc/swin_glue.cu`` for CUDA tensors; the
+stage's last MLP residual is a plain add.  Otherwise (training, and eval
+with autograd on) each block composes the ops' plain functions, so both
+paths compute the same mathematics.
+
 In training, block i drops its two residual branches per sample with rate
 ``linspace(0, drop_path_rate, sum(depths))[i]`` (JAX's rates), and
 ``with_cp`` runs each block under ``nn.layers.checkpoint``.  The masks are
@@ -29,6 +38,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import SwinConfig
+from ..ops import swin_glue
+from ..ops.swin_glue import from_windows, to_windows, window_grid
 from ..ops.window_attn import window_attention
 from .layers import (Conv2d, LayerNorm, Linear, checkpoint, drop_path,
                      keep_mask)
@@ -43,20 +54,6 @@ def relative_position_index(w: int) -> torch.Tensor:
     rel[:, :, 1] += w - 1
     rel[:, :, 0] *= 2 * w - 1
     return torch.from_numpy(rel.sum(-1))
-
-
-def window_partition(x: torch.Tensor, w: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B*nWh*nWw, w*w, C); H, W divisible by w."""
-    B, H, W, C = x.shape
-    x = x.view(B, H // w, w, W // w, w, C).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(-1, w * w, C)
-
-
-def window_reverse(wins: torch.Tensor, w: int, B: int, H: int, W: int
-                   ) -> torch.Tensor:
-    C = wins.shape[-1]
-    x = wins.view(B, H // w, W // w, w, w, C).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(B, H, W, C)
 
 
 class WindowMSA(nn.Module):
@@ -95,19 +92,10 @@ class ShiftWindowMSA(nn.Module):
 
     def forward(self, x, hw: Tuple[int, int]):
         H, W = hw
-        B, L, C = x.shape
         w, shift = self.w, self.shift
-        y = x.view(B, H, W, C)
-        pad_b, pad_r = (w - H % w) % w, (w - W % w) % w
-        y = F.pad(y, (0, 0, 0, pad_r, 0, pad_b))
-        Hp, Wp = H + pad_b, W + pad_r
-        if shift > 0:
-            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-        wins = self.w_msa(window_partition(y, w), Hp // w, Wp // w, shift)
-        y = window_reverse(wins, w, B, Hp, Wp)
-        if shift > 0:
-            y = torch.roll(y, (shift, shift), dims=(1, 2))
-        return y[:, :H, :W].reshape(B, L, C)
+        wins = self.w_msa(to_windows(x, H, W, w, shift),
+                          *window_grid(H, W, w), shift)
+        return from_windows(wins, x.shape[0], H, W, w, shift)
 
 
 class SwinBlock(nn.Module):
@@ -136,6 +124,19 @@ class SwinBlock(nn.Module):
         if keep is not None:
             y = drop_path(y, keep[1], self.drop_path_rate)
         return x + y
+
+    def infer(self, x, r, hw):
+        """The block in eval mode without autograd, through the glue ops:
+        tokens x and the previous block's MLP output r (or None) -> (x +
+        r + attention, this block's MLP output, not yet added)."""
+        H, W = hw
+        w, shift = self.attn.w, self.attn.shift
+        x, wins = swin_glue.window_in(x, r, self.norm1, H, W, w, shift)
+        o = self.attn.w_msa(wins, *window_grid(H, W, w), shift)
+        n2 = self.norm2
+        x, y = swin_glue.window_out_op(o, x, n2.weight, n2.bias, n2.eps, H, W,
+                                       w, shift)
+        return x, self.ffn.layers[1](self.ffn.layers[0](y))
 
 
 class PatchMerging(nn.Module):
@@ -206,6 +207,11 @@ class SwinTransformer(nn.Module):
 
     def _stage_blocks(self, stage: SwinStage, x, hw):
         """``stage``'s blocks (not its patch merge) on tokens x (B, L, C)."""
+        if not self.training and not torch.is_grad_enabled():
+            r = None
+            for blk in stage.blocks:
+                x, r = blk.infer(x, r, hw)
+            return x + r
         B = x.shape[0]
         recompute = (self.training and self.cfg.with_cp
                      and torch.is_grad_enabled())

@@ -15,8 +15,8 @@ kernels its path really used.
 
 Each kernel is a ``torch.library`` custom op in the ``fusionocc``
 namespace (registered by ``ops/bev_pool.py``, ``ops/window_attn.py``,
-``ops/zwin_conv.py``, ``ops/plane_sweep.py`` and, for the six
-``index_*`` entries of a sparse stage's index builds,
+``ops/zwin_conv.py``, ``ops/plane_sweep.py``, ``ops/swin_glue.py`` and,
+for the six ``index_*`` entries of a sparse stage's index builds,
 ``ops/sparse_conv.py``): its CPU implementation is the plain version, its
 CUDA implementation the wrapper that launches the kernel, and a fake
 implementation gives ``torch.export`` its output's shape.  An exported program calls the op, so its launches go through
@@ -85,6 +85,11 @@ SIGNATURES['index_maps'] = [_P] * 9 + [_I] * 6 + [_L, _I, _I, _P]
 # frustum, cams, out, invalid (or null), BN, D, H, W, C, hi, wi, bias_ch,
 # bias, dtype (0 f32, 1 bf16)
 SIGNATURES['plane_sweep_fwd'] = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
+# Swin's block glue (csrc/swin_glue.cu, ops/swin_glue.py): x, r (or null),
+# x + r (or null), norm1's weight, bias, windows / o, x, x + o, norm2's
+# weight, bias, its norm; then B, H, W, C, w, shift, eps, dtype
+SIGNATURES['window_in_fwd'] = [_P] * 6 + [_I] * 6 + [_F, _I, _P]
+SIGNATURES['window_out_fwd'] = SIGNATURES['window_in_fwd']
 
 
 def find_nvcc() -> str:
@@ -206,6 +211,10 @@ def exporting() -> bool:
 
 def stream_ptr(device) -> int:
     """The current CUDA stream of ``device`` as an integer handle (launch
-    with ``device`` current: a stream belongs to its device)."""
+    with ``device`` current: a stream belongs to its device).  Read raw,
+    without the ``torch.cuda.Stream`` object ``current_stream`` builds:
+    about 0.2 us against 3 a launch on the card's host."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

@@ -2,7 +2,8 @@
 (``tools/export_torch.py``), on the CPU at tiny size.
 
 - Each op (``fusionocc::bev_pool``, ``window_attn``, ``zwin_conv``,
-  ``zwin_conv_epi``) passes ``torch.library.opcheck`` (schema, fake
+  ``zwin_conv_epi``, Swin's glue ``window_in``, with and without the
+  previous block's residual, and ``window_out``) passes ``torch.library.opcheck`` (schema, fake
   implementation, dispatch) on CPU inputs of its main-path contract, and
   equals its plain version.
 - While ``torch.export`` traces, the index builds take their static
@@ -33,6 +34,7 @@ from fusionocc_tpu_torch.models.fusion_occ import (  # noqa: E402
     FusionOcc, frame_pooling_index, init_weights)
 from fusionocc_tpu_torch.ops import bev_pool as bp  # noqa: E402
 from fusionocc_tpu_torch.ops import kernels  # noqa: E402
+from fusionocc_tpu_torch.ops import swin_glue as sg  # noqa: E402
 from fusionocc_tpu_torch.ops import voxelize  # noqa: E402
 from fusionocc_tpu_torch.ops import window_attn as wa  # noqa: E402
 from fusionocc_tpu_torch.ops import zwin_conv as zw  # noqa: E402
@@ -80,6 +82,14 @@ def _op_cases():
     q, k, v = (torch.from_numpy(rng.randn(8, 16, 16).astype(np.float32))
                for _ in range(3))
     bias = torch.from_numpy(rng.randn(2, 16, 16).astype(np.float32))
+    # Swin's glue on a 6x7 map of 2 images in windows of 4: padded on both
+    # axes, shifted by 2
+    x, r = (torch.from_numpy(rng.randn(2, 42, 8).astype(np.float32))
+            for _ in range(2))
+    norm = tuple(torch.from_numpy(rng.randn(8).astype(np.float32))
+                 for _ in range(2))
+    o = torch.from_numpy(rng.randn(2 * 2 * 2, 16, 8).astype(np.float32))
+    geom = (1e-6, 6, 7, 4, 2)
     return {
         'bev_pool': (bp.bev_pool_op,
                      (depth, feat, idx.ranks_depth, idx.ranks_feat,
@@ -92,17 +102,29 @@ def _op_cases():
         'zwin_conv': (zw.zwin_conv_op, _zwin_args(rng), zw.zwin_conv_plain),
         'zwin_conv_epi': (zw.zwin_conv_epi_op, _zwin_args(rng, epi=True),
                           zw.zwin_conv_epi_plain),
+        'window_in': (sg.window_in_op, (x, r, *norm, *geom),
+                      sg.window_in_plain),
+        'window_in_first': (sg.window_in_op, (x, None, *norm, *geom),
+                            lambda *a: (x.new_empty(0),
+                                        sg.window_in_plain(*a)[1])),
+        'window_out': (sg.window_out_op, (o, x, *norm, *geom),
+                       sg.window_out_plain),
     }
 
 
 @pytest.mark.parametrize('name', ['bev_pool', 'window_attn', 'zwin_conv',
-                                  'zwin_conv_epi'])
+                                  'zwin_conv_epi', 'window_in',
+                                  'window_in_first', 'window_out'])
 def test_kernel_op_registration(name):
     op, args, plain = _op_cases()[name]
     torch.library.opcheck(op, args, test_utils=(
         'test_schema', 'test_faketensor', 'test_aot_dispatch_static'))
     got, want = op(*args), plain(*args)
-    assert got.dtype == want.dtype and torch.equal(got, want)
+    if isinstance(want, torch.Tensor):
+        got, want = (got,), (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_static_widths_while_exporting(monkeypatch):
@@ -144,8 +166,10 @@ def test_export_round_trip_equals_eager(mode, tmp_path):
     zwin = sum(map(len, cfg.lidar.encoder_channels[:3]))
     # each sparse stage's index builds: the candidates, the set at the
     # static width, one table group's maps (the tiny tables are small)
+    blocks = sum(cfg.swin.depths) * camera
     assert _ops_in(program) == {
-        'window_attn': sum(cfg.swin.depths) * camera, 'bev_pool': camera,
+        'window_attn': blocks, 'window_in': blocks, 'window_out': blocks,
+        'bev_pool': camera,
         'zwin_conv_epi' if cfg.lidar.zwin_fuse else 'zwin_conv': zwin,
         'stride2_count': 3, 'stride2_set': 3, 'stage_maps': 3}
     path = str(tmp_path / 'program.pt2')

@@ -368,4 +368,5 @@ def test_build_without_nvcc_raises_naming_the_command(tmp_path, monkeypatch):
                             'zwin_conv_fwd_epi': 0, 'index_mark': 0,
                             'index_count': 0, 'index_prefix': 0,
                             'index_set': 0, 'index_table': 0,
-                            'index_maps': 0, 'plane_sweep_fwd': 0}
+                            'index_maps': 0, 'plane_sweep_fwd': 0,
+                            'window_in_fwd': 0, 'window_out_fwd': 0}

@@ -9,7 +9,9 @@
 ``StreamingState`` in, the prediction and the new state out) on a
 synthetic batch and ``torch.export.save`` writes the program: its graph,
 the weights and the custom ops it calls (``fusionocc::bev_pool``,
-``fusionocc::window_attn``, ``fusionocc::zwin_conv`` and, with
+``fusionocc::window_attn``, Swin's glue ``fusionocc::window_in`` and
+``window_out`` (traced under ``no_grad``, so the eval path's),
+``fusionocc::zwin_conv`` and, with
 ``lidar.zwin_fuse``, ``fusionocc::zwin_conv_epi``, and each sparse stage's
 index builds ``fusionocc::stride2_count``, ``stride2_set`` and
 ``stage_maps``: the hand-written kernels on the card, their plain versions
@@ -102,7 +104,7 @@ def run_loaded(path: str, batch, state=None):
     (and, streaming, the new cache tensors)."""
     # importing the kernels' modules registers their ops
     from fusionocc_tpu_torch.ops import (bev_pool, sparse_conv,  # noqa: F401
-                                         window_attn, zwin_conv)
+                                         swin_glue, window_attn, zwin_conv)
     program = torch.export.load(path).module()
     with torch.no_grad():
         return program(*program_args(batch, state))

@@ -114,7 +114,7 @@ def main() -> None:
                             frames=model.input_frames)
     idxs = batch_pooling_indices(cfg, batch)[:1]    # the key frame's
     idxs += [None] * (cfg.num_frame - 1)
-    state = model.init_streaming_state(1)
+    state = model.init_streaming_state(1) if args.streaming else None
 
     def step():
         nonlocal state
