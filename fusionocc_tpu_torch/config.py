@@ -235,6 +235,52 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class BEVFormerConfig:
+    """BEVFormer-Occ's own sizes (``models/bevformer_occ.py``), with the
+    published defaults of Occ3D's ``bevformer_base_occ.py``; the camera
+    count, input size, classes, grid and compute dtype are the
+    ``ModelConfig``'s.  The BEV is the grid's x-y plane (200 x 200) and the
+    head's pillar its z cells (16).
+
+    Backbone: a caffe-style ResNet of ``stage_blocks`` Bottlenecks (101:
+    3, 4, 23, 3) at ``base_channels``, frozen BatchNorm, DCNv2 in place of
+    the 3x3 conv of every block of the stages ``stage_with_dcn`` marks,
+    outputs of the stages ``out_indices``; the mmdet FPN to ``embed_dims``
+    with one extra stride-2 conv on its last output (``num_levels`` in
+    all).  Images are padded to a multiple of ``pad_divisor``.  Encoder:
+    ``num_layers`` layers of temporal self-attention (``tsa_points`` a head
+    over two BEV frames), spatial cross-attention (``sca_points`` a head
+    and level over ``pillar_points`` anchors a pillar) and an FFN of
+    ``ffn_dims``.  ``frame_interval_s``: the key frames' interval, for the
+    can-bus velocity."""
+    base_channels: int = 64
+    stage_blocks: Tuple[int, ...] = (3, 4, 23, 3)
+    stage_with_dcn: Tuple[bool, ...] = (False, False, True, True)
+    out_indices: Tuple[int, ...] = (1, 2, 3)
+    num_levels: int = 4
+    pad_divisor: int = 32
+    embed_dims: int = 256
+    num_heads: int = 8
+    num_layers: int = 6
+    ffn_dims: int = 512
+    tsa_points: int = 4
+    sca_points: int = 8
+    pillar_points: int = 4
+    out_dim: int = 32
+    frame_interval_s: float = 0.5
+
+
+def tiny_bevformer_config(**overrides) -> BEVFormerConfig:
+    """BEVFormer's block kinds at a CPU-testable size: one Bottleneck a
+    stage but two in the third, DCN in the last two stages, two encoder
+    layers of width 32 with 4 heads."""
+    cfg = BEVFormerConfig(base_channels=8, stage_blocks=(1, 1, 2, 1),
+                          embed_dims=32, num_heads=4, num_layers=2,
+                          ffn_dims=64, out_dim=8)
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+@dataclass(frozen=True)
 class OptimConfig:
     """AdamW with warmup and cosine decay, clipping, EMA and accumulation
     (``train/loop.py``).  The same fields and defaults as JAX's."""

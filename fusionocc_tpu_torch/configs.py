@@ -8,10 +8,13 @@ variants). Here each variant is a named preset over the frozen dataclasses.
 The port's copy of ``fusionocc_tpu/configs.py``: the same names, the same
 field values, on the port's ``TrainConfig``.
 
-One preset is another architecture on the same path:
+Two presets are other architectures on the same path:
 ``bevdet_occ_stbase_stereo``, BEVDet-Occ's BEVStereo4D-Occ with Swin-B at
-512x1408 (``models/bevstereo_occ.py``).  ``build_model`` builds the model a
-preset names, of its class (``ARCHITECTURES``; FusionOcc otherwise).
+512x1408 (``models/bevstereo_occ.py``), and ``bevformer_base_occ``,
+Occ3D's BEVFormer-Occ with ResNet-101-DCN at 900x1600
+(``models/bevformer_occ.py``, its own sizes ``config.BEVFormerConfig``'s
+defaults).  ``build_model`` builds the model a preset names, of its class
+(``ARCHITECTURES``; FusionOcc otherwise).
 
 Usage:
     from fusionocc_tpu_torch.configs import get_config, CONFIGS
@@ -142,6 +145,17 @@ def _bevdet_occ_stereo() -> TrainConfig:
                                  downsample=16)), optim=OptimConfig())
 
 
+def _bevformer_occ() -> TrainConfig:
+    """BEVFormer-Occ (Occ3D's projects/configs/bevformer/
+    bevformer_base_occ.py): 6 cameras at 900x1600, FusionOcc's grid (the
+    Occ3D-nuScenes 200x200x16 over [-40, 40] x [-40, 40] x [-1, 5.4]) and
+    18 classes, no LiDAR; the model's own sizes are ``BEVFormerConfig``'s.
+    The optimizer stays at the port's defaults (no training is ported)."""
+    return TrainConfig(model=full_model_config(
+        input_size=(900, 1600), use_lidar=False, lidar_out_channels=0),
+        optim=OptimConfig())
+
+
 def _tiny() -> TrainConfig:
     return TrainConfig(model=tiny_model_config(),
                        optim=OptimConfig(warmup_iters=10, iters_per_epoch=10))
@@ -199,11 +213,13 @@ CONFIGS: Dict[str, Callable[[], TrainConfig]] = {
     'tiny': _tiny,
     # --- another architecture on the port's path ---
     'bevdet_occ_stbase_stereo': _bevdet_occ_stereo,
+    'bevformer_base_occ': _bevformer_occ,
 }
 
 # presets whose model is not FusionOcc: name -> (module of models/, class)
 ARCHITECTURES: Dict[str, Tuple[str, str]] = {
     'bevdet_occ_stbase_stereo': ('bevstereo_occ', 'BEVStereo4DOcc'),
+    'bevformer_base_occ': ('bevformer_occ', 'BEVFormerOcc'),
 }
 
 

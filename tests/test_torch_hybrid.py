@@ -1,10 +1,10 @@
 """The port's hybrid data x spatial mesh on gloo processes on the CPU.
 
 ``parallel.mesh.hybrid_mesh(n_data, n_spatial)`` with
-``parallel.hybrid.HybridFusionOcc(cfg, mesh)``, the tiny config, fp32.  Two
-spawns (``torch_parallel_ranks.hybrid_checks``): 4 ranks at (2, 2), 2 ranks at
-(1, 2) and 4 ranks at (1, 4), each running every check of this file in
-turn.  At 2 spatial ranks
+``parallel.hybrid.HybridFusionOcc(cfg, mesh)``, the tiny config, fp32.  Three
+spawns (``torch_parallel_ranks.hybrid_checks``), side by side: 4 ranks at
+(2, 2), 2 ranks at (1, 2) and 4 ranks at (1, 4), each running every check
+of this file in turn.  At 2 spatial ranks
 the tiny trunk's Y levels 20, 10 and 5 split 10 + 10, 5 + 5 and 3 + 2: the
 last level is uneven at both meshes.
 
@@ -215,15 +215,17 @@ def runs(tmp_path_factory):
     mm_path, mm14_path, mm_ref = multimodal_inputs(tmp)
     tc, train_path, train_refs = train_inputs(tmp)
     _, train14_path, train14_refs = train_inputs(tmp, 1, 'train_1x4')
-    square = tpr.spawn(tpr.hybrid_checks, 4, os.path.join(tmp, 'r22'), 2, [
-        (img_paths['2x2'], ['forward']),
-        (mm_path, ['forward', 'stream', 'halo', 'metric']),
-        (None, [('train', tc, train_path, 1)])])
-    row = tpr.spawn(tpr.hybrid_checks, 2, os.path.join(tmp, 'r12'), 2, [
-        (mm_path, ['forward', 'halo'])])
-    quad = tpr.spawn(tpr.hybrid_checks, 4, os.path.join(tmp, 'r14'), 4, [
-        (img_paths['1x4'], ['forward']), (mm14_path, ['forward']),
-        (None, [('train', tc, train14_path, 1)])])
+    # the three meshes' groups side by side
+    square, row, quad = (f.result() for f in [
+        tpr.started(tpr.hybrid_checks, 4, os.path.join(tmp, 'r22'), 2, [
+            (img_paths['2x2'], ['forward']),
+            (mm_path, ['forward', 'stream', 'halo', 'metric']),
+            (None, [('train', tc, train_path, 1)])]),
+        tpr.started(tpr.hybrid_checks, 2, os.path.join(tmp, 'r12'), 2, [
+            (mm_path, ['forward', 'halo'])]),
+        tpr.started(tpr.hybrid_checks, 4, os.path.join(tmp, 'r14'), 4, [
+            (img_paths['1x4'], ['forward']), (mm14_path, ['forward']),
+            (None, [('train', tc, train14_path, 1)])])])
     return {'img': (img_ref['2x2'], [r[0] for r in square]),
             'img14': (img_ref['1x4'], [r[0] for r in quad]),
             'mm': {'2x2': [r[1] for r in square], '1x2': [r[0] for r in row],

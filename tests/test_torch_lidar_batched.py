@@ -13,6 +13,7 @@ each package), features equal.  The port pads a batch to its largest
 sample: its rows past a sample's count are masked, and every build on the
 batch equals the same build on each sample alone.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,14 @@ from test_torch_lidar_ops import _same_nbr, _snap, _t
 from torch_threads import one_torch_thread  # noqa: E402,F401
 
 ZFOLD_CAPACITY = (400, 260, 80, 30)      # the first sample overflows each
+
+# JAX's builds each as one jitted function, as the JAX model runs them
+# inside its jit (op by op they compiled some 400 programs on the CPU)
+j_voxelize = jax.jit(jvox.voxelize_mean, static_argnums=(2, 3, 4, 5))
+j_regroup = jax.jit(jzf.zfold_regroup, static_argnums=(1, 2, 3))
+j_stage = jax.jit(lambda zv, shape, cap: jsc.stage_indices_table(
+    jzf.as_sparse(zv), shape, cap), static_argnums=(1, 2))
+j_lane_mask = jax.jit(jzf.strided_lane_mask, static_argnums=(3, 4))
 
 
 @pytest.fixture(scope='module')
@@ -83,8 +92,8 @@ def test_batched_builds_match_jax_and_each_sample(clouds):
     cells = lc.sparse_shape(jc.grid)
     pcr = jc.grid.point_cloud_range
     cap = lc.voxel_capacity[0]
-    jsp = jvox.voxelize_mean(jnp.asarray(points), jnp.asarray(pmask), pcr,
-                             lc.voxel_size, cells, cap)
+    jsp = j_voxelize(jnp.asarray(points), jnp.asarray(pmask), pcr,
+                     lc.voxel_size, cells, cap)
     tsp = tvox.voxelize_mean(_t(points), _t(pmask), pcr, lc.voxel_size,
                              cells, cap)
     m = _same_set('voxels', tsp.mask, jsp.mask)
@@ -99,7 +108,7 @@ def test_batched_builds_match_jax_and_each_sample(clouds):
             assert torch.equal(got[0, :n], want[b, :n])
 
     fold = min(lc.zfold, cells[2])
-    jzv = jzf.zfold_regroup(jsp, cells, ZFOLD_CAPACITY[0], fold)
+    jzv = j_regroup(jsp, cells, ZFOLD_CAPACITY[0], fold)
     tzv = tzf.zfold_regroup(tsp, cells, ZFOLD_CAPACITY[0], fold)
     m = _same_set('supers', tzv.mask, jzv.mask)
     assert m[0].sum() == ZFOLD_CAPACITY[0]
@@ -116,8 +125,7 @@ def test_batched_builds_match_jax_and_each_sample(clouds):
     for i in range(len(lc.encoder_channels) - 1):
         sshape = jzf.super_shape(cells, fold)
         cap = ZFOLD_CAPACITY[i + 1]
-        jn, ((joc, jok, jom, jsn), jshape) = jsc.stage_indices_table(
-            jzf.as_sparse(jzv), sshape, cap)
+        jn, ((joc, jok, jom, jsn), jshape) = j_stage(jzv, sshape, cap)
         tn, ((toc, tok, tom, tsn), tshape) = tsc.stage_indices_table(
             tzf.as_sparse(tzv), sshape, cap)
         assert tshape == jshape
@@ -132,7 +140,7 @@ def test_batched_builds_match_jax_and_each_sample(clouds):
             _same_nbr(tsn[b:b + 1], jsn[b], tom[b:b + 1], s_in_t, s_in_j)
         cells = jsc.out_shape_strided(cells)
         f_out = min(lc.zfold, cells[2])
-        jlane = jzf.strided_lane_mask(jzv.lane_mask, jom, jsn, fold, f_out)
+        jlane = j_lane_mask(jzv.lane_mask, jom, jsn, fold, f_out)
         tlane = tzf.strided_lane_mask(tzv.lane_mask, tom, tsn, fold, f_out)
         _same_rows(f'stage {i} lane mask', tlane, jlane, om)
         jzv = jzf.ZFoldVoxels(jlane.astype(jnp.float32),

@@ -3,7 +3,9 @@
 Each case spawns 2 ranks (``torch_parallel_ranks.spawn``: a gloo group
 through ``init_distributed('file://...')``), fp32, the tiny multi-modal
 config (the LiDAR encoder on the z-folded path).  Two rank processes run
-every case of one fixture in turn.
+every case of one fixture in turn; (a)'s and (b)'s ranks are two groups,
+each on a thread of the test process (``torch_parallel_ranks.started``),
+beside JAX's compile and the one process's steps.
 
 (a) 2 ranks x batch 1 against one process at batch 2, with the random
     draws on (ASPP's dropout, the depth-input drop at 0.5, drop path at
@@ -121,29 +123,36 @@ def train_runs(tmp_path_factory):
         path = os.path.join(tmp, f'acc{acc}.pt')
         torch.save(starts[acc][1], path)
         jobs.append((tc, path, 2, True))
+    # the ranks run beside JAX's compile and the one process's steps
+    draws = tpr.started(tpr.train_runs, WORLD, os.path.join(tmp, 'ranks'),
+                        jobs)
     jax_step = tts.jax_train_step(WORLD)
     one, (tc, start, batch) = tts.port_train_step(jax_step[0], WORLD)
     path = os.path.join(tmp, 'jax.pt')
     torch.save({'model': start, 'batch': batch}, path)
-    jobs.append((tc, path, 1, False))
-    ranks = tpr.spawn(tpr.train_runs, WORLD, os.path.join(tmp, 'ranks'),
-                      jobs)
-    cases = {'jax': (jax_step, one, [r[2] for r in ranks])}
-    for acc in (1, 2):
-        tc, saved = starts[acc]
-        got = [r[acc - 1] for r in ranks]
-        imgs = saved['batch'].imgs
-        moved = imgs * (1 + NOISE * torch.randn(
-            imgs.shape, generator=torch.Generator().manual_seed(5)))
-        refs = []
-        for s in range(2):
-            before = dict(saved, **(got[0]['after'][s - 1] if s else {}))
+    no_draws = tpr.started(tpr.train_runs, WORLD,
+                           os.path.join(tmp, 'ranks_jax'),
+                           [(tc, path, 1, False)])
+    moved, refs = {}, {1: [], 2: []}
+    for s in range(2):
+        for acc in (1, 2):
+            tc, saved = starts[acc]
+            if s == 0:
+                imgs = saved['batch'].imgs
+                moved[acc] = imgs * (1 + NOISE * torch.randn(
+                    imgs.shape, generator=torch.Generator().manual_seed(5)))
+                before = saved
+            else:       # from the state the ranks held after step 0
+                before = dict(saved, **draws.result()[0][acc - 1]['after'][0])
             paths = [os.path.join(tmp, f'acc{acc}_step{s}.pt')]
             torch.save(before, paths[0])
-            paths += [_perturbed(tmp, f'acc{acc}_step{s}_{w}', before, moved,
-                                 w) for w in (False, True)]
-            refs.append([tpr.train_run(0, 1, tc, p, 1) for p in paths])
-        cases[acc] = (tc, refs, got)
+            paths += [_perturbed(tmp, f'acc{acc}_step{s}_{w}', before,
+                                 moved[acc], w) for w in (False, True)]
+            refs[acc].append([tpr.train_run(0, 1, tc, p, 1) for p in paths])
+    ranks = draws.result()
+    cases = {'jax': (jax_step, one, [r[0] for r in no_draws.result()])}
+    for acc in (1, 2):
+        cases[acc] = (starts[acc][0], refs[acc], [r[acc - 1] for r in ranks])
     return cases
 
 

@@ -36,7 +36,8 @@ TOOL = os.path.join(REPO, 'tools', 'train_torch.py')
 LOSS_RTOL, FIRST_NORM_RTOL, NORM_RTOL = 1e-4, 1e-4, 1e-2
 
 
-def _train(work_dir, *extra, ranks: int = 1, steps: int = 2):
+def _start(work_dir, *extra, ranks: int = 1, steps: int = 2):
+    """The tool's run, started; ``_done`` waits for it."""
     args = [TOOL, '--tiny', '--synthetic', '--steps', str(steps), '--device',
             'cpu', '--log-interval', '1', '--work-dir', str(work_dir),
             *extra]
@@ -44,10 +45,16 @@ def _train(work_dir, *extra, ranks: int = 1, steps: int = 2):
         args = ['-m', 'torch.distributed.run', '--standalone',
                 '--nproc_per_node', str(ranks), *args]
     env = dict(os.environ, OMP_NUM_THREADS='1')
-    out = subprocess.run([sys.executable, *args], capture_output=True,
-                         text=True, timeout=300, cwd=REPO, env=env)
-    assert out.returncode == 0, out.stderr[-3000:]
-    return out.stdout
+    return subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=REPO,
+                            env=env)
+
+
+def _done(proc):
+    """The standard output of a run ``_start`` started; it must succeed."""
+    out, err = proc.communicate(timeout=300)
+    assert proc.returncode == 0, err[-3000:]
+    return out
 
 
 def _scalars(work_dir):
@@ -67,9 +74,11 @@ def _assert_same_steps(got, want):
 
 
 def test_torchrun_two_ranks_write_the_batch2_scalars(tmp_path):
+    """The ranks' run and the one process's run side by side (each pair
+    shares nothing but the seed)."""
     ranks, one = tmp_path / 'ranks', tmp_path / 'one'
-    stdout = _train(ranks, ranks=2)
-    _train(one, '--batch-size', '2')
+    runs = [_start(ranks, ranks=2), _start(one, '--batch-size', '2')]
+    stdout, _ = map(_done, runs)
     got, want = _scalars(ranks), _scalars(one)
     assert [r['step'] for r in got] == [1, 2]       # rank 0 alone writes
     assert sum(ln.startswith('step ') for ln in stdout.splitlines()) == 2
@@ -80,8 +89,9 @@ def test_torchrun_two_ranks_write_the_batch2_scalars(tmp_path):
     assert sorted(os.listdir(ranks)) == ['scalars.jsonl', 'step_2'] + (
         ['tb'] if tensorboard else [])
     assert not tensorboard or len(os.listdir(ranks / 'tb')) == 1
-    _train(ranks, '--resume', str(ranks), ranks=2, steps=3)
-    _train(one, '--resume', str(one), '--batch-size', '2', steps=3)
+    runs = [_start(ranks, '--resume', str(ranks), ranks=2, steps=3),
+            _start(one, '--resume', str(one), '--batch-size', '2', steps=3)]
+    list(map(_done, runs))
     got, want = _scalars(ranks), _scalars(one)
     assert [r['step'] for r in got] == [1, 2, 3]
     _assert_same_steps(got[2:], want[2:])

@@ -3,7 +3,8 @@ on the CPU.
 
 The tiny nuScenes-shaped tree of ``tests/test_ondisk.make_fake_raw_tree``
 goes through ``tools/create_data.py``.  JAX's ``tools/test.py`` runs on it
-once (``--tiny --buckets --rayiou``) for the keys it prints; the port's
+once (``--tiny --buckets --rayiou``), beside the module's other tests, for
+the keys it prints; the port's
 tool, in two-pass, ``--streaming`` and ``--batch-frames`` mode, prints every
 one of them, one ``key: value`` line each, and ends with the result as one
 JSON line.  ``--config`` applies the preset's protocol (RayIoU, split
@@ -47,44 +48,42 @@ def _lines(out):
     return lines, json.loads(lines[-1])
 
 
-@pytest.fixture(scope='module')
-def jax_keys(tree):
-    """The keys JAX's ``tools/test.py`` prints on the tree."""
+@pytest.fixture(scope='module', autouse=True)
+def jax_tool(tree):
+    """JAX's ``tools/test.py`` on the tree, started with the module's first
+    test: it runs beside the port's tests until ``jax_keys`` reads it."""
     import subprocess
-    _, ann, seg = tree
-    proc = subprocess.run(
+    root, ann, seg = tree
+    logs = [open(os.path.join(root, f'jax_tool.{k}'), 'w+')
+            for k in ('out', 'err')]
+    proc = subprocess.Popen(
         [sys.executable, os.path.join(REPO, 'tools', 'test.py'),
          '--ann-file', ann, '--img-seg-dir', seg, '--tiny', '--buckets',
          '--rayiou', '--max-samples', '2', '--warmup', '0'],
-        capture_output=True, text=True, timeout=600, cwd=REPO,
+        stdout=logs[0], stderr=logs[1], text=True, cwd=REPO,
         env=dict(os.environ, JAX_PLATFORMS='cpu', **ONE_THREAD))
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    return list(_lines(proc.stdout)[1])
+    yield proc, logs
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    for f in logs:
+        f.close()
+
+
+@pytest.fixture(scope='module')
+def jax_keys(jax_tool):
+    """The keys JAX's ``tools/test.py`` prints on the tree."""
+    proc, logs = jax_tool
+    proc.wait(timeout=600)
+    out, err = (f.seek(0) or f.read() for f in logs)
+    assert proc.returncode == 0, err[-2000:]
+    return list(_lines(out)[1])
 
 
 def _run_port(argv, capsys):
     import tools.test_torch as tt
     tt.main(argv)
     return _lines(capsys.readouterr().out)
-
-
-@pytest.mark.parametrize('mode', ['two-pass', 'streaming', 'batch-frames',
-                                  'int8', 'int8-weights'])
-def test_port_tool_prints_every_jax_key(tree, jax_keys, capsys, mode):
-    _, ann, seg = tree
-    extra = {'two-pass': [], 'streaming': ['--streaming'],
-             'batch-frames': ['--batch-frames'], 'int8': ['--int8'],
-             'int8-weights': ['--int8-weights']}[mode]
-    lines, res = _run_port(['--tiny', '--device', 'cpu', '--ann-file', ann,
-                            '--img-seg-dir', seg, '--buckets', '--rayiou',
-                            '--warmup', '0'] + extra, capsys)
-    assert list(res) == jax_keys
-    assert lines[:-1][-len(res):] == [f'{k}: {v}' for k, v in res.items()]
-    assert res['samples'] == 3
-    for key in ('mIoU', 'RayIoU', 'mIoU_radius_0-20m', 'latency_mean_ms',
-                'fps'):
-        assert np.isfinite(res[key]), key
-    assert 0.0 <= res['mIoU'] <= 100.0 and res['total_params'] > 0
 
 
 def test_config_protocol_and_saved_predictions(tree, capsys, tmp_path):
@@ -161,3 +160,23 @@ def test_train_tool_steps_from_the_tree_and_its_checkpoint_evaluates(
     name = 'img_backbone.patch_embed.projection.weight'
     assert not torch.equal(saved['train_state']['ema'][name],
                            saved['model'][name])
+
+
+@pytest.mark.parametrize('mode', ['two-pass', 'streaming', 'batch-frames',
+                                  'int8', 'int8-weights'])
+def test_port_tool_prints_every_jax_key(tree, capsys, mode, request):
+    """Last in the module: JAX's tool ran beside the tests before it."""
+    _, ann, seg = tree
+    extra = {'two-pass': [], 'streaming': ['--streaming'],
+             'batch-frames': ['--batch-frames'], 'int8': ['--int8'],
+             'int8-weights': ['--int8-weights']}[mode]
+    lines, res = _run_port(['--tiny', '--device', 'cpu', '--ann-file', ann,
+                            '--img-seg-dir', seg, '--buckets', '--rayiou',
+                            '--warmup', '0'] + extra, capsys)
+    assert list(res) == request.getfixturevalue('jax_keys')
+    assert lines[:-1][-len(res):] == [f'{k}: {v}' for k, v in res.items()]
+    assert res['samples'] == 3
+    for key in ('mIoU', 'RayIoU', 'mIoU_radius_0-20m', 'latency_mean_ms',
+                'fps'):
+        assert np.isfinite(res[key]), key
+    assert 0.0 <= res['mIoU'] <= 100.0 and res['total_params'] > 0

@@ -4,7 +4,10 @@ a fresh process that imports the port alone).
 ``spawn(fn, world, tmp, *args)`` runs ``fn(rank, world, *args)`` on
 ``world`` CPU processes joined in a gloo group through
 ``init_distributed('file://<tmp>/store', ...)`` and returns each rank's
-result (``torch.save``d under ``tmp``).  ``train_run`` takes train steps
+result (``torch.save``d under ``tmp``); ``started(fn, world, tmp, *args)``
+runs the same spawn on a thread and returns its future, so that groups
+(each with its own ``tmp``) run side by side or beside the caller's own
+work.  ``train_run`` takes train steps
 on a rank's rows of a global batch, or on the whole batch outside a group;
 ``train_runs`` several in turn.  ``batchnorm_run``, ``loss_run`` and
 ``metric_run`` apply a layer, the losses and the metric to a rank's part
@@ -18,6 +21,7 @@ modes, a halo exchange's gradient and train steps (``train_run`` with
 """
 import copy
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.distributed as dist
@@ -48,6 +52,15 @@ def spawn(fn, world: int, tmp: str, *args) -> list:
                        join=True, start_method='spawn')
     return [torch.load(os.path.join(tmp, f'rank{r}.pt'), weights_only=False)
             for r in range(world)]
+
+
+def started(fn, world: int, tmp: str, *args):
+    """``spawn(fn, world, tmp, *args)`` on a thread of its own: its future
+    (``.result()`` the ranks' results, or the spawn's error)."""
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(spawn, fn, world, tmp, *args)
+    pool.shutdown(wait=False)
+    return future
 
 
 def train_run(rank: int, world: int, tc, path: str, steps: int,

@@ -1,8 +1,8 @@
 """Where one full-size ``predict`` of the PyTorch port, or one
 ``predict_streaming`` frame, of a preset (the default multi-modal
 ``fusion_occ`` unless ``--config`` names another, say
-``bevdet_occ_stbase_stereo``) spends its time on the GPU, by the program's
-own spans and waits.
+``bevdet_occ_stbase_stereo`` or ``bevformer_base_occ``) spends its time on
+the GPU, by the program's own spans and waits.
 
     python3 tools/profile_torch_predict.py [--config fusion_occ] [--iters 3]
         [--top 25] [--streaming] [--zwin-fuse] [--int8]
@@ -15,7 +15,9 @@ does (bf16, seeded random weights, a synthetic batch of the model's
 frame's built in the call (the evaluation's semantics) or, with
 ``--streaming``, one ``predict_streaming`` frame with the key index cached,
 on the cache the step before left (the same frame each step: the warp
-costs the same whatever the motion):
+costs the same whatever the motion).  BEVFormer-Occ caches its rig's
+spatial cross-attention index (``rig_index``) in the pooling index's
+place, and its streamed step carries the previous BEV:
 
 - ms per step with the port's tracing off and on, alternated, without a
   profiler;
@@ -112,14 +114,18 @@ def main() -> None:
                          torch.Generator().manual_seed(0))
     batch = synthetic_batch(cfg, 1, 0, device=dev,
                             frames=model.input_frames)
-    idxs = batch_pooling_indices(cfg, batch)[:1]    # the key frame's
-    idxs += [None] * (cfg.num_frame - 1)
+    if hasattr(model, 'rig_index'):                 # BEVFormer-Occ
+        key = idxs = model.rig_index(batch)
+    else:
+        idxs = batch_pooling_indices(cfg, batch)[:1]    # the key frame's
+        idxs += [None] * (cfg.num_frame - 1)
+        key = idxs[0]
     state = model.init_streaming_state(1) if args.streaming else None
 
     def step():
         nonlocal state
         if args.streaming:
-            _, _, state = model.predict_streaming(batch, state, idxs[0])
+            _, _, state = model.predict_streaming(batch, state, key)
         else:
             model.predict(batch, idxs)
     what = 'streaming frame' if args.streaming else 'predict'

@@ -87,6 +87,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     if not args.synthetic and not args.ann_file:
         ap.error('pass --ann-file (an infos pkl) or --synthetic')
     from fusionocc_tpu_torch.configs import ARCHITECTURES
+    if ARCHITECTURES.get(args.config, ('',))[0] == 'bevformer_occ':
+        ap.error(f'--config {args.config} builds BEVFormerOcc, whose '
+                 'evaluation loop is not ported here (its streamed path '
+                 'runs in the benchmark cell bevformer_base_occ.'
+                 'stream_temporal)')
     if (args.streaming or args.batch_frames) and args.config in ARCHITECTURES:
         ap.error(f'--config {args.config} builds '
                  f'{ARCHITECTURES[args.config][1]}, which runs two-pass only:'
